@@ -1,0 +1,3 @@
+from .base import BACKBONE_FEAT_DIMS, Segtran2dConfig, TransformerConfig
+
+__all__ = ["BACKBONE_FEAT_DIMS", "Segtran2dConfig", "TransformerConfig"]

@@ -1,0 +1,78 @@
+"""JAX variables -> the port's ``state_dict``.
+
+The reverse of the JAX package's torch importer (rules of
+``convert/torch_import.py:8-18``), kept here as the port's own copy:
+
+* flax scope ``name_N`` of a module list  -> ``name.N``
+* Dense ``kernel [in, out]``              -> Linear ``weight [out, in]``
+* conv ``kernel [kh, kw, I, O]``          -> ``weight [O, I, kh, kw]``
+  (depthwise ``[kh, kw, 1, C]`` -> ``[C, 1, kh, kw]``)
+* MMPrivateLinear ``kernel [M, F, F]``    -> ``weight [M, F, F]`` as is
+* ``scale`` / ``bias``                    -> ``weight`` / ``bias``
+* ``batch_stats`` ``mean`` / ``var``      -> ``running_mean`` / ``running_var``
+* tied Q/K: the JAX tree holds one ``query`` set, and so does the port.
+
+Every leaf must map; a leaf no rule covers raises.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+_LIST_SCOPE = re.compile(r"(.+)_(\d+)")
+
+
+def _leaves(tree: Dict[str, Any], path=()) -> Iterator[Tuple[tuple, Any]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _module_key(path: tuple) -> str:
+    parts = []
+    for p in path:
+        m = _LIST_SCOPE.fullmatch(p)
+        parts.append(f"{m.group(1)}.{m.group(2)}" if m else p)
+    return ".".join(parts)
+
+
+def _param(leaf: str, arr: np.ndarray, where: str) -> Tuple[str, np.ndarray]:
+    if leaf == "kernel":
+        if arr.ndim == 2:
+            return "weight", arr.T
+        if arr.ndim == 3:
+            return "weight", arr
+        if arr.ndim == 4:
+            return "weight", arr.transpose(3, 2, 0, 1)
+    elif leaf == "scale":
+        return "weight", arr
+    elif leaf in ("bias", "attractors"):
+        return leaf, arr
+    raise ValueError(f"no conversion rule for JAX leaf {where} "
+                     f"{arr.shape}")
+
+
+def state_dict_from_jax(params: Dict[str, Any],
+                        batch_stats: Dict[str, Any] | None = None
+                        ) -> Dict[str, torch.Tensor]:
+    """params / batch_stats: nested dicts of numpy arrays (e.g.
+    ``jax.tree_util.tree_map(np.asarray, variables)``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, arr in _leaves(params):
+        where = "params/" + "/".join(path)
+        name, val = _param(path[-1], np.asarray(arr), where)
+        sd[_module_key(path[:-1] + (name,))] = torch.from_numpy(
+            np.array(val, dtype=np.float32))
+    for path, arr in _leaves(batch_stats or {}):
+        leaf = {"mean": "running_mean", "var": "running_var"}.get(path[-1])
+        if leaf is None:
+            raise ValueError("no conversion rule for JAX leaf batch_stats/"
+                             + "/".join(path))
+        sd[_module_key(path[:-1] + (leaf,))] = torch.from_numpy(
+            np.array(arr, dtype=np.float32))
+    return sd

@@ -1,0 +1,286 @@
+"""Fused expansion epilogue: per-mode private output linear + LayerNorm +
+learned softmax mode pooling, optionally with the shared FFN mid
+``gelu(P @ VW1 + b1)`` computed in the same pass.
+
+Counterpart of ``segtran_tpu/kernels/expansion_epilogue.py``. Each function
+keeps the JAX signature (minus ``tile_n``/``interpret``) and has a plain
+PyTorch version beside it (``*_plain``) that repeats the kernel's
+arithmetic rounding point for rounding point. The wrapper takes the plain
+version only for tensors on the CPU; for CUDA tensors it launches the
+hand-written kernel in ``csrc/expansion_epilogue.cu`` (built by nvcc for
+sm_90a at first use) or raises. Each wrapper counts its kernel launches in
+its ``launches`` attribute.
+
+Per mode m (the reference's ExpandedFeatTrans tail, segtran_shared.py
+:255-275 and :311-325; the private output drops its residual):
+
+    mid_m = gelu(P_m @ VW1_m + b1)    (fused_mid_output_pool[_permode])
+    z_m   = mid_m @ W2_m + b2_m
+    l_m   = LayerNorm(z_m)            (eps 1e-12, fp32 stats, var >= 0)
+    s_m   = l_m @ ws + bs
+    out   = sum_m softmax_m(s) * l_m  (fp32)
+
+See the CUDA source for what bounds the kernel on an H100 and what its
+design does about it.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List
+
+import torch
+
+from . import _build
+
+_SRC = "expansion_epilogue"
+# take the all-modes tier while M*F*F*itemsize of W2 is at most half the
+# H100's 50 MB L2 (the kernel re-reads W2 for every row tile); a first
+# guess, to be re-measured
+W2_L2_BUDGET = 25 * 1000 * 1000
+
+_vp, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+
+
+def _lib():
+    lib = _build.load(_SRC)
+    if not getattr(lib, "_typed", False):
+        lib.epi_mid_pool.argtypes = [_i] + [_vp] * 12 + [_i] * 5 + [_d, _vp]
+        lib.epi_mid_pool.restype = _i
+        lib.epi_mid_mode.argtypes = [_i] + [_vp] * 12 + [_i] * 6 + [_d, _vp]
+        lib.epi_mid_mode.restype = _i
+        lib.epi_private_pool.argtypes = [_i] + [_vp] * 9 + [_i] * 4 + [_d, _vp]
+        lib.epi_private_pool.restype = _i
+        lib._typed = True
+    return lib
+
+
+def supports_full(num_modes: int, feat_dim: int, itemsize: int) -> bool:
+    """All-modes tier gate: W2 [M, F, F] within half of the L2."""
+    return num_modes * feat_dim * feat_dim * itemsize <= W2_L2_BUDGET
+
+
+# ---------------------------------------------------------------- plain ----
+
+def _gelu_erf(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) gelu computed in fp32 and rounded once to x.dtype."""
+    x32 = x.float()
+    return (0.5 * x32 * (1.0 + torch.erf(x32 * 0.7071067811865476))).to(x.dtype)
+
+
+def _out_ln_score(z32, b2, scale, lnb, ws, bs, dt, eps):
+    """From the fp32 output-linear product: bias-add in dt, LayerNorm (fp32
+    stats, normalize in dt), fp32 score. Returns (l [..., F] dt, s [...])."""
+    z = z32.to(dt) + b2
+    zf = z.float()
+    mean = zf.mean(-1, keepdim=True)
+    var = torch.clamp(zf.square().mean(-1, keepdim=True) - mean.square(),
+                      min=0.0)
+    inv = torch.rsqrt(var + eps)
+    l = (z - mean.to(dt)) * inv.to(dt) * scale.to(dt) + lnb.to(dt)
+    s = torch.matmul(l.float(), ws.to(dt).float().reshape(-1, 1))
+    return l, s[..., 0] + bs.float().reshape(())
+
+
+def _pool_modes(ls: List[torch.Tensor], ss: List[torch.Tensor], dt):
+    """Softmax over modes in fp32 and the weighted sum; ls: M x [B, N, F],
+    ss: M x [B, N] fp32 scores."""
+    s = torch.stack(ss)
+    e = torch.exp(s - s.max(0).values)
+    acc = sum(e[i][..., None] * ls[i].float() for i in range(len(ls)))
+    return (acc / e.sum(0)[..., None]).to(dt)
+
+
+def _mid_plain(probs, vw1, b1, dt):
+    mid32 = torch.matmul(probs.to(dt).float(), vw1.float())
+    return _gelu_erf(mid32.to(dt) + b1.to(dt))
+
+
+def fused_private_output_pool_plain(mid, w2, b2, ln_scale, ln_bias, ws, bs, *,
+                                    ln_eps: float = 1e-12):
+    dt = mid.dtype
+    z32 = torch.einsum("bmnf,mfg->bmng", mid.float(), w2.to(dt).float())
+    l, s = _out_ln_score(z32, b2.to(dt)[None, :, None, :], ln_scale, ln_bias,
+                         ws, bs, dt, ln_eps)
+    m = mid.shape[1]
+    return _pool_modes([l[:, i] for i in range(m)], [s[:, i] for i in range(m)],
+                       dt)
+
+
+def fused_mid_output_pool_plain(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws,
+                                bs, *, ln_eps: float = 1e-12):
+    mid = _mid_plain(probs, vw1, b1, vw1.dtype)
+    return fused_private_output_pool_plain(mid, w2, b2, ln_scale, ln_bias, ws,
+                                           bs, ln_eps=ln_eps)
+
+
+def _mode_plain(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs, mode,
+                ln_eps):
+    dt = vw1.dtype
+    mid = _mid_plain(probs[:, mode], vw1[:, mode], b1, dt)
+    z32 = torch.matmul(mid.float(), w2[mode].to(dt).float())
+    return _out_ln_score(z32, b2[mode].to(dt), ln_scale, ln_bias, ws, bs, dt,
+                         ln_eps)
+
+
+def fused_mid_output_pool_permode_plain(probs, vw1, b1, w2, b2, ln_scale,
+                                        ln_bias, ws, bs, *,
+                                        ln_eps: float = 1e-12):
+    outs = [_mode_plain(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs, m,
+                        ln_eps) for m in range(probs.shape[1])]
+    return _pool_modes([o[0] for o in outs], [o[1] for o in outs], vw1.dtype)
+
+
+# --------------------------------------------------------------- kernel ----
+
+def _prep(dt, device, *tensors):
+    """Cast to the compute dtype, make contiguous, and check the device.
+    These copies and the kernels' scratch tensors may be freed once the
+    wrapper returns, before the kernel runs: PyTorch's allocator reuses
+    them only for later work on the same stream, which the kernel
+    precedes."""
+    out = []
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"all inputs must be on {device}, got {t.device}")
+        out.append(t.to(dt).contiguous())
+    return out
+
+
+def _check_shapes(b, m, n, a, f, vw1, b1, w2, b2, ln_scale, ln_bias, ws,
+                  bs):
+    """Raise unless the operands have the shapes the kernel indexes."""
+    want = {"w2": (w2, (m, f, f)), "b2": (b2, (m, f)),
+            "ln_scale": (ln_scale, (f,)), "ln_bias": (ln_bias, (f,)),
+            "ws": (ws, (f, 1)), "bs": (bs, (1,))}
+    if vw1 is not None:
+        want.update(vw1=(vw1, (b, m, a, f)), b1=(b1, (f,)))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, the kernel "
+                             f"takes {shape}")
+
+
+def _check_dtype(dt):
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"expansion epilogue kernel takes float32 or "
+                        f"bfloat16, got {dt}")
+
+
+def _raise_if(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
+
+
+def fused_mid_output_pool(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs,
+                          *, ln_eps: float = 1e-12):
+    """probs [B, M, N, A], vw1 = V W1 [B, M, A, F], b1 [F], w2 [M, F, F],
+    b2 [M, F], ln_scale/ln_bias [F], ws [F, 1], bs [1] -> [B, N, F] in
+    vw1.dtype. Replaces the Pallas fused_mid_output_pool."""
+    if _on_cpu(probs):
+        return fused_mid_output_pool_plain(probs, vw1, b1, w2, b2, ln_scale,
+                                           ln_bias, ws, bs, ln_eps=ln_eps)
+    b, m, n, a = probs.shape
+    f = vw1.shape[-1]
+    dt, dev = vw1.dtype, vw1.device
+    _check_shapes(b, m, n, a, f, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs)
+    _check_dtype(dt)
+    lib = _lib()
+    p, v, b1_, w2_, b2_, sc, lb, ws_ = _prep(dt, dev, probs, vw1, b1, w2, b2,
+                                             ln_scale, ln_bias, ws)
+    bs_ = bs.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.empty((b, n, f), dtype=dt, device=dev)
+    mid_s = torch.empty((b, n, f), dtype=dt, device=dev)
+    acc_s = torch.empty((b, n, f), dtype=torch.float32, device=dev)
+    rc = lib.epi_mid_pool(
+        int(dt == torch.bfloat16), p.data_ptr(), v.data_ptr(), b1_.data_ptr(),
+        w2_.data_ptr(), b2_.data_ptr(), sc.data_ptr(), lb.data_ptr(),
+        ws_.data_ptr(), bs_.data_ptr(), out.data_ptr(), mid_s.data_ptr(),
+        acc_s.data_ptr(), b, m, n, a, f, ln_eps,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(rc, "fused_mid_output_pool")
+    fused_mid_output_pool.launches += 1
+    return out
+
+
+def fused_mid_output_pool_permode(probs, vw1, b1, w2, b2, ln_scale, ln_bias,
+                                  ws, bs, *, ln_eps: float = 1e-12):
+    """Large-F tier, same signature and result as fused_mid_output_pool: one
+    kernel launch per mode emits l_m [B, N, F] and s_m [B, N]; the mode
+    softmax pool runs in plain PyTorch. Replaces the Pallas
+    fused_mid_output_pool_permode."""
+    if _on_cpu(probs):
+        return fused_mid_output_pool_permode_plain(
+            probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs, ln_eps=ln_eps)
+    b, m, n, a = probs.shape
+    f = vw1.shape[-1]
+    dt, dev = vw1.dtype, vw1.device
+    _check_shapes(b, m, n, a, f, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs)
+    _check_dtype(dt)
+    lib = _lib()
+    p, v, b1_, w2_, b2_, sc, lb, ws_ = _prep(dt, dev, probs, vw1, b1, w2, b2,
+                                             ln_scale, ln_bias, ws)
+    bs_ = bs.to(device=dev, dtype=torch.float32).contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    mid_s = torch.empty((b, n, f), dtype=dt, device=dev)
+    ls, ss = [], []
+    for mi in range(m):
+        l_m = torch.empty((b, n, f), dtype=dt, device=dev)
+        s_m = torch.empty((b, n), dtype=torch.float32, device=dev)
+        rc = lib.epi_mid_mode(
+            int(dt == torch.bfloat16), p.data_ptr(), v.data_ptr(),
+            b1_.data_ptr(), w2_.data_ptr(), b2_.data_ptr(), sc.data_ptr(),
+            lb.data_ptr(), ws_.data_ptr(), bs_.data_ptr(), l_m.data_ptr(),
+            s_m.data_ptr(), mid_s.data_ptr(), mi, b, m, n, a, f, ln_eps,
+            stream)
+        _raise_if(rc, "fused_mid_output_pool_permode")
+        fused_mid_output_pool_permode.launches += 1
+        ls.append(l_m)
+        ss.append(s_m)
+    return _pool_modes(ls, ss, dt)
+
+
+def fused_private_output_pool(mid, w2, b2, ln_scale, ln_bias, ws, bs, *,
+                              ln_eps: float = 1e-12):
+    """mid [B, M, N, F] -> pooled [B, N, F] in mid.dtype. Replaces the Pallas
+    fused_private_output_pool."""
+    if _on_cpu(mid):
+        return fused_private_output_pool_plain(mid, w2, b2, ln_scale, ln_bias,
+                                               ws, bs, ln_eps=ln_eps)
+    b, m, n, f = mid.shape
+    dt, dev = mid.dtype, mid.device
+    _check_shapes(b, m, n, 0, f, None, None, w2, b2, ln_scale, ln_bias, ws,
+                  bs)
+    _check_dtype(dt)
+    lib = _lib()
+    mid_, w2_, b2_, sc, lb, ws_ = _prep(dt, dev, mid, w2, b2, ln_scale,
+                                        ln_bias, ws)
+    bs_ = bs.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.empty((b, n, f), dtype=dt, device=dev)
+    acc_s = torch.empty((b, n, f), dtype=torch.float32, device=dev)
+    rc = lib.epi_private_pool(
+        int(dt == torch.bfloat16), mid_.data_ptr(), w2_.data_ptr(),
+        b2_.data_ptr(), sc.data_ptr(), lb.data_ptr(), ws_.data_ptr(),
+        bs_.data_ptr(), out.data_ptr(), acc_s.data_ptr(), b, m, n, f, ln_eps,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(rc, "fused_private_output_pool")
+    fused_private_output_pool.launches += 1
+    return out
+
+
+for _fn in (fused_mid_output_pool, fused_mid_output_pool_permode,
+            fused_private_output_pool):
+    _fn.launches = 0
+
+
+def reset_launches() -> None:
+    for fn in (fused_mid_output_pool, fused_mid_output_pool_permode,
+               fused_private_output_pool):
+        fn.launches = 0

@@ -1,0 +1,379 @@
+"""The Squeeze-and-Expansion transformer core (eval path).
+
+Counterpart of ``segtran_tpu/nn/attention.py``; reference
+segtran_shared.py:200-325 (MM mid/output pieces, LearnedSoftAggregate),
+:329-476 (ExpandedFeatTrans), :478-610 (CrossAttFeatTrans), :787-816
+(SqueezedAttFeatTrans). Numerics follow the JAX modules, including their
+exact reassociations, so bf16 rounds at the same places:
+
+* scores scaled by 1/sqrt(in_feat_dim / num_modes) and clamped to
+  +-attn_clip only when the GLOBAL max of the whole score tensor (the whole
+  batch, padding images included) exceeds the clip;
+* exact (erf) gelu, LayerNorm eps 1e-12;
+* MMPrivateOutput drops its residual (the reference quirk) unless
+  ``fix_private_output_residual``;
+* V channel m*F+f belongs to mode m; tied Q/K ("shared") is one parameter
+  set applied twice.
+
+Parameters are stored fp32 in torch layouts (Linear ``weight [out, in]``;
+the private group linear ``weight [M, F_in, F_out]``) and cast to the
+compute dtype at use. Dropout is a training concern and lives with the
+training slice; these modules implement inference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import expansion_epilogue as epi
+from ..ops.norm import LayerNorm
+
+
+def _gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="none")
+
+
+def _clamp_if_exceeds(scores: torch.Tensor, clip: float) -> torch.Tensor:
+    """Clamp to [-clip, clip] only when the global max exceeds clip
+    (reference segtran_shared.py:575-580); no host sync."""
+    return torch.where(scores.max() > clip, scores.clamp(-clip, clip), scores)
+
+
+def dense(x: torch.Tensor, lin: nn.Linear, dtype) -> torch.Tensor:
+    """flax nn.Dense math: cast input and params to dtype, product, then the
+    bias added in dtype."""
+    y = torch.matmul(x.to(dtype), lin.weight.to(dtype).t())
+    return y + lin.bias.to(dtype) if lin.bias is not None else y
+
+
+@dataclasses.dataclass(frozen=True)
+class TransLayerSpec:
+    """Per-layer hyperparameters of one attention + expansion block."""
+    in_feat_dim: int
+    feat_dim: int
+    num_modes: int = 4
+    qk_have_bias: bool = True
+    v_has_bias: bool = False
+    tie_qk_scheme: str = "shared"          # shared | loose | none
+    attn_clip: float = 500.0
+    has_FFN: bool = True
+    mid_type: str = "shared"               # shared | private | none
+    trans_output_type: str = "private"
+    pool_modes_feat: str = "softmax"       # softmax | max | mean | none
+    fix_private_output_residual: bool = False
+    reassociate: bool = True
+    use_fused_epilogue: bool = False
+    ln_eps: float = 1e-12
+    dtype: Any = torch.float32
+
+    @property
+    def attention_mode_dim(self) -> int:
+        return self.in_feat_dim // self.num_modes
+
+    @property
+    def att_size_allmode(self) -> int:
+        return self.num_modes * self.attention_mode_dim
+
+
+class LearnedSoftAggregate(nn.Module):
+    """Learned softmax pooling over a group axis
+    (reference segtran_shared.py:311-325)."""
+
+    def __init__(self, num_feat: int, group_dim: int, dtype=torch.float32):
+        super().__init__()
+        self.feat2score = nn.Linear(num_feat, 1)
+        self.group_dim, self.dtype = group_dim, dtype
+
+    def forward(self, x):
+        scores = dense(x, self.feat2score, self.dtype)
+        probs = torch.softmax(scores, dim=self.group_dim)
+        return torch.sum(x * probs, dim=self.group_dim)
+
+
+class _SharedLinear(nn.Linear):
+    """The shared Dense of MMSharedMid / ExpandedFeatTrans with the
+    reassociation stages of the JAX module: ``full`` (plain Dense),
+    ``grouped`` (per-mode premul of probs-contracted features),
+    ``premul`` (x W, no bias) and ``probs`` (probs @ (x W) + b)."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool,
+                 dtype=torch.float32):
+        super().__init__(in_features, features, bias=use_bias)
+        self.dtype = dtype
+
+    def forward(self, x, probs=None, stage: str = "full"):
+        dt = self.dtype
+        if stage == "full" and probs is None:
+            return dense(x, self, dt)
+        w = self.weight.to(dt).t()                          # [C, F']
+        if stage == "grouped":
+            # x: [B, M, U1, C]; channel m*F+f is (mode m, feature f)
+            assert self.bias is None, "grouped premul needs v_has_bias=False"
+            m = x.shape[1]
+            ker = w.reshape(w.shape[0], m, w.shape[1] // m)
+            return torch.einsum("bmqc,cmf->bmqf", x.to(dt), ker)
+        xw = torch.matmul(x.to(dt), w)
+        if stage == "premul":
+            return xw
+        y = torch.matmul(probs, xw)
+        return y + self.bias.to(dt) if self.bias is not None else y
+
+
+class MMPrivateLinear(nn.Module):
+    """Per-mode private linear: weight [M, F, F] (in, out), bias [M, F]
+    (reference grouped 1x1 Conv1d, segtran_shared.py:200-218)."""
+
+    def __init__(self, num_modes: int, feat_dim: int, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num_modes, feat_dim, feat_dim))
+        self.bias = nn.Parameter(torch.zeros(num_modes, feat_dim))
+        self.dtype = dtype
+
+    def forward(self, x):                        # [B, M, U, F]
+        dt = self.dtype
+        y = torch.einsum("bmuf,mfg->bmug", x.to(dt), self.weight.to(dt))
+        return y + self.bias.to(dt)[None, :, None, :]
+
+
+class MMSharedMid(nn.Module):
+    """Shared FFN middle: Linear(F->F) + gelu (segtran_shared.py:220-251);
+    ``probs`` pushes the attention contraction through the linear."""
+
+    def __init__(self, feat_dim: int, dtype=torch.float32):
+        super().__init__()
+        self.shared_linear = _SharedLinear(feat_dim, feat_dim, True, dtype)
+
+    def forward(self, x, probs=None, stage: str = "full"):
+        y = self.shared_linear(x, probs=probs, stage=stage)
+        return y if stage == "premul" else _gelu_exact(y)
+
+
+class MMPrivateMid(nn.Module):
+    """Private (per-mode) FFN middle (segtran_shared.py:200-218)."""
+
+    def __init__(self, num_modes: int, feat_dim: int, dtype=torch.float32):
+        super().__init__()
+        self.group_linear = MMPrivateLinear(num_modes, feat_dim, dtype)
+
+    def forward(self, x):
+        return _gelu_exact(self.group_linear(x))
+
+
+class MMPrivateOutput(nn.Module):
+    """Private FFN output (segtran_shared.py:255-275): the reference
+    computes ``x + shortcut`` but normalizes ``x`` -- the residual is
+    dropped unless ``fix_residual``."""
+
+    def __init__(self, num_modes: int, feat_dim: int, fix_residual: bool,
+                 ln_eps: float, dtype=torch.float32):
+        super().__init__()
+        self.group_linear = MMPrivateLinear(num_modes, feat_dim, dtype)
+        self.resout_norm_layer = LayerNorm(feat_dim, ln_eps, dtype=dtype)
+        self.fix_residual = fix_residual
+
+    def forward(self, x, shortcut):
+        y = self.group_linear(x)
+        if self.fix_residual:
+            y = y + shortcut
+        return self.resout_norm_layer(y)
+
+
+class ExpandedFeatTrans(nn.Module):
+    """The expansion block: multi-mode V projection, attention-fused values,
+    FFN, mode pooling (segtran_shared.py:329-476)."""
+
+    def __init__(self, spec: TransLayerSpec):
+        super().__init__()
+        s = self.spec = spec
+        self.first_linear = _SharedLinear(s.in_feat_dim,
+                                          s.feat_dim * s.num_modes,
+                                          s.v_has_bias, s.dtype)
+        if not s.has_FFN:
+            self.first_norm_layer = LayerNorm(s.feat_dim, s.ln_eps,
+                                              dtype=s.dtype)
+        if s.pool_modes_feat == "softmax":
+            self.feat_softaggr = LearnedSoftAggregate(s.feat_dim, 1,
+                                                      dtype=s.dtype)
+        if s.has_FFN:
+            if s.mid_type == "shared":
+                self.intermediate = MMSharedMid(s.feat_dim, s.dtype)
+            elif s.mid_type == "private":
+                self.intermediate = MMPrivateMid(s.num_modes, s.feat_dim,
+                                                 s.dtype)
+            else:
+                self.intermediate = None
+            if s.trans_output_type != "private":
+                raise NotImplementedError(
+                    "trans_output_type='shared' belongs to a later slice of "
+                    "the port (the model zoo)")
+            self.output = MMPrivateOutput(
+                s.num_modes, s.feat_dim, s.fix_private_output_residual,
+                s.ln_eps, s.dtype)
+
+    def compute_v(self, input_feat):
+        """[B, U2, in] -> [B, M, U2, F]; channel m*F+f is (mode m, f)."""
+        s = self.spec
+        b, u2, _ = input_feat.shape
+        v = self.first_linear(input_feat)
+        return v.reshape(b, u2, s.num_modes, s.feat_dim).permute(0, 2, 1, 3)
+
+    def _epilogue_args(self):
+        o = self.output
+        agg = self.feat_softaggr.feat2score
+        return (o.group_linear.weight, o.group_linear.bias,
+                o.resout_norm_layer.weight, o.resout_norm_layer.bias,
+                agg.weight.t(), agg.bias)
+
+    def _fused_epilogue_ok(self) -> bool:
+        s = self.spec
+        return (s.use_fused_epilogue and not self.training and s.has_FFN
+                and not s.fix_private_output_residual
+                and s.pool_modes_feat == "softmax")
+
+    def _output_and_pool(self, mid, shortcut):
+        if self._fused_epilogue_ok():
+            return epi.fused_private_output_pool(
+                mid, *self._epilogue_args(), ln_eps=self.spec.ln_eps)
+        return self._pool_modes(self.output(mid, shortcut))
+
+    def forward(self, input_feat, attention_probs):
+        """input_feat [B, U2, in]; attention_probs [B, M, U1, U2] ->
+        [B, U1, F]."""
+        s = self.spec
+        u1, u2 = attention_probs.shape[2], attention_probs.shape[3]
+        if s.reassociate and not s.v_has_bias and u2 > u1:
+            # squeeze-in side: P (X Wv) == (P X) Wv
+            px = torch.matmul(attention_probs, input_feat.to(s.dtype)[:, None])
+            fused = self.first_linear(px, stage="grouped")
+        elif (s.reassociate and not s.v_has_bias and u2 < u1
+              and s.has_FFN and s.mid_type == "shared"
+              and not s.fix_private_output_residual):
+            # attractor-out side: gelu((P V) W1 + b1) == gelu(P (V W1) + b1)
+            v = self.compute_v(input_feat)
+            if self._fused_epilogue_ok():
+                itemsize = torch.finfo(s.dtype).bits // 8
+                fn = (epi.fused_mid_output_pool
+                      if epi.supports_full(s.num_modes, s.feat_dim, itemsize)
+                      else epi.fused_mid_output_pool_permode)
+                vw1 = self.intermediate(v, stage="premul")
+                return fn(attention_probs, vw1,
+                          self.intermediate.shared_linear.bias,
+                          *self._epilogue_args(), ln_eps=s.ln_eps)
+            mid = self.intermediate(v, probs=attention_probs)
+            return self._output_and_pool(mid, None)
+        else:
+            fused = torch.matmul(attention_probs, self.compute_v(input_feat))
+
+        if not s.has_FFN:
+            # aggregate-only path (segtran_shared.py:452-457)
+            return self.first_norm_layer(self.feat_softaggr(fused))
+        mid = (self.intermediate(fused) if self.intermediate is not None
+               else _gelu_exact(fused))
+        return self._output_and_pool(mid, fused)
+
+    def _pool_modes(self, last):
+        s = self.spec
+        if s.pool_modes_feat == "softmax":
+            return self.feat_softaggr(last)
+        if s.pool_modes_feat == "max":
+            return last.max(dim=1).values
+        if s.pool_modes_feat == "mean":
+            return last.mean(dim=1)
+        return last
+
+
+class _QKDense(nn.Linear):
+    """Q/K projection; the score folds read its raw weight and bias."""
+
+    def forward(self, x, dtype):
+        return dense(x, self, dtype)
+
+
+class CrossAttFeatTrans(nn.Module):
+    """Multi-mode QK cross-attention feeding an ExpandedFeatTrans
+    (segtran_shared.py:478-610); the non-fused path with the q/k folds."""
+
+    def __init__(self, spec: TransLayerSpec):
+        super().__init__()
+        s = self.spec = spec
+        self.query = _QKDense(s.in_feat_dim, s.att_size_allmode,
+                              bias=s.qk_have_bias)
+        if s.tie_qk_scheme != "shared":
+            self.key = _QKDense(s.in_feat_dim, s.att_size_allmode,
+                                bias=s.qk_have_bias)
+        self.out_trans = ExpandedFeatTrans(s)
+
+    def _key(self) -> _QKDense:
+        # tied Q/K: one parameter set applied twice (segtran_shared.py:528-531)
+        return self.query if self.spec.tie_qk_scheme == "shared" else self.key
+
+    def forward(self, in_query, in_key=None):
+        s = self.spec
+        dt = s.dtype
+        in_key = in_query if in_key is None else in_key
+        b, u1, c_q = in_query.shape
+        u2, c_k = in_key.shape[1], in_key.shape[2]
+        m, amd = s.num_modes, s.attention_mode_dim
+        query, key = self.query, self._key()
+
+        def proj_q():
+            return query(in_query, dt).reshape(b, u1, m, amd).permute(0, 2, 1, 3)
+
+        def proj_k():
+            return key(in_key, dt).reshape(b, u2, m, amd).permute(0, 2, 1, 3)
+
+        # exact QK reassociation through the small side (nn/attention.py
+        # :641-669 of the JAX package); scores stay in the compute dtype
+        q_fold = s.reassociate and u2 * c_q * (amd + u1) < amd * u1 * (c_q + u2)
+        k_fold = s.reassociate and u1 * c_k * (amd + u2) < amd * u2 * (c_k + u1)
+        if q_fold:
+            k = proj_k()                                        # [B,M,U2,amd]
+            wq = query.weight.to(dt).t().reshape(c_q, m, amd)
+            wfold = torch.einsum("cmd,bmad->bmca", wq, k)
+            scores = torch.einsum("bqc,bmca->bmqa", in_query.to(dt), wfold)
+            if s.qk_have_bias:
+                bq = query.bias.to(dt).reshape(m, amd)
+                scores = scores + torch.einsum("md,bmad->bma", bq,
+                                               k)[:, :, None, :]
+        elif k_fold:
+            q = proj_q()                                        # [B,M,U1,amd]
+            wk = key.weight.to(dt).t().reshape(c_k, m, amd)
+            qfold = torch.einsum("bmqd,cmd->bmqc", q, wk)
+            scores = torch.einsum("bmqc,bkc->bmqk", qfold, in_key.to(dt))
+            if s.qk_have_bias:
+                bk = key.bias.to(dt).reshape(m, amd)
+                scores = scores + torch.einsum("bmqd,md->bmq", q, bk)[..., None]
+        else:
+            scores = torch.matmul(proj_q(), proj_k().transpose(-1, -2))
+        scores = _clamp_if_exceeds(scores / math.sqrt(amd), s.attn_clip)
+        probs = torch.softmax(scores.float(), dim=-1).to(dt)
+        return self.out_trans(in_key, probs)
+
+
+class SqueezedAttFeatTrans(nn.Module):
+    """N tokens <-> A learnable attractors, two cross-attentions, O(N*A)
+    (segtran_shared.py:787-816)."""
+
+    def __init__(self, spec: TransLayerSpec, num_attractors: int = 256,
+                 has_FFN_in_squeeze: bool = False):
+        super().__init__()
+        self.spec = spec
+        # in-squeeze: single mode, no channel compression
+        in_spec = dataclasses.replace(spec, feat_dim=spec.in_feat_dim,
+                                      num_modes=1, has_FFN=has_FFN_in_squeeze)
+        self.attractors = nn.Parameter(
+            torch.empty(1, num_attractors, spec.in_feat_dim))
+        self.in_ator_trans = CrossAttFeatTrans(in_spec)
+        self.ator_out_trans = CrossAttFeatTrans(spec)
+
+    def forward(self, in_feat):
+        b = in_feat.shape[0]
+        attractors = self.attractors.to(self.spec.dtype).expand(
+            b, -1, -1)
+        new_attractors = self.in_ator_trans(attractors, in_feat)
+        return self.ator_out_trans(in_feat, new_attractors)

@@ -1,0 +1,62 @@
+"""LayerNorm with the JAX package's two numeric branches.
+
+* fp32: flax ``nn.LayerNorm`` math -- fp32 statistics with the fast variance
+  ``E[x^2] - mean^2`` clamped at 0, then ``(x - mean) * (rsqrt(var + eps) *
+  scale) + bias``.
+* bf16/fp16: ``FastLayerNorm`` -- the same fp32 statistics, but the
+  elementwise normalize/scale/shift runs in the half dtype, so every
+  full-size tensor stays half width.
+
+Parameters are named ``weight``/``bias`` (torch LayerNorm names).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor],
+               bias: Optional[torch.Tensor], eps: float,
+               dtype: torch.dtype) -> torch.Tensor:
+    """Normalize over the last axis; returns ``dtype``."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = torch.clamp(x32.square().mean(-1, keepdim=True) - mean.square(),
+                      min=0.0)
+    inv = torch.rsqrt(var + eps)
+    if dtype in _HALF:
+        dt = x.dtype if x.dtype in _HALF else torch.float32
+        y = (x.to(dt) - mean.to(dt)) * inv.to(dt)
+        if weight is not None:
+            y = y * weight.to(dt)
+        if bias is not None:
+            y = y + bias.to(dt)
+        return y.to(dtype)
+    mul = inv if weight is None else inv * weight.float()
+    y = (x32 - mean) * mul
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dtype)
+
+
+class LayerNorm(nn.Module):
+    """Module form of :func:`layer_norm` (flax ``layer_norm(dtype, ...)``)."""
+
+    def __init__(self, num_feat: int, eps: float, affine: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_feat))
+            self.bias = nn.Parameter(torch.zeros(num_feat))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps, self.dtype)

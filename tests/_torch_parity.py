@@ -1,0 +1,47 @@
+"""Shared helpers of the tests that hold segtran_tpu_torch against the JAX
+package: seeded JAX variables, converted into the port's state_dict."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+
+def to_numpy(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def perturb(tree, seed):
+    """Move every norm scale/bias and BN statistic off its init value, so
+    the folds and affines are tested with non-trivial numbers."""
+    rng = np.random.RandomState(seed)
+
+    def walk(t):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+                continue
+            v = np.asarray(v, np.float32)
+            if k in ("scale", "bias", "mean"):
+                v = v + 0.1 * rng.randn(*v.shape).astype(np.float32)
+            elif k == "var":
+                v = v * rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+            out[k] = v
+        return out
+    return walk(tree)
+
+
+def jax_variables(module, *args, seed=0, **kwargs):
+    """Init a flax module with the reference init schemes; returns numpy
+    (params, batch_stats) with perturbed norms and statistics."""
+    from segtran_tpu.nn.init import init_with_reference_schemes
+    params, rest = init_with_reference_schemes(
+        module, {"params": jax.random.PRNGKey(seed)}, *args, **kwargs)
+    return (perturb(to_numpy(params), seed + 1),
+            perturb(to_numpy(rest.get("batch_stats", {})), seed + 2))
+
+
+def jvars(params, batch_stats):
+    v = {"params": jax.tree_util.tree_map(jnp.asarray, params)}
+    if batch_stats:
+        v["batch_stats"] = jax.tree_util.tree_map(jnp.asarray, batch_stats)
+    return v

@@ -1,0 +1,64 @@
+"""segtran_tpu_torch stands alone: importing every module of it pulls in
+neither JAX nor the JAX package, and its entry points refuse to run
+without a GPU unless the CPU is asked for."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import segtran_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "segtran_tpu"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_no_jax_and_no_jax_package_imported():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_modules = int(r.stdout.split()[0])
+    assert n_modules >= 20
+
+
+def test_entry_points_need_a_gpu_unless_cpu_is_asked(tmp_path, monkeypatch):
+    import torch
+    from segtran_tpu_torch import resolve_device
+    from segtran_tpu_torch.cli.serve import InferenceEngine, build_argparser
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA GPU"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
+    args = build_argparser().parse_args(["--cpdir", str(tmp_path),
+                                         "--iter", "1"])
+    with pytest.raises(RuntimeError, match="CUDA GPU"):
+        InferenceEngine(args, None)
+
+
+def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
+    """A CUDA tensor goes to the kernel or raises: with no CUDA here, the
+    build step must be reached (and fail), not the plain version."""
+    import torch
+    from segtran_tpu_torch.kernels import _build
+    from segtran_tpu_torch.kernels import expansion_epilogue as epi
+
+    def refuse(name):
+        raise RuntimeError("kernel build reached")
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(epi, "_on_cpu", lambda t: False)
+    x = torch.zeros(1, 1, 4, 4)
+    with pytest.raises(RuntimeError, match="kernel build reached"):
+        epi.fused_private_output_pool(x, torch.zeros(1, 4, 4),
+                                      torch.zeros(1, 4), torch.ones(4),
+                                      torch.zeros(4), torch.zeros(4, 1),
+                                      torch.zeros(1))
