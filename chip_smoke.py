@@ -10,8 +10,11 @@ Phases, each of which fails the run:
 2. kernels -- hold each expansion-epilogue kernel against its plain
    PyTorch version at the fundus flagship's shapes (P [8,4,1296,256]; F=1792
    per mode, F=896 and 448 all modes; mid [2,4,1296,896] for the private
-   tier) in bf16 and fp32 (TF32 off for fp32), and time both with CUDA
-   events.
+   tier) and at the BraTS whole-volume private tier (mid [1,4,8640,1024]),
+   and the flash cross-attention kernel at the BraTS in/out-squeeze shapes
+   (N=8640 and 18000 tokens), a ragged shape and a clamp case, in bf16 and
+   fp32 (TF32 off for fp32); time each, its plain version and, for the
+   flash kernel, scaled_dot_product_attention with CUDA events.
 3. serving -- the InferenceEngine of cli/serve.py at full width (eff-b4,
    3 translayers 1792->1792->896->448, 256 attractors, bf16, --fusedepi,
    576^2 frames through 288^2 patches, --maxbatch 8) from a seeded port
@@ -19,8 +22,17 @@ Phases, each of which fails the run:
    show 4 per-mode and 2 all-modes launches per forward; one forward is
    profiled (device time by kernel); the same batch through the unfused
    modules must agree.
+   The same batch through an engine with --fused --fusedepi (flash
+   attention, 6 launches per forward) must agree too.
 4. non-reassociated forward at batch 2 -- must launch the private-output
    kernel and agree with the unfused modules.
+5. whole volume -- the BraTS recipe of cli/test3d.py at full width (I3D,
+   1 squeezed translayer 1024->1024, 1024 attractors, bf16, --wholevol
+   --fused --fusedepi) from a seeded port checkpoint, through
+   evaluate_volume on two synthetic 4-modality volumes (160x192x144 and
+   240x240x155); each volume must launch the flash kernel twice and the
+   private epilogue once, and agree with the unfused modules; one forward
+   is profiled.
 
 Before the last line it prints one JSON object with the per-kernel numbers
 and the card's ``name, power.limit``; the last line is
@@ -39,6 +51,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SERVE_ARGV = ["--task", "fundus", "--net", "segtran", "--bb", "eff-b4",
@@ -133,7 +146,8 @@ def check_kernels(torch, epi):
     cases = [("fused_mid_output_pool_permode", "mid", 8, 4, 1296, 256, 1792),
              ("fused_mid_output_pool", "mid", 8, 4, 1296, 256, 896),
              ("fused_mid_output_pool", "mid", 8, 4, 1296, 256, 448),
-             ("fused_private_output_pool", "private", 2, 4, 1296, 0, 896)]
+             ("fused_private_output_pool", "private", 2, 4, 1296, 0, 896),
+             ("fused_private_output_pool", "private", 1, 4, 8640, 0, 1024)]
     results = []
     for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         # plain fp32 references without TF32: full-precision products
@@ -180,6 +194,98 @@ def check_kernels(torch, epi):
     return results
 
 
+# (G, Q, N, D, F, q/k scale): the BraTS whole-volume in-squeeze
+# (attractors <- tokens) and out-squeeze (tokens <- attractors, V W1) at
+# 160x192x144 (N=8640) and 240x240x160 (N=18000), a ragged shape and
+# scores far beyond the clip
+FLASH_CASES = [("in-squeeze N=8640", 1, 1024, 8640, 1024, 1024, 1.0),
+               ("out-squeeze N=8640", 4, 8640, 1024, 256, 1024, 1.0),
+               ("in-squeeze N=18000", 1, 1024, 18000, 1024, 1024, 1.0),
+               ("out-squeeze N=18000", 4, 18000, 1024, 256, 1024, 1.0),
+               ("ragged", 3, 1000, 1333, 200, 264, 1.0),
+               ("clamp", 1, 256, 512, 64, 64, 30.0)]
+
+
+def sdpa_call(torch, q, k, v, scale):
+    """The first fused backend of scaled_dot_product_attention that takes
+    these inputs as [1, G, L, E] (MATH last), as (backend name, call)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(be=be):
+            with sdpa_kernel(be):
+                return F.scaled_dot_product_attention(q[None], k[None],
+                                                      v[None], scale=scale)
+        try:
+            with warnings.catch_warnings():   # each refusal warns its reason
+                warnings.simplefilter("ignore")
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return be.name, call
+    fail("no scaled_dot_product_attention backend took the inputs")
+
+
+def check_flash(torch, sa):
+    results = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        for i, (label, g, nq, n, d, f, qk) in enumerate(FLASH_CASES):
+            gen = torch.Generator(device="cuda").manual_seed(100 + i)
+
+            def rn(*shape, s=1.0):
+                return (torch.randn(*shape, generator=gen, device="cuda")
+                        * s).to(dt)
+            q, k, v = rn(g, nq, d, s=qk), rn(g, n, d, s=qk), rn(g, n, f)
+            scale = 1.0 / math.sqrt(d)
+            out, lse = sa.fused_cross_attention(q, k, v, return_lse=True)
+            ref, ref_lse = sa.fused_cross_attention_plain(q, k, v, 500.0,
+                                                          scale)
+            torch.cuda.synchronize()
+            if out.shape != (g, nq, f) or out.dtype != dt:
+                fail(f"flash {label} {dname}: got {tuple(out.shape)} "
+                     f"{out.dtype}")
+            err = (out.float() - ref.float()).abs()
+            max_err, mean_err = float(err.max()), float(err.mean())
+            rel_err = float((err / (1 + ref.float().abs())).max())
+            lse_err = float((lse - ref_lse).abs().max())
+            tol_max, tol_mean = KERNEL_TOL[dname]
+            ms = cuda_ms(torch, lambda: sa.fused_cross_attention(q, k, v),
+                         iters=5)
+            plain_ms = cuda_ms(torch, lambda: sa.fused_cross_attention_plain(
+                q, k, v, 500.0, scale), iters=3)
+            backend, sdpa = sdpa_call(torch, q, k, v, scale)
+            library_ms = cuda_ms(torch, sdpa, iters=3)
+            flops = 2 * g * nq * n * (d + f)
+            nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
+                * out.element_size() + lse.numel() * 4
+            t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
+            row = dict(name="fused_cross_attention", dtype=dname, case=label,
+                       shape=[g, nq, n, d, f], max_abs_err=max_err,
+                       mean_abs_err=mean_err, max_rel_err=rel_err,
+                       lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, library_backend=backend,
+                       bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       flop=flops, bytes=nbytes)
+            results.append(row)
+            log(f"[flash] {label} {dname} G,Q,N,D,F={g},{nq},{n},{d},{f}: "
+                f"max |err|/(1+|plain|) {rel_err:.3e} mean_abs_err "
+                f"{mean_err:.3e} (tol {tol_max:g}/{tol_mean:g}), lse "
+                f"{lse_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, sdpa[{backend}] {library_ms:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {flops:.3e} "
+                f"FLOP, {nbytes:.3e} B)")
+            if not (rel_err <= tol_max and mean_err <= tol_mean
+                    and lse_err <= 1e-3):
+                fail(f"flash {label} {dname} disagrees with its plain version")
+            del q, k, v, out, lse, ref, ref_lse
+        torch.cuda.empty_cache()
+    return results
+
+
 # ------------------------------------------------------------ phase 3 ----
 
 def compare(a, b):
@@ -187,18 +293,18 @@ def compare(a, b):
     return float(d.max()), float(d.mean())
 
 
-def profile_forward(torch, engine, batch):
-    """Device time by kernel over one served batch-8 forward
-    (torch.profiler, CUPTI): only device-side events (kernels and copies)
-    are summed, so operator rows do not count their kernels twice; the busy
-    share is that sum over the forward's host wall time under the
-    profiler."""
+def profile_forward(torch, fn, label, groups):
+    """Device time by kernel over one call of fn, a forward that ends in a
+    synchronisation (torch.profiler, CUPTI): only device-side events
+    (kernels and copies) are summed, so operator rows do not count their
+    kernels twice; the busy share is that sum over the forward's host wall
+    time under the profiler. groups: {name: substring of kernel names}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.forward(batch)
+        fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
@@ -208,19 +314,18 @@ def profile_forward(torch, engine, batch):
     if busy <= 0:
         log("[profile] the profiler saw no device time")
         return {}
-    groups = {"epilogue kernels": "epilogue_kernel", "copies": "Memcpy"}
     split = {g: sum(r[0] for r in rows if k in r[2]) for g, k in groups.items()}
-    log(f"[profile] one batch-8 forward: wall {wall_ms:.3f} ms under the "
+    log(f"[profile] {label}: wall {wall_ms:.3f} ms under the "
         f"profiler, device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%); "
         + ", ".join(f"{g} {v:.3f} ms" for g, v in split.items()))
     for ms, count, key in rows[:15]:
         log(f"[profile]   {ms:9.3f} ms  x{count:<4d} {key[:110]}")
     return dict(profile_wall_ms=wall_ms, profile_device_busy_ms=busy,
-                profile_epilogue_ms=split["epilogue kernels"],
-                profile_copy_ms=split["copies"])
+                **{f"profile_{g.replace(' ', '_')}_ms": v
+                   for g, v in split.items()})
 
 
-def serve(torch, np, epi, ckdir, logger):
+def serve(torch, np, epi, sa, ckdir, logger):
     from segtran_tpu_torch.cli.serve import (InferenceEngine, build_argparser,
                                              build_model_and_config,
                                              task_settings)
@@ -294,7 +399,9 @@ def serve(torch, np, epi, ckdir, logger):
                     latency_ms_p95=st["latency_ms_p95"],
                     batch_ms_p50_served=st["batch_ms_p50"],
                     forward_ms_batch8=sorted(fwd_ms)[1])
-        perf.update(profile_forward(torch, engine, batch))
+        perf.update(profile_forward(
+            torch, lambda: engine.forward(batch), "one batch-8 forward",
+            {"epilogue kernels": "epilogue_kernel", "copies": "Memcpy"}))
     finally:
         engine.close()
     state = engine.model.state_dict()
@@ -316,6 +423,32 @@ def serve(torch, np, epi, ckdir, logger):
         f"mean {mean:.3e} (tol {MODEL_TOL[0]:g}/{MODEL_TOL[1]:g})")
     if not (mx <= MODEL_TOL[0] and mean <= MODEL_TOL[1]):
         fail("fused serving forward disagrees with the unfused modules")
+
+    # --fused: flash attention in all 3 translayers (in-squeeze D=F=1792 at
+    # layer 0), the out side through V W1 and the private epilogue
+    flash_engine = InferenceEngine(build_argparser().parse_args(
+        SERVE_ARGV + ["--fused", "--fusedepi", "--cpdir", ckdir, "--iter",
+                      "1"]), logger)
+    try:
+        epi.reset_launches()
+        sa.reset_launches()
+        flash = flash_engine.forward(batch)
+        n_flash = sa.fused_cross_attention.launches
+        n_private = epi.fused_private_output_pool.launches
+    finally:
+        flash_engine.close()
+    del flash_engine
+    torch.cuda.empty_cache()
+    mx, mean = compare(flash, ref)
+    perf.update(flash_vs_unfused_max_abs=mx, flash_vs_unfused_mean_abs=mean)
+    log(f"[serving] --fused --fusedepi: {n_flash} flash and {n_private} "
+        f"private-epilogue launches; vs unfused probabilities (bf16): max "
+        f"{mx:.3e} mean {mean:.3e} (tol {MODEL_TOL[0]:g}/{MODEL_TOL[1]:g})")
+    if n_flash != 6 or n_private != 3:
+        fail("the --fused forward did not run 2 flash launches and 1 "
+             "private-epilogue launch per translayer")
+    if not (mx <= MODEL_TOL[0] and mean <= MODEL_TOL[1]):
+        fail("--fused serving forward disagrees with the unfused modules")
     return perf, launches, state, cfg, batch
 
 
@@ -371,6 +504,137 @@ def nonreassociated(torch, np, epi, state, cfg, batch):
     return launches
 
 
+# ------------------------------------------------------------ phase 5 ----
+
+WHOLEVOL_ARGV = ["--task", "brats", "--translayers", "1", "--attractors",
+                 "1024", "--wholevol", "--bf16", "--device", "cuda"]
+VOLUMES = [(160, 192, 144), (240, 240, 155)]
+
+
+def synthetic_volume(np, shape, seed):
+    """A 4-modality volume with a zero background outside an ellipsoid
+    (so the nonzero mask drops tokens) and nested tumour labels {0,1,2,4}
+    ({0,1,2,3} once BratsSet's 4 -> 3 remap is applied, as here)."""
+    rng = np.random.RandomState(seed)
+    axes = [np.linspace(-1, 1, n, dtype=np.float32) for n in shape]
+    x, y, z = np.meshgrid(*axes, indexing="ij")
+    head = (x / 0.8) ** 2 + (y / 0.85) ** 2 + (z / 0.9) ** 2 <= 1
+    image = rng.rand(*shape, 4).astype(np.float32) * head[..., None]
+    r2 = (x - 0.2) ** 2 + (y + 0.1) ** 2 + z ** 2
+    label = np.zeros(shape, np.uint8)
+    label[r2 < 0.09] = 2
+    label[r2 < 0.04] = 1
+    label[r2 < 0.01] = 3
+    return {"image": image, "label": label}
+
+
+def wholevol(torch, np, epi, sa, ckdir, logger):
+    from segtran_tpu_torch.cli.test3d import (WHOLEVOL_MULTIPLES,
+                                              build_argparser,
+                                              build_model_and_config,
+                                              evaluate_volume, task_settings)
+    from segtran_tpu_torch.models.segtran3d import init_segtran3d
+    from segtran_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    dev = torch.device("cuda")
+    ck = ["--cpdir", ckdir, "--iters", "1"]
+    fused_args = build_argparser().parse_args(
+        WHOLEVOL_ARGV + ["--fused", "--fusedepi"] + ck)
+    plain_args = build_argparser().parse_args(WHOLEVOL_ARGV + ck)
+    task = task_settings(fused_args)
+    model, cfg = build_model_and_config(fused_args, task)
+    if (cfg.translayer_dims != (1024, 1024) or cfg.num_attractors != 1024
+            or cfg.D_pool_K != 2 or cfg.num_modes != 4):
+        fail(f"unexpected BraTS config {cfg}")
+    save_checkpoint(ckdir, 1, init_segtran3d(model, seed=0).state_dict(), cfg)
+    state = load_checkpoint(os.path.join(ckdir, "iter_1"), cfg)
+    models = {}
+    for name, args in (("fused", fused_args), ("unfused", plain_args)):
+        m, _ = build_model_and_config(args, task)
+        m.load_state_dict(state, strict=True)
+        models[name] = m.to(dev).eval()
+    del model
+
+    def run(name, sample):
+        args = fused_args if name == "fused" else plain_args
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs, _, metrics = evaluate_volume(models[name], sample, args, task,
+                                            dev)
+        return probs, metrics, time.perf_counter() - t0
+
+    perf, launches = {}, {"fused_cross_attention": 0,
+                          "fused_private_output_pool": 0}
+    for vi, shape in enumerate(VOLUMES):
+        sample = synthetic_volume(np, shape, seed=vi)
+        run("fused", sample)                                   # warm
+        torch.cuda.reset_peak_memory_stats()
+        epi.reset_launches()
+        sa.reset_launches()
+        probs, metrics, secs = run("fused", sample)
+        n_flash = sa.fused_cross_attention.launches
+        n_private = epi.fused_private_output_pool.launches
+        n_full = (epi.fused_mid_output_pool.launches
+                  + epi.fused_mid_output_pool_permode.launches)
+        launches["fused_cross_attention"] += n_flash
+        launches["fused_private_output_pool"] += n_private
+        tag = "x".join(map(str, shape))
+        log(f"[wholevol] {tag}: {secs:.3f} s per volume "
+            f"({np.prod(shape) / secs / 1e6:.2f} Mvoxel/s), launches: flash "
+            f"{n_flash}, private epilogue {n_private}, full-fusion tiers "
+            f"{n_full}; dice (random weights) "
+            f"{[round(d, 4) for d in metrics['dice']]}")
+        if n_flash != 2 or n_private != 1 or n_full != 0:
+            fail(f"the {tag} volume did not run 2 flash launches and 1 "
+                 f"private-epilogue launch")
+        if probs.shape != shape + (4,) or not bool(torch.isfinite(probs).all()):
+            fail(f"the {tag} volume's probabilities are not finite "
+                 f"[{shape}, 4]: {tuple(probs.shape)}")
+        if not np.isfinite(metrics["dice"]).all():
+            fail(f"the {tag} volume's Dice is not finite")
+
+        pad = [(-s) % m for s, m in zip(shape, WHOLEVOL_MULTIPLES)]
+        vol = torch.nn.functional.pad(
+            torch.from_numpy(sample["image"]).to(dev)[None],
+            (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
+        fwd = []
+        with torch.inference_mode():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                models["fused"](vol)
+                torch.cuda.synchronize()
+                fwd.append(time.perf_counter() - t0)
+            prof = profile_forward(
+                torch, lambda: (models["fused"](vol), torch.cuda.synchronize()),
+                f"one {tag} whole-volume forward",
+                {"flash statistics": "stats_kernel", "flash output":
+                 "out_kernel", "epilogue kernels": "epilogue_kernel",
+                 "group norm statistics": "RowwiseMoments",
+                 "trilinear resizes": "upsample_trilinear",
+                 "max pools": "max_pool3d"})
+        del vol
+        ref, _, ref_secs = run("unfused", sample)
+        mx, mean = (float(v) for v in ((probs - ref).abs().max(),
+                                       (probs - ref).abs().mean()))
+        log(f"[wholevol] {tag}: fused vs unfused probabilities (bf16): max "
+            f"{mx:.3e} mean {mean:.3e} (tol {MODEL_TOL[0]:g}/"
+            f"{MODEL_TOL[1]:g}); unfused {ref_secs:.3f} s per volume")
+        if not (mx <= MODEL_TOL[0] and mean <= MODEL_TOL[1]):
+            fail(f"the fused {tag} volume disagrees with the unfused modules")
+        perf[tag] = dict(seconds_per_volume=secs,
+                         voxels_per_s=float(np.prod(shape)) / secs,
+                         forward_s=sorted(fwd)[1],
+                         unfused_seconds_per_volume=ref_secs,
+                         fused_vs_unfused_max_abs=mx,
+                         fused_vs_unfused_mean_abs=mean,
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         **prof)
+        del probs, ref, sample
+        torch.cuda.empty_cache()
+    return perf, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -384,6 +648,7 @@ def main() -> int:
     import numpy as np
     from segtran_tpu_torch.kernels import _build
     from segtran_tpu_torch.kernels import expansion_epilogue as epi
+    from segtran_tpu_torch.kernels import squeezed_attention as sa
 
     t_all = time.perf_counter()
     card = card_line(torch)
@@ -398,17 +663,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")
 
-    kernels = check_kernels(torch, epi)
+    kernels = check_kernels(torch, epi) + check_flash(torch, sa)
     logger = logging.getLogger("chip_smoke")
     logger.addHandler(logging.StreamHandler(sys.stderr))
     logger.setLevel(logging.INFO)
     ckdir = os.path.join(ROOT, "build", "chip_smoke")
     try:
-        perf, launches, state, cfg, batch = serve(torch, np, epi, ckdir,
+        perf, launches, state, cfg, batch = serve(torch, np, epi, sa, ckdir,
                                                   logger)
         log(f"[serving] {json.dumps(perf)} on {card}")
-        launches["fused_private_output_pool"] = nonreassociated(
-            torch, np, epi, state, cfg, batch)
+        nonreassociated(torch, np, epi, state, cfg, batch)
+        del state
+        shutil.rmtree(ckdir, ignore_errors=True)
+        vol_perf, vol_launches = wholevol(torch, np, epi, sa, ckdir, logger)
+        log(f"[wholevol] {json.dumps(vol_perf)} on {card}")
+        launches.update(vol_launches)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
 
@@ -417,19 +686,25 @@ def main() -> int:
         "fused_mid_output_pool_permode":
             "segtran_tpu/kernels/expansion_epilogue.py:226",
         "fused_private_output_pool":
-            "segtran_tpu/kernels/expansion_epilogue.py:289"}
-    # one entry per kernel: bf16 (the serving dtype) at the first shape of
-    # each; every measured row is printed above
+            "segtran_tpu/kernels/expansion_epilogue.py:289",
+        "fused_cross_attention": "segtran_tpu/kernels/squeezed_attention.py:107"}
+    # one entry per kernel: bf16 at the first shape of each (the flash
+    # kernel: the whole-volume in-squeeze at N=8640); launches from the
+    # main path of its slice (serving for the first two, the whole-volume
+    # run for the last two); every measured row is printed above
     entries = []
     for name in ("fused_mid_output_pool_permode", "fused_mid_output_pool",
-                 "fused_private_output_pool"):
+                 "fused_private_output_pool", "fused_cross_attention"):
         r = next(k for k in kernels if k["name"] == name and k["dtype"] == "bf16")
+        src = ("squeezed_attention" if name == "fused_cross_attention"
+               else "expansion_epilogue")
         entries.append(dict(
             name=name, route="cuda",
-            source="segtran_tpu_torch/csrc/expansion_epilogue.cu",
+            source=f"segtran_tpu_torch/csrc/{src}.cu",
             replaces=replaces[name], launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r.get("library_ms")))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": entries, "card": card}), flush=True)
     print(card, flush=True)

@@ -77,7 +77,8 @@ def build_argparser():
                    action="store_true",
                    help="CUDA fused output+LN+mode-pool epilogue")
     p.add_argument("--fused", dest="use_fused_attention",
-                   action="store_true")
+                   action="store_true",
+                   help="CUDA flash cross-attention in the squeezed layers")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; no GPU and no --device cpu "
                         "is an error")
@@ -94,8 +95,6 @@ def build_argparser():
 def _refuse_later_slices(args) -> None:
     later = [
         (args.net != "segtran", f"--net {args.net}", "the model zoo"),
-        (args.use_fused_attention, "--fused",
-         "the 3D slice (flash cross-attention kernels)"),
         (args.use_mince_transformer, "--mince", "the 2.5D/mince slice"),
         (args.polyformer_mode is not None, "--polyformer",
          "the DA/Polyformer slice"),
@@ -127,6 +126,7 @@ def build_model_and_config(args, task):
         qk_have_bias=args.qk_have_bias,
         use_squeezed_transformer=args.use_squeezed_transformer,
         pos_code_type=args.pos_code_type,
+        use_fused_attention=args.use_fused_attention,
         use_fused_epilogue=args.use_fused_epilogue,
         in_fpn_layers=tuple(int(c) for c in args.in_fpn_layers),
         out_fpn_layers=tuple(int(c) for c in args.out_fpn_layers),

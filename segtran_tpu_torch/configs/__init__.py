@@ -1,3 +1,5 @@
-from .base import BACKBONE_FEAT_DIMS, Segtran2dConfig, TransformerConfig
+from .base import (BACKBONE_FEAT_DIMS, Segtran2dConfig, Segtran3dConfig,
+                   TransformerConfig)
 
-__all__ = ["BACKBONE_FEAT_DIMS", "Segtran2dConfig", "TransformerConfig"]
+__all__ = ["BACKBONE_FEAT_DIMS", "Segtran2dConfig", "Segtran3dConfig",
+           "TransformerConfig"]

@@ -1,4 +1,5 @@
-"""Typed configuration for the Segtran2d serving path.
+"""Typed configuration for the Segtran2d serving path and Segtran3d
+whole-volume inference.
 
 Counterpart of ``segtran_tpu/configs/base.py``: the same frozen dataclasses,
 field names and ``derive()`` rules (layer-compression cumprod, FPN check),
@@ -69,6 +70,9 @@ class TransformerConfig:
 
     pool_modes_feat: str = "softmax"       # softmax | max | mean | none
 
+    # CUDA flash cross-attention (kernels/squeezed_attention.py) in the
+    # squeezed layers; inference-only in this package.
+    use_fused_attention: bool = False
     # CUDA fused private-output + LayerNorm + mode-pool epilogue
     # (kernels/expansion_epilogue.py); inference-only.
     use_fused_epilogue: bool = False
@@ -126,3 +130,35 @@ class Segtran2dConfig(TransformerConfig):
         dims = _derive_translayer_dims(cfg.orig_in_feat_dim,
                                        cfg.translayer_compress_ratios)
         return dataclasses.replace(cfg, translayer_dims=dims)
+
+
+@dataclass(frozen=True)
+class Segtran3dConfig(TransformerConfig):
+    """3D variant defaults (reference segtran3d.py:19-77)."""
+    backbone_type: str = "i3d"
+    bb_feat_upsize: bool = True            # no I3D pool 1
+    in_fpn_layers: Tuple[int, ...] = (3, 4)
+    out_fpn_layers: Tuple[int, ...] = (1, 2, 3, 4)
+    in_fpn_scheme: str = "AN"
+    out_fpn_scheme: str = "AN"
+    G: int = 8
+    pos_dim: int = 3
+    num_attractors: int = 1024
+    num_classes: int = 4
+    translayer_compress_ratios: Tuple[float, ...] = (1.0, 1.0)
+    # BraTS 4-modality -> 3-channel bridge for I3D (segtran3d.py:117-139)
+    inchan_to3_scheme: str = "bridgeconv"
+    orig_in_channels: int = 4
+    # depth pooling of the in-FPN features before the transformer
+    D_pool_K: int = 2
+    out_fpn_upsampleD_scheme: str = "interp"   # interp | conv | none
+
+    @property
+    def bb_feat_dims(self) -> Tuple[int, ...]:
+        return BACKBONE_FEAT_DIMS[self.backbone_type]
+
+    @property
+    def orig_in_feat_dim(self) -> int:
+        return self.bb_feat_dims[self.in_fpn_layers[-1]]
+
+    derive = Segtran2dConfig.derive

@@ -1,5 +1,6 @@
-"""Per-task and per-net defaults for the 2D serving path (reference
-train2d.py:245-385; the fundus and polyp entries and ``--net segtran``)."""
+"""Per-task and per-net defaults (reference train2d.py:245-385 and
+train3d.py:218-255; the fundus, polyp and brats entries and ``--net
+segtran``)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -29,5 +30,15 @@ TASK_SETTINGS: Dict[str, Dict[str, Any]] = {
         "orig_input_size": (320, 320),
         "patch_size": (320, 320),
         "binarize": True,
+    },
+    # 3D (reference train3d.py:218-255)
+    "brats": {
+        "num_classes": 4,
+        # bg, ET, WT, TC (reference train3d.py:222-223)
+        "bce_weight": (0.0, 3.0, 1.0, 1.75),
+        "orig_in_channels": 4,
+        "orig_patch_size": (112, 112, 96),
+        "input_patch_size": (112, 112, 96),
+        "binarize": False,
     },
 }

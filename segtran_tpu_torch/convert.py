@@ -7,6 +7,7 @@ The reverse of the JAX package's torch importer (rules of
 * Dense ``kernel [in, out]``              -> Linear ``weight [out, in]``
 * conv ``kernel [kh, kw, I, O]``          -> ``weight [O, I, kh, kw]``
   (depthwise ``[kh, kw, 1, C]`` -> ``[C, 1, kh, kw]``)
+* 3-D conv ``kernel [kd, kh, kw, I, O]``  -> ``weight [O, I, kd, kh, kw]``
 * MMPrivateLinear ``kernel [M, F, F]``    -> ``weight [M, F, F]`` as is
 * ``scale`` / ``bias``                    -> ``weight`` / ``bias``
 * ``batch_stats`` ``mean`` / ``var``      -> ``running_mean`` / ``running_var``
@@ -49,6 +50,8 @@ def _param(leaf: str, arr: np.ndarray, where: str) -> Tuple[str, np.ndarray]:
             return "weight", arr
         if arr.ndim == 4:
             return "weight", arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 5:
+            return "weight", arr.transpose(4, 3, 0, 1, 2)
     elif leaf == "scale":
         return "weight", arr
     elif leaf in ("bias", "attractors"):

@@ -25,18 +25,20 @@ from ..ops.resize import avg_pool_nhwc, resize_linear
 
 
 class _GroupNorm(nn.GroupNorm):
-    """flax nn.GroupNorm math on NHWC: statistics and normalize in fp32,
-    result in the compute dtype (eps 1e-5, segtran2d.py:148-150)."""
+    """flax nn.GroupNorm math on channels-last tensors: statistics and
+    normalize in fp32, result in the compute dtype (eps 1e-5,
+    segtran2d.py:148-150)."""
 
     def run(self, x, dtype):
-        y = F.group_norm(x.permute(0, 3, 1, 2).float(), self.num_groups,
+        y = F.group_norm(x.movedim(-1, 1).float(), self.num_groups,
                          self.weight, self.bias, self.eps)
-        return y.permute(0, 2, 3, 1).to(dtype)
+        return y.movedim(1, -1).to(dtype)
 
 
-def _conv1x1(x, conv: nn.Conv2d, dtype):
-    """1x1 conv with bias on NHWC as a pointwise product, in dtype."""
-    w = conv.weight[:, :, 0, 0].t()
+def _conv1x1(x, conv: nn.Module, dtype):
+    """1x1 (1x1x1) conv with bias on channels-last x as a pointwise
+    product, in dtype."""
+    w = conv.weight.reshape(conv.weight.shape[:2]).t()
     return apply_pointwise(x.to(dtype), w, conv.bias)
 
 
@@ -78,7 +80,7 @@ class Segtran2d(nn.Module):
 
     def _fpn_step(self, prefix, layer, curr, feats, scheme, dt):
         upconv = _conv1x1(curr, getattr(self, f"{prefix}_fpn{layer}{layer + 1}_conv"), dt)
-        higher = resize_linear(feats[layer + 1], upconv.shape[1:3])
+        higher = resize_linear(feats[layer + 1], upconv.shape[1:-1])
         norm = getattr(self, f"{prefix}_gn{layer + 1}b")
         if scheme == "AN":
             return norm.run(upconv + higher, dt)
@@ -142,7 +144,8 @@ class Segtran2d(nn.Module):
 def init_segtran2d(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init with the JAX package's initializer families:
     normal(0.02) for linear and private weights, normal(1) for attractors,
-    lecun-normal for convs, ones/zeros for norm scales and biases."""
+    lecun-normal for 2-D and 3-D convs, ones/zeros for norm scales and
+    biases. Segtran3d uses it too (``init_segtran3d``)."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -153,9 +156,8 @@ def init_segtran2d(model: nn.Module, seed: int = 0) -> nn.Module:
                 p.zero_()
             elif p.dim() == 1:
                 p.fill_(1.0)
-            elif p.dim() == 4:
-                fan_in = p.shape[1] * p.shape[2] * p.shape[3]
-                p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
+            elif p.dim() >= 4:
+                p.normal_(0.0, 1.0 / math.sqrt(p[0].numel()), generator=gen)
             else:
                 p.normal_(0.0, 0.02, generator=gen)
     return model

@@ -15,6 +15,10 @@ exact reassociations, so bf16 rounds at the same places:
 * V channel m*F+f belongs to mode m; tied Q/K ("shared") is one parameter
   set applied twice.
 
+With ``use_fused_attention`` (and not in training mode) the squeezed
+layers' two cross-attentions go through the CUDA flash kernel
+(``kernels/squeezed_attention.py``), which always clamps.
+
 Parameters are stored fp32 in torch layouts (Linear ``weight [out, in]``;
 the private group linear ``weight [M, F_in, F_out]``) and cast to the
 compute dtype at use. Dropout is a training concern and lives with the
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import expansion_epilogue as epi
+from ..kernels.squeezed_attention import fused_cross_attention
 from ..ops.norm import LayerNorm
 
 
@@ -67,6 +72,7 @@ class TransLayerSpec:
     pool_modes_feat: str = "softmax"       # softmax | max | mean | none
     fix_private_output_residual: bool = False
     reassociate: bool = True
+    use_fused_attention: bool = False
     use_fused_epilogue: bool = False
     ln_eps: float = 1e-12
     dtype: Any = torch.float32
@@ -99,7 +105,9 @@ class _SharedLinear(nn.Linear):
     """The shared Dense of MMSharedMid / ExpandedFeatTrans with the
     reassociation stages of the JAX module: ``full`` (plain Dense),
     ``grouped`` (per-mode premul of probs-contracted features),
-    ``premul`` (x W, no bias) and ``probs`` (probs @ (x W) + b)."""
+    ``premul`` (x W, no bias), ``post`` (x + b: finish a premul after the
+    flash kernel contracted probs into it) and ``probs``
+    (probs @ (x W) + b)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool,
                  dtype=torch.float32):
@@ -110,6 +118,8 @@ class _SharedLinear(nn.Linear):
         dt = self.dtype
         if stage == "full" and probs is None:
             return dense(x, self, dt)
+        if stage == "post":
+            return x + self.bias.to(dt) if self.bias is not None else x
         w = self.weight.to(dt).t()                          # [C, F']
         if stage == "grouped":
             # x: [B, M, U1, C]; channel m*F+f is (mode m, feature f)
@@ -222,6 +232,24 @@ class ExpandedFeatTrans(nn.Module):
         v = self.first_linear(input_feat)
         return v.reshape(b, u2, s.num_modes, s.feat_dim).permute(0, 2, 1, 3)
 
+    def supports_mid_premul(self) -> bool:
+        """Whether V W1 may stand in for V as the flash kernel's operand
+        (gelu((P V) W1 + b1) == gelu(P (V W1) + b1))."""
+        s = self.spec
+        return (s.reassociate and not s.v_has_bias and s.has_FFN
+                and s.mid_type == "shared"
+                and not s.fix_private_output_residual)
+
+    def apply_mid_premul(self, in_key):
+        """[B, U2, C] -> V W1 [B, M, U2, F] (no bias)."""
+        return self.intermediate(self.compute_v(in_key), stage="premul")
+
+    def finish_from_mid_premul(self, mid_pre):
+        """After the kernel: mid = gelu(mid_pre + b1), then the private
+        output (residual dropped) and the mode pool."""
+        return self._output_and_pool(
+            self.intermediate(mid_pre, stage="post"), None)
+
     def _epilogue_args(self):
         o = self.output
         agg = self.feat_softaggr.feat2score
@@ -241,10 +269,12 @@ class ExpandedFeatTrans(nn.Module):
                 mid, *self._epilogue_args(), ln_eps=self.spec.ln_eps)
         return self._pool_modes(self.output(mid, shortcut))
 
-    def forward(self, input_feat, attention_probs):
-        """input_feat [B, U2, in]; attention_probs [B, M, U1, U2] ->
-        [B, U1, F]."""
+    def forward(self, input_feat, attention_probs=None, fused=None):
+        """input_feat [B, U2, in]; attention_probs [B, M, U1, U2], or the
+        flash kernel's ``fused`` = P V [B, M, U1, F] -> [B, U1, F]."""
         s = self.spec
+        if fused is not None:
+            return self._ffn_and_pool(fused)
         u1, u2 = attention_probs.shape[2], attention_probs.shape[3]
         if s.reassociate and not s.v_has_bias and u2 > u1:
             # squeeze-in side: P (X Wv) == (P X) Wv
@@ -268,7 +298,10 @@ class ExpandedFeatTrans(nn.Module):
             return self._output_and_pool(mid, None)
         else:
             fused = torch.matmul(attention_probs, self.compute_v(input_feat))
+        return self._ffn_and_pool(fused)
 
+    def _ffn_and_pool(self, fused):
+        s = self.spec
         if not s.has_FFN:
             # aggregate-only path (segtran_shared.py:452-457)
             return self.first_norm_layer(self.feat_softaggr(fused))
@@ -327,6 +360,9 @@ class CrossAttFeatTrans(nn.Module):
         def proj_k():
             return key(in_key, dt).reshape(b, u2, m, amd).permute(0, 2, 1, 3)
 
+        if s.use_fused_attention and not self.training:
+            return self._flash(proj_q(), proj_k(), in_key)
+
         # exact QK reassociation through the small side (nn/attention.py
         # :641-669 of the JAX package); scores stay in the compute dtype
         q_fold = s.reassociate and u2 * c_q * (amd + u1) < amd * u1 * (c_q + u2)
@@ -353,6 +389,26 @@ class CrossAttFeatTrans(nn.Module):
         scores = _clamp_if_exceeds(scores / math.sqrt(amd), s.attn_clip)
         probs = torch.softmax(scores.float(), dim=-1).to(dt)
         return self.out_trans(in_key, probs)
+
+    def _flash(self, q, k, in_key):
+        """The fused branch (nn/attention.py:597-624 of the JAX package):
+        the kernel contracts softmax(q k^T) with V, or with V W1 on the
+        attractor-out side, whose mid then finishes after the kernel."""
+        s = self.spec
+        out_trans = self.out_trans
+        b, m, u1, amd = q.shape
+        u2, f = k.shape[2], s.feat_dim
+        qg, kg = q.reshape(b * m, u1, amd), k.reshape(b * m, u2, amd)
+        if u2 < u1 and out_trans.supports_mid_premul():
+            vw = out_trans.apply_mid_premul(in_key)          # [B,M,U2,F]
+            mid_pre = fused_cross_attention(qg, kg, vw.reshape(b * m, u2, f),
+                                            s.attn_clip)
+            return out_trans.finish_from_mid_premul(
+                mid_pre.reshape(b, m, u1, f).to(s.dtype))
+        v = out_trans.compute_v(in_key)                      # [B,M,U2,F]
+        fused = fused_cross_attention(qg, kg, v.reshape(b * m, u2, f),
+                                      s.attn_clip)
+        return out_trans(in_key, fused=fused.reshape(b, m, u1, f).to(s.dtype))
 
 
 class SqueezedAttFeatTrans(nn.Module):

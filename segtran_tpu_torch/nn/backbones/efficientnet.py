@@ -146,10 +146,11 @@ class FoldedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(feats))
         self.eps = eps
 
-    def run(self, x, dtype):                      # x: NCHW
+    def run(self, x, dtype):                      # x: [B, C, *spatial]
         a = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         b = self.bias.float() - self.running_mean.float() * a
-        return x * a.to(dtype)[:, None, None] + b.to(dtype)[:, None, None]
+        shape = (-1,) + (1,) * (x.dim() - 2)
+        return x * a.to(dtype).view(shape) + b.to(dtype).view(shape)
 
 
 class MBConvBlock(nn.Module):

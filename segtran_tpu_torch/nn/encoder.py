@@ -35,6 +35,7 @@ def layer_spec_from_config(cfg: TransformerConfig, layer_i: int) -> TransLayerSp
         pool_modes_feat=cfg.pool_modes_feat,
         fix_private_output_residual=cfg.fix_private_output_residual,
         reassociate=cfg.reassociate,
+        use_fused_attention=cfg.use_fused_attention,
         use_fused_epilogue=cfg.use_fused_epilogue,
         ln_eps=cfg.ln_eps,
         dtype=cfg.dtype,
@@ -69,7 +70,8 @@ class SegtranFusionEncoder(nn.Module):
 
     def forward(self, vfeat: torch.Tensor, voxels_pos: torch.Tensor,
                 vmask: torch.Tensor, spatial_shape: Sequence[int]) -> torch.Tensor:
-        """vfeat [B, N, C]; voxels_pos [B, N, 2]; vmask [B, N, 1]."""
+        """vfeat [B, N, C]; voxels_pos [B, N, pos_dim]; vmask [B, N, 1]
+        multiplies the normalized features."""
         cfg = self.cfg
         pos_code = self.pos_code_layer(spatial_shape, voxels_pos)
         for i, layer in enumerate(self.translayers):

@@ -1,31 +1,73 @@
-"""Spatial resize and pooling on channels-last (NHWC) tensors.
+"""Spatial resize and pooling on channels-last tensors (NHWC / NDHWC).
 
-``resize_linear`` is ``F.interpolate(mode='bilinear', align_corners=False,
-antialias=False)``: half-pixel centres, no antialiasing filter -- the
-sampling the JAX package's ``jax.image.resize(method='linear',
-antialias=False)`` implements.
+``resize_linear`` is ``F.interpolate(mode='bilinear' | 'trilinear',
+align_corners=False, antialias=False)``: half-pixel centres, no
+antialiasing filter -- the sampling the JAX package's
+``jax.image.resize(method='linear', antialias=False)`` implements.
+``max_pool_same`` is ``reduce_window`` with TF-SAME padding: the pad is
+split with the odd element at the end and filled with -inf.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
+_MODES = {2: "bilinear", 3: "trilinear"}
+
+
+def _channels_first(x):
+    return x.movedim(-1, 1)
+
+
+def _channels_last(x):
+    return x.movedim(1, -1)
+
 
 def resize_linear(x: torch.Tensor, spatial_size: Sequence[int]) -> torch.Tensor:
-    """x: [B, H, W, C] -> [B, *spatial_size, C]."""
+    """x: [B, *spatial, C] with 2 or 3 spatial dims -> [B, *spatial_size, C]."""
     spatial_size = tuple(int(s) for s in spatial_size)
-    assert x.dim() == 4 and len(spatial_size) == 2, (x.shape, spatial_size)
-    if tuple(x.shape[1:3]) == spatial_size:
+    assert x.dim() == len(spatial_size) + 2, (x.shape, spatial_size)
+    if tuple(x.shape[1:-1]) == spatial_size:
         return x
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=spatial_size,
-                      mode="bilinear", align_corners=False, antialias=False)
-    return y.permute(0, 2, 3, 1)
+    y = F.interpolate(_channels_first(x), size=spatial_size,
+                      mode=_MODES[len(spatial_size)], align_corners=False,
+                      antialias=False)
+    return _channels_last(y)
 
 
 def avg_pool_nhwc(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
-    """Non-overlapping average pool (stride == window) of [B, H, W, C]."""
+    """Non-overlapping average pool (stride == window) of [B, *spatial, C]."""
     window = tuple(int(w) for w in window)
-    y = F.avg_pool2d(x.permute(0, 3, 1, 2), kernel_size=window, stride=window)
-    return y.permute(0, 2, 3, 1)
+    pool = F.avg_pool2d if len(window) == 2 else F.avg_pool3d
+    return _channels_last(pool(_channels_first(x), kernel_size=window,
+                               stride=window))
+
+
+def same_pads(size: Sequence[int], kernel: Sequence[int],
+              stride: Sequence[int]):
+    """TF-SAME (lo, hi) pads per spatial dim: the output has ceil(size /
+    stride) entries and the odd pad element goes to the end."""
+    pads = []
+    for s, k, st in zip(size, kernel, stride):
+        total = max((math.ceil(s / st) - 1) * st + k - s, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def pad_arg(pads):
+    """(lo, hi) pads in spatial order -> the F.pad argument (last dim first)."""
+    return tuple(v for lo_hi in reversed(pads) for v in lo_hi)
+
+
+def max_pool_same(x: torch.Tensor, window: Sequence[int],
+                  stride: Sequence[int]) -> torch.Tensor:
+    """3D max pool with TF-SAME padding of a channels-FIRST [B, C, D, H, W]
+    tensor (the I3D backbone's layout)."""
+    pads = same_pads(x.shape[2:], window, stride)
+    if all(lo == hi for lo, hi in pads):
+        return F.max_pool3d(x, window, stride, padding=[lo for lo, _ in pads])
+    x = F.pad(x, pad_arg(pads), value=float("-inf"))
+    return F.max_pool3d(x, window, stride)

@@ -43,6 +43,9 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(tmp_path, monkeypatch):
                                          "--iter", "1"])
     with pytest.raises(RuntimeError, match="CUDA GPU"):
         InferenceEngine(args, None)
+    from segtran_tpu_torch.cli import test3d
+    with pytest.raises(RuntimeError, match="CUDA GPU"):
+        test3d.main(["--cpdir", str(tmp_path), "--wholevol"])
 
 
 def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
@@ -62,3 +65,19 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
                                       torch.zeros(1, 4), torch.ones(4),
                                       torch.zeros(4), torch.zeros(4, 1),
                                       torch.zeros(1))
+
+
+def test_cuda_tensors_never_take_the_plain_flash_version(monkeypatch):
+    """The same for the flash cross-attention wrapper."""
+    import torch
+    from segtran_tpu_torch.kernels import _build
+    from segtran_tpu_torch.kernels import squeezed_attention as sa
+
+    def refuse(name):
+        raise RuntimeError("kernel build reached")
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(sa, "_on_cpu", lambda t: False)
+    q = torch.zeros(1, 4, 16)
+    with pytest.raises(RuntimeError, match="kernel build reached"):
+        sa.fused_cross_attention(q, torch.zeros(1, 8, 16),
+                                 torch.zeros(1, 8, 16))

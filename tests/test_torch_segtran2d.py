@@ -45,6 +45,28 @@ def test_segtran2d_logits_match_jax():
     np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
 
 
+def test_fused_attention_logits_match_jax():
+    """--fused: the flash branch (the plain version on the CPU) against the
+    JAX model's Pallas branch in interpret mode, same weights."""
+    import dataclasses
+    from segtran_tpu.models.segtran2d import Segtran2d as JModel
+    from segtran_tpu_torch.convert import state_dict_from_jax
+    from segtran_tpu_torch.models.segtran2d import Segtran2d as TModel
+
+    jcfg, tcfg = _configs(True)
+    jcfg = dataclasses.replace(jcfg, use_fused_attention=True)
+    tcfg = dataclasses.replace(tcfg, use_fused_attention=True)
+    x = np.random.RandomState(4).randn(1, 64, 64, 3).astype(np.float32)
+    jm = JModel(jcfg)
+    params, bstats = jax_variables(jm, jnp.zeros((1, 64, 64, 3)), seed=7)
+    ref = np.asarray(jax.jit(jm.apply)(jvars(params, bstats), jnp.asarray(x)))
+    tm = TModel(tcfg)
+    tm.load_state_dict(state_dict_from_jax(params, bstats), strict=True)
+    with torch.inference_mode():
+        out = tm.eval()(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+
+
 def test_inference_engine_matches_jax_sliding_window(tmp_path):
     """Port checkpoint (made by convert.py) -> InferenceEngine on the CPU,
     against the JAX model under the JAX sliding_window_2d, on one 96^2
@@ -110,7 +132,7 @@ def test_later_slice_flags_raise():
     from segtran_tpu_torch.cli.serve import (build_argparser,
                                              build_model_and_config,
                                              task_settings)
-    for extra in (["--fused"], ["--mince"], ["--pos", "bias"],
+    for extra in (["--mince"], ["--pos", "bias"],
                   ["--net", "unet"], ["--polyformer", "source"]):
         args = build_argparser().parse_args(
             ["--cpdir", "x", "--iter", "1", *extra])
