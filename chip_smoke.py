@@ -14,7 +14,8 @@ Phases, each of which fails the run:
    and the flash cross-attention kernel at the BraTS in/out-squeeze shapes
    (N=8640 and 18000 tokens), a ragged shape and a clamp case, in bf16 and
    fp32 (TF32 off for fp32); time each, its plain version and, for the
-   flash kernel, scaled_dot_product_attention with CUDA events.
+   flash kernels, scaled_dot_product_attention (forward; forward +
+   backward minus forward) with CUDA events.
 3. serving -- the InferenceEngine of cli/serve.py at full width (eff-b4,
    3 translayers 1792->1792->896->448, 256 attractors, bf16, --fusedepi,
    576^2 frames through 288^2 patches, --maxbatch 8) from a seeded port
@@ -33,6 +34,16 @@ Phases, each of which fails the run:
    240x240x155); each volume must launch the flash kernel twice and the
    private epilogue once, and agree with the unfused modules; one forward
    is profiled.
+6. training -- cli/train3d's train() at full width (I3D, 1 translayer
+   1024->1024, 1024 attractors, 4 modes, bf16, --fused --dropout 0) on
+   synthetic 240x240x155 volumes held in memory: (a) the recipe crop
+   112x112x96 at batch 4, 6 steps, each with 2 flash forward and 2
+   recompute-backward launches; (b) a 160x192x144 crop at batch 1, 4
+   steps, each with 2 flash forward, 1 flash backward (dK/dV + dQ) and 1
+   recompute-backward launch; ms per step, peak memory and one profiled
+   step of each; one fp32 step of (b) fused against unfused (loss and
+   every gradient); test3d on (a)'s checkpoint. Phase 2 holds the dK/dV
+   and dQ kernels against their plain version (bf16, fp32), with times.
 
 Before the last line it prints one JSON object with the per-kernel numbers
 and the card's ``name, power.limit``; the last line is
@@ -286,6 +297,140 @@ def check_flash(torch, sa):
     return results
 
 
+# (G, Q, N, D, F, q/k scale): the in-squeeze of a 160x192x144 and a
+# 240x240x160 training crop (the only flash backward of the BraTS train
+# step), a ragged shape and scores far beyond the clip
+FLASH_BWD_CASES = [("in-squeeze N=8640", 1, 1024, 8640, 1024, 1024, 1.0),
+                   ("in-squeeze N=18000", 1, 1024, 18000, 1024, 1024, 1.0),
+                   ("ragged", 3, 1000, 4700, 200, 264, 1.0),
+                   ("clamp", 1, 256, 512, 64, 64, 30.0)]
+# backward kernel vs plain version, as (max |err| / max |plain|, mean |err| /
+# mean |plain|) per gradient: bf16 rounds p and ds to bf16 as tensor-core
+# operands (2^-9 relative) where the plain version keeps them fp32 (JAX's
+# rounding points), then each output rounds to bf16; fp32 differs only in
+# summation order
+BWD_TOL = {"bf16": (2e-2, 1e-2), "fp32": (1e-4, 1e-5)}
+
+
+def sdpa_backward_call(torch, q, k, v, do, scale):
+    """scaled_dot_product_attention forward + backward through autograd on
+    [1, G, L, E] copies of q, k, v: (backend, forward call, forward +
+    backward call), the first fused backend that takes both (MATH last)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qs, ks, vs = (t.detach()[None].requires_grad_() for t in (q, k, v))
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def fwd(be=be):
+            with sdpa_kernel(be):
+                return F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+
+        def fwd_bwd(be=be):
+            torch.autograd.grad(fwd(be), (qs, ks, vs), do[None])
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                fwd_bwd()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return be.name, fwd, fwd_bwd
+    fail("no scaled_dot_product_attention backend took the inputs")
+
+
+def check_flash_backward(torch, sa):
+    """The dK/dV and dQ kernels against their plain versions on the same
+    inputs (the kernel forward's lse, delta = sum dO O), bit-for-bit
+    repeatability, and times: kernel, plain, SDPA backward, bound."""
+    results = []
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        for i, (label, g, nq, n, d, f, qk) in enumerate(FLASH_BWD_CASES):
+            gen = torch.Generator(device="cuda").manual_seed(200 + i)
+
+            def rn(*shape, s=1.0):
+                return (torch.randn(*shape, generator=gen, device="cuda")
+                        * s).to(dt)
+            q, k, v = rn(g, nq, d, s=qk), rn(g, n, d, s=qk), rn(g, n, f)
+            do = rn(g, nq, f)
+            scale = 1.0 / math.sqrt(d)
+            out, lse = sa.fused_cross_attention(q, k, v, return_lse=True)
+            delta = (do.float() * out.float()).sum(-1, keepdim=True)
+            args = (q, k, v, do, lse, delta, 500.0, scale)
+            dk, dv = sa.flash_backward_dkdv(*args)
+            dq = sa.flash_backward_dq(*args)
+            dq_ref = sa.flash_backward_dq_plain(*args)
+            dk_ref, dv_ref = sa.flash_backward_dkdv_plain(*args)
+            dk2, dv2 = sa.flash_backward_dkdv(*args)
+            repeat = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)
+                          and torch.equal(dq, sa.flash_backward_dq(*args)))
+            torch.cuda.synchronize()
+            errs = {}
+            for gname, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                                    ("dv", dv, dv_ref)):
+                if got.shape != ref.shape or got.dtype != dt:
+                    fail(f"flash backward {label} {dname} {gname}: got "
+                         f"{tuple(got.shape)} {got.dtype}")
+                e = (got.float() - ref.float()).abs()
+                r = ref.float().abs()
+                errs[gname] = (float(e.max()), float(e.max() / r.max()),
+                               float(e.mean() / r.mean()))
+            tol_max, tol_mean = BWD_TOL[dname]
+            ms_dkdv = cuda_ms(torch, lambda: sa.flash_backward_dkdv(*args),
+                              iters=3)
+            ms_dq = cuda_ms(torch, lambda: sa.flash_backward_dq(*args),
+                            iters=3)
+            plain_dkdv = cuda_ms(torch, lambda: sa.flash_backward_dkdv_plain(
+                *args), iters=3)
+            plain_dq = cuda_ms(torch, lambda: sa.flash_backward_dq_plain(
+                *args), iters=3)
+            backend, fwd, fwd_bwd = sdpa_backward_call(torch, q, k, v, do,
+                                                       scale)
+            library_ms = (cuda_ms(torch, fwd_bwd, iters=3)
+                          - cuda_ms(torch, fwd, iters=3))
+            elt = out.element_size()
+            io = (q.numel() + k.numel() + v.numel() + do.numel()) * elt \
+                + (lse.numel() + delta.numel()) * 4
+            for name, ms, plain_ms, flops, nbytes, grads in (
+                    ("flash_backward_dkdv", ms_dkdv, plain_dkdv,
+                     2 * g * nq * n * (2 * d + 2 * f),
+                     io + (k.numel() + v.numel()) * elt, ("dk", "dv")),
+                    ("flash_backward_dq", ms_dq, plain_dq,
+                     2 * g * nq * n * (2 * d + f), io + q.numel() * elt,
+                     ("dq",))):
+                t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
+                row = dict(name=name, dtype=dname, case=label,
+                           shape=[g, nq, n, d, f],
+                           max_abs_err=max(errs[x][0] for x in grads),
+                           max_err_over_max=max(errs[x][1] for x in grads),
+                           mean_err_over_mean=max(errs[x][2] for x in grads),
+                           repeatable=repeat, ms=ms, plain_ms=plain_ms,
+                           library_ms=library_ms, library_backend=backend,
+                           bound_ms=max(t_ops, t_bytes) * 1e3,
+                           bound_by=("operations" if t_ops >= t_bytes
+                                     else "bytes"),
+                           flop=flops, bytes=nbytes)
+                results.append(row)
+                log(f"[flash-bwd] {name} {label} {dname} "
+                    f"G,Q,N,D,F={g},{nq},{n},{d},{f}: max |err|/max |plain| "
+                    f"{row['max_err_over_max']:.3e}, mean {row['mean_err_over_mean']:.3e} "
+                    f"(tol {tol_max:g}/{tol_mean:g}), repeatable {repeat}; "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"sdpa[{backend}] backward (all grads) {library_ms:.4f} "
+                    f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                    f"{flops:.3e} FLOP, {nbytes:.3e} B)")
+            if not all(e[1] <= tol_max and e[2] <= tol_mean
+                       for e in errs.values()):
+                fail(f"flash backward {label} {dname} disagrees with its "
+                     f"plain version: {errs}")
+            if not repeat:
+                fail(f"flash backward {label} {dname} is not repeatable")
+            del q, k, v, do, out, lse, delta, args, dq, dk, dv
+            del dq_ref, dk_ref, dv_ref, dk2, dv2
+        torch.cuda.empty_cache()
+    return results
+
+
 # ------------------------------------------------------------ phase 3 ----
 
 def compare(a, b):
@@ -306,10 +451,13 @@ def profile_forward(torch, fn, label, groups):
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # (the optimizer's profiling ranges appear as device rows too; they
+    # span kernels counted on their own rows)
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("Optimizer.")), reverse=True)
     busy = sum(r[0] for r in rows)
     if busy <= 0:
         log("[profile] the profiler saw no device time")
@@ -635,7 +783,220 @@ def wholevol(torch, np, epi, sa, ckdir, logger):
     return perf, launches
 
 
-def main() -> int:
+# ------------------------------------------------------------ phase 6 ----
+
+# (label, train3d flags, steps, per-step launches: flash forward, flash
+# backward (dK/dV and dQ each), recompute backward). (a) is the BraTS recipe
+# crop (N = 2352 tokens: both squeezes below FLASH_BWD_MIN_N keys); (b) the
+# 160x192x144 crop (N = 8640: the in-squeeze takes the flash backward)
+TRAIN_CASES = [
+    ("recipe 112x112x96 bs4", ["--bs", "4", "--patchsize", "112,112,96"],
+     6, (2, 0, 2)),
+    ("160x192x144 bs1", ["--bs", "1", "--patchsize", "160,192,144",
+                         "--inputsize", "160,192,144"], 4, (2, 1, 1)),
+]
+TRAIN_ARGV = ["--task", "brats", "--translayers", "1", "--attractors", "1024",
+              "--fused", "--dropout", "0", "--device", "cuda", "--seed", "0"]
+# fused vs unfused fp32 train step (TF32 off): the loss, and each gradient
+# as max |diff| / max |unfused| -- the paths differ in summation order and
+# in the kernels' always-clamp, which no score here reaches
+TRAIN_TOL = {"loss_rel": 1e-4, "grad": 1e-2}
+
+
+def synthetic_dataset(np, n, shape):
+    """n synthetic BraTS volumes (``synthetic_volume``) behind the training
+    BratsSet's crop logic, in memory: the GPU machine has no h5py."""
+    from segtran_tpu_torch.data.datasets3d import BratsSet
+
+    class InMemoryBrats(BratsSet):
+        def __init__(self, vols, crop_size, seed):
+            self.vols, self.case_list = vols, [f"synthetic{i}"
+                                               for i in range(len(vols))]
+            self.mode, self.crop_size, self.seed, self.epoch = (
+                "train", crop_size, seed, 0)
+            self.binarize, self.remap_label4 = False, True
+
+        def read(self, idx):
+            v = self.vols[idx]
+            return v["image"], v["label"]
+
+    vols = [synthetic_volume(np, shape, seed=10 + i) for i in range(n)]
+    return lambda crop: InMemoryBrats(vols, crop, seed=0)
+
+
+def train_step_perf(torch, train3d, model, args, task, dev, batch, label):
+    """ms per step (host clock around 3 steps ending in a synchronise, after
+    a warm step), peak GB, finite loss and gradients, one profiled step."""
+    from segtran_tpu_torch.train.trainer import build_optimizer
+    opt = build_optimizer(model, lr=args.lr, decay=args.decay,
+                          t_total=args.maxiter, warmup_ratio=0.5)
+    step = train3d.make_step(model, opt, args, task, dev)
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        metrics = step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 3 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    finite = all(bool(torch.isfinite(v).all()) for v in metrics.values()) \
+        and all(p.grad is None or bool(torch.isfinite(p.grad).all())
+                for p in model.parameters())
+    prof = profile_forward(
+        torch, lambda: (step(batch), torch.cuda.synchronize()),
+        f"one {label} train step",
+        {"flash statistics": "stats_kernel", "flash output": "out_kernel",
+         "flash dK/dV": "dkdv_kernel", "flash dQ": "dq_kernel",
+         "conv fprop": "fprop", "conv dgrad": "dgrad", "conv wgrad": "wgrad",
+         "group norm statistics": "RowwiseMoments",
+         "trilinear resizes": "upsample_trilinear",
+         "max pools": "max_pool3d", "reductions": "reduce_kernel"})
+    return dict(ms_per_step=ms, peak_mem_gb=peak,
+                loss=float(metrics["loss"]), finite=finite, **prof)
+
+
+def fused_vs_unfused_fp32(torch, np, train3d, make_ds, state, extra, dev):
+    """One fp32 forward + backward of the (b) batch through --fused and the
+    unfused modules on the same weights: the loss and every gradient."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grads, losses = {}, {}
+    ds = make_ds((160, 192, 144))
+    sample = ds[0]
+    image = torch.from_numpy(sample["image"])[None].to(dev)
+    label = torch.from_numpy(sample["label"])[None].to(dev)
+    for fused in (True, False):
+        argv = [a for a in TRAIN_ARGV + extra if fused or a != "--fused"]
+        args = train3d.build_argparser().parse_args(argv)
+        task = train3d.train_task_settings(args)
+        model, _ = train3d.build_model_and_config(args, task)
+        model.load_state_dict(state, strict=True)
+        model = model.to(dev).train()
+        from segtran_tpu_torch.data.labelmaps3d import brats_map_label
+        loss, _ = train3d.make_loss_fn(task, args.max_dice_w, dev)(
+            model(image), brats_map_label(label))
+        loss.backward()
+        losses[fused] = float(loss.detach())
+        grads[fused] = {n: p.grad.detach().clone()
+                        for n, p in model.named_parameters()
+                        if p.grad is not None}
+        del model, loss
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    loss_rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    worst = max(((float((grads[True][n] - g).abs().max())
+                  / max(float(g.abs().max()), 1e-30), n)
+                 for n, g in grads[False].items()
+                 if not n.endswith("feat_softaggr.feat2score.bias")))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads[True].values())
+    log(f"[train] fp32 fused vs unfused step at 160x192x144: loss "
+        f"{losses[True]:.6f} vs {losses[False]:.6f} (rel {loss_rel:.2e}, "
+        f"tol {TRAIN_TOL['loss_rel']:g}); worst gradient max |diff| / max "
+        f"|unfused| {worst[0]:.2e} ({worst[1]}; tol {TRAIN_TOL['grad']:g}) "
+        f"over {len(grads[False])} tensors")
+    if len(grads[True]) != len(grads[False]) or not finite:
+        fail("the fused fp32 step's gradients are missing or not finite")
+    if loss_rel > TRAIN_TOL["loss_rel"] or worst[0] > TRAIN_TOL["grad"]:
+        fail("the fused fp32 train step disagrees with the unfused one")
+    return dict(fp32_loss_rel=loss_rel, fp32_worst_grad=worst[0],
+                fp32_worst_grad_tensor=worst[1])
+
+
+def training(torch, np, sa, ckdir, logger):
+    """Phase 6: train3d's train() at full width on synthetic volumes, both
+    configurations, with the launch counts per step; the fp32 fused vs
+    unfused check; test3d on the recipe run's checkpoint."""
+    from segtran_tpu_torch.cli import train3d
+    from segtran_tpu_torch.cli.test3d import (build_argparser as eval_parser,
+                                              build_model_and_config,
+                                              evaluate_volume, task_settings)
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    from segtran_tpu_torch.train.checkpoint import load_checkpoint
+    dev = torch.device("cuda")
+    make_ds = synthetic_dataset(np, 4, (240, 240, 155))
+    perf, launches, ckpts = {}, {}, {}
+    for label, extra, steps, (n_fwd, n_flash, n_rec) in TRAIN_CASES:
+        argv = TRAIN_ARGV + extra + ["--bf16", "--maxiter", str(steps),
+                                     "--saveiter", str(steps), "--ckptdir",
+                                     ckdir]
+        args = train3d.build_argparser().parse_args(argv)
+        task = train3d.train_task_settings(args)
+        model, cfg = train3d.build_model_and_config(args, task)
+        if (cfg.translayer_dims != (1024, 1024) or cfg.num_attractors != 1024
+                or cfg.num_modes != 4 or cfg.dtype != torch.bfloat16):
+            fail(f"unexpected BraTS training config {cfg}")
+        init_with_reference_schemes(model, cfg, seed=0)
+        model = model.to(dev)
+        ds = make_ds(tuple(task["orig_patch_size"]))
+        sa.reset_launches()
+        t0 = time.perf_counter()
+        ckpt = train3d.train(model, ds, args, task, dev, cfg,
+                             os.path.join(ckdir, f"case{len(ckpts)}"), logger)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (sa.fused_cross_attention.launches,
+               sa.flash_backward_dkdv.launches, sa.flash_backward_dq.launches,
+               sa.cross_attention_bwd_recompute.launches)
+        launches[label] = got
+        want = (n_fwd * steps, n_flash * steps, n_flash * steps,
+                n_rec * steps)
+        log(f"[train] {label}: train() ran {steps} steps in {wall:.2f} s; "
+            f"launches flash forward {got[0]}, dK/dV {got[1]}, dQ {got[2]}, "
+            f"recompute backward {got[3]} (want {want})")
+        if got != want:
+            fail(f"{label}: the train steps did not make {n_fwd} flash "
+                 f"forward, {n_flash} flash backward and {n_rec} recompute "
+                 f"backward launches each")
+        ckpts[label] = (ckpt, steps)
+        batch = {k: torch.from_numpy(np.stack([ds[i][k] for i in range(
+            args.batch_size)])).to(dev) for k in ("image", "label")}
+        row = train_step_perf(torch, train3d, model, args, task, dev, batch,
+                              label)
+        if not row["finite"]:
+            fail(f"{label}: the loss or a gradient is not finite")
+        perf[label] = row
+        if n_flash:
+            state = {k: v.float() if v.is_floating_point() else v
+                     for k, v in model.state_dict().items()}
+        del model, batch
+        torch.cuda.empty_cache()
+    perf.update(fused_vs_unfused_fp32(torch, np, train3d, make_ds, state,
+                                      TRAIN_CASES[1][1] + [
+                                          "--maxiter", "4"], dev))
+    # test3d on the recipe run's checkpoint: one whole volume
+    ckpt, steps = ckpts[TRAIN_CASES[0][0]]
+    eargs = eval_parser().parse_args(
+        ["--task", "brats", "--translayers", "1", "--attractors", "1024",
+         "--wholevol", "--fused", "--fusedepi", "--bf16", "--device", "cuda",
+         "--cpdir", ckpt, "--iters", str(steps)])
+    etask = task_settings(eargs)
+    model, ecfg = build_model_and_config(eargs, etask)
+    model.load_state_dict(load_checkpoint(os.path.join(
+        ckpt, f"iter_{steps}"), ecfg), strict=True)
+    probs, _, metrics = evaluate_volume(model.to(dev).eval(),
+                                        synthetic_volume(np, (240, 240, 155),
+                                                         seed=99),
+                                        eargs, etask, dev)
+    log(f"[train] test3d on the recipe checkpoint iter_{steps}: dice "
+        f"{[round(d, 4) for d in metrics['dice']]}")
+    if not bool(torch.isfinite(probs).all()) or \
+            not np.isfinite(metrics["dice"]).all():
+        fail("test3d on the trained checkpoint is not finite")
+    del model, probs
+    torch.cuda.empty_cache()
+    return perf, launches[TRAIN_CASES[1][0]]
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="smoke run of the port on one "
+                                             "GPU; no arguments runs every "
+                                             "phase")
+    ap.add_argument("--only", choices=["flash_backward", "training"],
+                    default=None,
+                    help="build and run only this check, print no result")
+    only = ap.parse_args(argv).only
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is available", file=sys.stderr)
@@ -663,11 +1024,23 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")
 
-    kernels = check_kernels(torch, epi) + check_flash(torch, sa)
     logger = logging.getLogger("chip_smoke")
     logger.addHandler(logging.StreamHandler(sys.stderr))
     logger.setLevel(logging.INFO)
     ckdir = os.path.join(ROOT, "build", "chip_smoke")
+    if only == "flash_backward":
+        rows = check_flash_backward(torch, sa)
+        print(json.dumps({"flash_backward": rows, "card": card}), flush=True)
+        return 0
+    if only == "training":
+        try:
+            train_perf, _ = training(torch, np, sa, ckdir, logger)
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        print(json.dumps({"training": train_perf, "card": card}), flush=True)
+        return 0
+    kernels = (check_kernels(torch, epi) + check_flash(torch, sa)
+               + check_flash_backward(torch, sa))
     try:
         perf, launches, state, cfg, batch = serve(torch, np, epi, sa, ckdir,
                                                   logger)
@@ -678,6 +1051,11 @@ def main() -> int:
         vol_perf, vol_launches = wholevol(torch, np, epi, sa, ckdir, logger)
         log(f"[wholevol] {json.dumps(vol_perf)} on {card}")
         launches.update(vol_launches)
+        shutil.rmtree(ckdir, ignore_errors=True)
+        train_perf, (_, n_dkdv, n_dq, _) = training(torch, np, sa, ckdir,
+                                                   logger)
+        log(f"[train] {json.dumps(train_perf)} on {card}")
+        launches.update(flash_backward_dkdv=n_dkdv, flash_backward_dq=n_dq)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
 
@@ -687,17 +1065,21 @@ def main() -> int:
             "segtran_tpu/kernels/expansion_epilogue.py:226",
         "fused_private_output_pool":
             "segtran_tpu/kernels/expansion_epilogue.py:289",
-        "fused_cross_attention": "segtran_tpu/kernels/squeezed_attention.py:107"}
+        "fused_cross_attention": "segtran_tpu/kernels/squeezed_attention.py:107",
+        "flash_backward_dkdv": "segtran_tpu/kernels/squeezed_attention.py:204",
+        "flash_backward_dq": "segtran_tpu/kernels/squeezed_attention.py:234"}
     # one entry per kernel: bf16 at the first shape of each (the flash
-    # kernel: the whole-volume in-squeeze at N=8640); launches from the
-    # main path of its slice (serving for the first two, the whole-volume
-    # run for the last two); every measured row is printed above
+    # kernels: the in-squeeze at N=8640); launches from the main path of
+    # its slice (serving for the first two, the whole-volume run for the
+    # next two, the 160x192x144 train steps for the backward pair); every
+    # measured row is printed above
     entries = []
     for name in ("fused_mid_output_pool_permode", "fused_mid_output_pool",
-                 "fused_private_output_pool", "fused_cross_attention"):
+                 "fused_private_output_pool", "fused_cross_attention",
+                 "flash_backward_dkdv", "flash_backward_dq"):
         r = next(k for k in kernels if k["name"] == name and k["dtype"] == "bf16")
-        src = ("squeezed_attention" if name == "fused_cross_attention"
-               else "expansion_epilogue")
+        src = ("expansion_epilogue" if "output_pool" in name
+               else "squeezed_attention")
         entries.append(dict(
             name=name, route="cuda",
             source=f"segtran_tpu_torch/csrc/{src}.cu",

@@ -140,10 +140,9 @@ def task_settings(args):
     return task
 
 
-def build_model_and_config(args, task):
-    """``--net segtran --segtran 3d`` as the JAX test3d builds it, in eval
-    form (reference test3d.py:190-237)."""
-    _refuse_later_slices(args)
+def segtran3d_config(args, task, **extra) -> Segtran3dConfig:
+    """The Segtran3dConfig of the model flags shared by test3d and train3d
+    (reference test3d.py:190-237); ``extra`` sets the training fields."""
     compress = tuple(float(x) for x in (
         args.translayer_compress_ratios
         or ",".join(["1"] * (args.num_translayers + 1))).split(","))
@@ -152,7 +151,7 @@ def build_model_and_config(args, task):
         kw["out_fpn_upsampleD_scheme"] = args.out_fpn_upsampleD_scheme
     if args.d_pool_k > 0:
         kw["D_pool_K"] = args.d_pool_k
-    cfg = Segtran3dConfig(
+    return Segtran3dConfig(
         **kw,
         num_classes=task["num_classes"],
         num_attractors=args.num_attractors,
@@ -169,7 +168,15 @@ def build_model_and_config(args, task):
         use_fused_attention=args.use_fused_attention,
         use_fused_epilogue=args.use_fused_epilogue,
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        **extra,
     ).derive(translayer_compress_ratios=compress)
+
+
+def build_model_and_config(args, task):
+    """``--net segtran --segtran 3d`` as the JAX test3d builds it, in eval
+    form."""
+    _refuse_later_slices(args)
+    cfg = segtran3d_config(args, task)
     return Segtran3d(cfg), cfg
 
 

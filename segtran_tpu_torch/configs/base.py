@@ -3,9 +3,8 @@ whole-volume inference.
 
 Counterpart of ``segtran_tpu/configs/base.py``: the same frozen dataclasses,
 field names and ``derive()`` rules (layer-compression cumprod, FPN check),
-with ``dtype`` held as a torch dtype. Only the fields the 2D serving path
-reads are kept; dropout, init scales and training-only layout knobs come
-with later slices.
+with ``dtype`` held as a torch dtype. Only the fields the ported paths read
+are kept (serving, 3-D evaluation, 3-D training).
 """
 from __future__ import annotations
 
@@ -70,8 +69,16 @@ class TransformerConfig:
 
     pool_modes_feat: str = "softmax"       # softmax | max | mean | none
 
+    # dropout in training (reference segtran_shared.py:90-156)
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    # the reference init passes (nn/init.py)
+    base_initializer_range: float = 0.02
+    query_idbias_scale: float = 10.0
+    feattrans_lin1_idbias_scale: float = 10.0
+
     # CUDA flash cross-attention (kernels/squeezed_attention.py) in the
-    # squeezed layers; inference-only in this package.
+    # squeezed layers; in training only without attention dropout.
     use_fused_attention: bool = False
     # CUDA fused private-output + LayerNorm + mode-pool epilogue
     # (kernels/expansion_epilogue.py); inference-only.
@@ -152,6 +159,10 @@ class Segtran3dConfig(TransformerConfig):
     # depth pooling of the in-FPN features before the transformer
     D_pool_K: int = 2
     out_fpn_upsampleD_scheme: str = "interp"   # interp | conv | none
+    # dropout on the out-FPN features in training (the unfactored tail)
+    out_fpn_do_dropout: bool = False
+    # rematerialise the backbone and the encoder in the backward
+    remat: bool = False
 
     @property
     def bb_feat_dims(self) -> Tuple[int, ...]:

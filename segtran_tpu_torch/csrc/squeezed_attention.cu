@@ -404,6 +404,298 @@ __global__ void __launch_bounds__(kThreads, 1) out_kernel(Params p) {
   }
 }
 
+// ------------------------------------------------------------ backward ----
+//
+// Replaces the Pallas flash backward (_flash_bwd_impl): _dkdv_kernel and
+// _dq_kernel over _bwd_common. Per (query i, key j), recomputed from the
+// saved fp32 lse and delta_i = sum_f dO_if O_if:
+//
+//     s_raw = scale q_i.k_j          p  = exp(clip(s_raw) - lse_i), 0 if padded
+//     dp    = dO_i.v_j               ds = p (dp - delta_i) [|s_raw| < clip] scale
+//     dV_j = sum_i p dO_i    dK_j = sum_i ds q_i    dQ_i = sum_j ds k_j
+//
+// all sums in fp32, outputs rounded to T. No [G, Q, N] tensor reaches
+// device memory: O(Q + N) traffic, like the forward.
+//
+// What bounds it on an H100 SXM: at the path shape (in-squeeze at
+// 160x192x144, bf16: G=1, Q=1024, N=8640, D=F=1024) the minimal work is
+// 2 G Q N (3D + 2F) = 9.1e10 FLOP (92 us at 989 TFLOP/s) against ~60 MB of
+// compulsory traffic (18 us): bound by operations.
+//
+// The design. The TPU kernels keep [TN, D] + [TN, F] (dK/dV) or [TQ, D]
+// (dQ) fp32 accumulators in VMEM; at D = F = 1024 a 64-row dK+dV
+// accumulator is 512 KB, more than the register file and shared memory.
+// So, as the forward splits F, every block owns one 128-column slice of
+// one output and recomputes what that slice needs:
+//
+// 1. dkdv_kernel: per (G, 64-key tile, slice) it walks every 64-row query
+//    tile. A dV slice needs only p: s = q k^T over all of D (the forward's
+//    cp.async ring), then acc += p^T dO[:, slice]. A dK slice needs ds: s
+//    over D and dp = dO v^T over all of F, then acc += ds^T q[:, slice].
+//    blockIdx.y < F/128 picks a dV slice, the rest dK slices.
+// 2. dq_kernel: per (G, 64-row query tile, D slice) it walks every key
+//    tile: s, dp, ds, then acc += ds k[:, slice].
+//
+// Each block sums its own slice in a fixed order, so the results are
+// deterministic (no atomics). The price is the recompute: q k^T once per
+// slice and dO v^T once per dK/dQ slice, ~8x the minimal work at D = F =
+// 1024. bf16 products run on the tensor cores through WMMA (p and ds are
+// rounded to bf16 as operands, fp32 accumulate); fp32 runs on the CUDA
+// cores in full fp32. Padded queries and keys are masked in-kernel.
+
+struct BwdParams {
+  const void* q;     // [G, Q, D]
+  const void* k;     // [G, N, D]
+  const void* v;     // [G, N, F]
+  const void* dout;  // [G, Q, F]
+  const float* lse;  // [G, Q]
+  const float* delta;  // [G, Q]
+  void* dq;          // [G, Q, D]
+  void* dk;          // [G, N, D]
+  void* dv;          // [G, N, F]
+  int Q, N, D, F;
+  float scale, clip;
+};
+
+template <typename T> constexpr size_t bwd_smem() {
+  using S = Tile<T>;
+  return ring_bytes<T>() + sizeof(float) * 2 * TQ * S::LDS +
+         sizeof(T) * TQ * S::LDP + sizeof(T) * TN * S::LDV +
+         sizeof(float) * 2 * TQ;
+}
+
+// p (or ds when `want_ds`) of one (query tile, key tile) cell into sp[q][k]
+// in T, from the raw dots in ss (q k^T) and sd (dO v^T).
+template <typename T>
+__device__ __forceinline__ void probs_tile(const BwdParams& p, const float* ss,
+                                           const float* sd, const float* lse,
+                                           const float* delta, T* sp, int q0,
+                                           int n0, bool want_ds) {
+  using S = Tile<T>;
+  for (int i = threadIdx.x; i < TQ * TN; i += kThreads) {
+    const int r = i / TN, c = i % TN;
+    const float sr = ss[r * S::LDS + c] * p.scale;
+    const bool valid = q0 + r < p.Q && n0 + c < p.N;
+    float x = valid ? expf(fminf(fmaxf(sr, -p.clip), p.clip) - lse[r]) : 0.f;
+    if (want_ds)
+      x = fabsf(sr) < p.clip ? x * (sd[r * S::LDS + c] - delta[r]) * p.scale
+                             : 0.f;
+    sp[r * S::LDP + c] = from_f<T>(x);
+  }
+}
+
+// acc[64 rows, 128 cols] += A . sx, A = sp (kTransA: sp^T), 64 deep.
+template <typename T, bool kTransA, typename Frag>
+__device__ __forceinline__ void accumulate(const T* sp, const T* sx,
+                                           Frag* facc, float* acc) {
+  using S = Tile<T>;
+  constexpr int LDP = S::LDP, LDV = S::LDV;
+  const int tid = threadIdx.x;
+  if constexpr (std::is_same<T, bf16>::value) {
+    using namespace nvcuda;
+    const int warp = tid >> 5, rt = warp % 4, ch = warp / 4;
+    using Layout = typename std::conditional<kTransA, wmma::col_major,
+                                             wmma::row_major>::type;
+#pragma unroll
+    for (int kk = 0; kk < TQ; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, Layout> fa;
+      // sp^T as a column-major A: (row, col) at col * LDP + row
+      wmma::load_matrix_sync(fa, kTransA ? sp + kk * LDP + rt * 16
+                                         : sp + rt * 16 * LDP + kk, LDP);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+        wmma::load_matrix_sync(fb, sx + kk * LDV + ch * 64 + j * 16, LDV);
+        wmma::mma_sync(facc[j], fa, fb, facc[j]);
+      }
+    }
+  } else {
+    constexpr int RS = kThreads / TF, RT = TQ / RS;
+    const int col = tid % TF, r0 = tid / TF;
+#pragma unroll 8
+    for (int kk = 0; kk < TQ; ++kk) {
+      const float bv = to_f(sx[kk * LDV + col]);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int r = r0 + RS * i;
+        acc[i] = fmaf(to_f(kTransA ? sp[kk * LDP + r] : sp[r * LDP + kk]), bv,
+                      acc[i]);
+      }
+    }
+  }
+}
+
+// Write the [64, 128] fp32 accumulator, rounded to T, to out (row stride
+// ld), rows < rows_valid and cols < cols_valid; staged through `so`.
+template <typename T, typename Frag>
+__device__ __forceinline__ void store_acc(Frag* facc, const float* acc,
+                                          float* so, T* out, long long ld,
+                                          int rows_valid, int cols_valid) {
+  constexpr int LDO = Tile<T>::LDO;
+  const int tid = threadIdx.x;
+  __syncthreads();  // the ring is free: stage the accumulator there
+  if constexpr (std::is_same<T, bf16>::value) {
+    using namespace nvcuda;
+    const int warp = tid >> 5, rt = warp % 4, ch = warp / 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      wmma::store_matrix_sync(so + rt * 16 * LDO + ch * 64 + j * 16, facc[j],
+                              LDO, wmma::mem_row_major);
+  } else {
+    constexpr int RS = kThreads / TF, RT = TQ / RS;
+    const int col = tid % TF, r0 = tid / TF;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) so[(r0 + RS * i) * LDO + col] = acc[i];
+  }
+  __syncthreads();
+  for (int i = tid; i < TQ * TF; i += kThreads) {
+    const int r = i / TF, c = i % TF;
+    if (r < rows_valid && c < cols_valid)
+      out[(long long)r * ld + c] = from_f<T>(so[r * LDO + c]);
+  }
+}
+
+// the shared-memory carve-up of both backward kernels
+template <typename T> struct BwdSmem {
+  T *sq, *sk, *sp, *sx;
+  float *ss, *sd, *lse, *delta, *so;
+  __device__ explicit BwdSmem(unsigned char* smem) {
+    using S = Tile<T>;
+    sq = reinterpret_cast<T*>(smem);
+    sk = sq + kStages * TQ * S::LDK;
+    ss = reinterpret_cast<float*>(sk + kStages * TN * S::LDK);
+    sd = ss + TQ * S::LDS;
+    sp = reinterpret_cast<T*>(sd + TQ * S::LDS);
+    sx = sp + TQ * S::LDP;
+    lse = reinterpret_cast<float*>(sx + TN * S::LDV);
+    delta = lse + TQ;
+    so = reinterpret_cast<float*>(smem);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(BwdParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  BwdSmem<T> sm(smem);
+  const int g = blockIdx.z, n0 = blockIdx.x * TN;
+  const int n_dv = (p.F + TF - 1) / TF;
+  const bool is_dk = blockIdx.y >= n_dv;
+  const int c0 = (is_dk ? blockIdx.y - n_dv : blockIdx.y) * TF;
+  const int width = is_dk ? p.D : p.F;  // of the output and of the X slice
+  const int k_rows = min(TN, p.N - n0);
+  const T* qg = static_cast<const T*>(p.q) + (long long)g * p.Q * p.D;
+  const T* kt = static_cast<const T*>(p.k) + ((long long)g * p.N + n0) * p.D;
+  const T* vt = static_cast<const T*>(p.v) + ((long long)g * p.N + n0) * p.F;
+  const T* dog = static_cast<const T*>(p.dout) + (long long)g * p.Q * p.F;
+  // X = q[:, slice] (dK) or dO[:, slice] (dV)
+  const T* xg = (is_dk ? qg : dog) + c0;
+
+  using namespace nvcuda;
+  constexpr bool kTC = std::is_same<T, bf16>::value;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> facc[kTC ? 4 : 1];
+  constexpr int RT = TQ / (kThreads / TF);
+  float acc[kTC ? 1 : RT];
+  if constexpr (kTC) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(facc[j], 0.f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < RT; ++i) acc[i] = 0.f;
+  }
+
+  const int nqt = (p.Q + TQ - 1) / TQ;
+  for (int t = 0; t < nqt; ++t) {
+    const int q0 = t * TQ, q_rows = min(TQ, p.Q - q0);
+    // the previous tile's reads of these ended at its post-probs barrier
+    if (threadIdx.x < TQ) {
+      const bool in = threadIdx.x < q_rows;
+      const long long at = (long long)g * p.Q + q0 + threadIdx.x;
+      sm.lse[threadIdx.x] = in ? p.lse[at] : 0.f;
+      sm.delta[threadIdx.x] = in ? p.delta[at] : 0.f;
+    }
+    score_tile<T>(qg + (long long)q0 * p.D, q_rows, kt, k_rows, p.D, sm.sq,
+                  sm.sk, sm.ss, [&] {
+                    stage_tile<T, TQ, TF>(sm.sx, Tile<T>::LDV,
+                                          xg + (long long)q0 * width, width,
+                                          q_rows, width - c0);
+                  });
+    if (is_dk)
+      score_tile<T>(dog + (long long)q0 * p.F, q_rows, vt, k_rows, p.F, sm.sq,
+                    sm.sk, sm.sd, [] {});
+    probs_tile<T>(p, sm.ss, sm.sd, sm.lse, sm.delta, sm.sp, q0, n0, is_dk);
+    __syncthreads();
+    accumulate<T, true>(sm.sp, sm.sx, facc, acc);
+  }
+  T* out = static_cast<T*>(is_dk ? p.dk : p.dv) +
+           ((long long)g * p.N + n0) * width + c0;
+  store_acc<T>(facc, acc, sm.so, out, width, k_rows, width - c0);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) dq_kernel(BwdParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  BwdSmem<T> sm(smem);
+  const int g = blockIdx.z, q0 = blockIdx.x * TQ, c0 = blockIdx.y * TF;
+  const int q_rows = min(TQ, p.Q - q0);
+  const T* qt = static_cast<const T*>(p.q) + ((long long)g * p.Q + q0) * p.D;
+  const T* kg = static_cast<const T*>(p.k) + (long long)g * p.N * p.D;
+  const T* vg = static_cast<const T*>(p.v) + (long long)g * p.N * p.F;
+  const T* dot = static_cast<const T*>(p.dout) + ((long long)g * p.Q + q0) * p.F;
+  if (threadIdx.x < TQ) {  // read after score_tile's first barrier
+    const bool in = threadIdx.x < q_rows;
+    const long long at = (long long)g * p.Q + q0 + threadIdx.x;
+    sm.lse[threadIdx.x] = in ? p.lse[at] : 0.f;
+    sm.delta[threadIdx.x] = in ? p.delta[at] : 0.f;
+  }
+
+  using namespace nvcuda;
+  constexpr bool kTC = std::is_same<T, bf16>::value;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> facc[kTC ? 4 : 1];
+  constexpr int RT = TQ / (kThreads / TF);
+  float acc[kTC ? 1 : RT];
+  if constexpr (kTC) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(facc[j], 0.f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < RT; ++i) acc[i] = 0.f;
+  }
+
+  const int nt = (p.N + TN - 1) / TN;
+  for (int t = 0; t < nt; ++t) {
+    const int n0 = t * TN, k_rows = min(TN, p.N - n0);
+    score_tile<T>(qt, q_rows, kg + (long long)n0 * p.D, k_rows, p.D, sm.sq,
+                  sm.sk, sm.ss, [&] {
+                    stage_tile<T, TN, TF>(sm.sx, Tile<T>::LDV,
+                                          kg + (long long)n0 * p.D + c0, p.D,
+                                          k_rows, p.D - c0);
+                  });
+    score_tile<T>(dot, q_rows, vg + (long long)n0 * p.F, k_rows, p.F, sm.sq,
+                  sm.sk, sm.sd, [] {});
+    probs_tile<T>(p, sm.ss, sm.sd, sm.lse, sm.delta, sm.sp, q0, n0, true);
+    __syncthreads();
+    accumulate<T, false>(sm.sp, sm.sx, facc, acc);
+  }
+  T* out = static_cast<T*>(p.dq) + ((long long)g * p.Q + q0) * p.D + c0;
+  store_acc<T>(facc, acc, sm.so, out, p.D, q_rows, p.D - c0);
+}
+
+template <typename T>
+cudaError_t launch_bwd(const BwdParams& p, int G, bool dkdv,
+                       cudaStream_t stream) {
+  auto kern = dkdv ? dkdv_kernel<T> : dq_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bwd_smem<T>()));
+  if (e != cudaSuccess) return e;
+  const dim3 grid =
+      dkdv ? dim3((p.N + TN - 1) / TN, (p.F + TF - 1) / TF + (p.D + TF - 1) / TF,
+                  G)
+           : dim3((p.Q + TQ - 1) / TQ, (p.D + TF - 1) / TF, G);
+  kern<<<grid, kThreads, bwd_smem<T>(), stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const Params& p, int G, cudaStream_t stream) {
   const int qt = (p.Q + TQ - 1) / TQ;
@@ -442,6 +734,24 @@ int flash_fwd(int is_bf16, const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(is_bf16 ? launch<bf16>(p, G, st)
                                   : launch<float>(p, G, st));
+}
+
+// The flash backward, one kernel per call: `dkdv` != 0 writes dk [G,N,D]
+// and dv [G,N,F], else dq [G,Q,D] (compute type; the other outputs may be
+// null). lse, delta: fp32 [G,Q].
+int flash_bwd(int is_bf16, int dkdv, const void* q, const void* k,
+              const void* v, const void* dout, const float* lse,
+              const float* delta, void* dq, void* dk, void* dv, int G, int Q,
+              int N, int D, int F, double scale, double clip, void* stream) {
+  BwdParams p = {};
+  p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse = lse; p.delta = delta;
+  p.dq = dq; p.dk = dk; p.dv = dv;
+  p.Q = Q; p.N = N; p.D = D; p.F = F;
+  p.scale = static_cast<float>(scale);
+  p.clip = static_cast<float>(clip);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(is_bf16 ? launch_bwd<bf16>(p, G, dkdv != 0, st)
+                                  : launch_bwd<float>(p, G, dkdv != 0, st));
 }
 
 }  // extern "C"

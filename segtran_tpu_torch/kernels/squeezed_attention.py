@@ -1,7 +1,9 @@
-"""Flash cross-attention forward for the squeezed transformer.
+"""Flash cross-attention for the squeezed transformer, forward and backward.
 
 Counterpart of ``segtran_tpu/kernels/squeezed_attention.py``
-(``fused_cross_attention``, its forward ``_fused_forward``):
+(``fused_cross_attention``, its forward ``_fused_forward``, and
+``fused_cross_attention_trainable`` with the flash backward
+``_flash_bwd_impl``):
 
     out = softmax(clip(q k^T * sm_scale, +-attn_clip)) @ v
 
@@ -10,13 +12,20 @@ memory. The clamp is applied always (the unfused modules clamp only when
 the global max exceeds the clip, ``nn/attention._clamp_if_exceeds``); the
 two differ only for rows whose scores all lie below -attn_clip.
 
-The wrapper keeps the JAX signature minus ``tile_*``/``interpret``. For
-tensors on the CPU it runs the plain PyTorch version
-``fused_cross_attention_plain``; for CUDA tensors it launches the
-hand-written kernel in ``csrc/squeezed_attention.cu`` (built by nvcc for
-sm_90a at first use) or raises. One call is one launch of the kernel pair
-(softmax statistics, then the output), counted in
-``fused_cross_attention.launches``.
+The wrappers keep the JAX signatures minus ``tile_*``/``interpret``. For
+tensors on the CPU they run their plain PyTorch versions (``*_plain``);
+for CUDA tensors they launch the hand-written kernels in
+``csrc/squeezed_attention.cu`` (built by nvcc for sm_90a at first use) or
+raise. Each wrapper counts its launches in ``<wrapper>.launches``: one
+forward call is one launch of the kernel pair (softmax statistics, then
+the output); ``flash_backward_dkdv`` and ``flash_backward_dq`` count one
+kernel each.
+
+``fused_cross_attention_trainable`` is the autograd counterpart of the JAX
+custom_vjp: at N >= ``FLASH_BWD_MIN_N`` keys its backward runs the flash
+backward kernels from the saved lse; below, the recompute backward
+``cross_attention_bwd_recompute`` (JAX's ``_fca_bwd_xla``, plain PyTorch
+on every device), counted in ``cross_attention_bwd_recompute.launches``.
 """
 from __future__ import annotations
 
@@ -38,6 +47,9 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.flash_fwd.argtypes = [_i] + [_vp] * 7 + [_i] * 6 + [_d, _d, _vp]
         lib.flash_fwd.restype = _i
+        lib.flash_bwd.argtypes = [_i, _i] + [_vp] * 9 + [_i] * 5 + [_d, _d,
+                                                                  _vp]
+        lib.flash_bwd.restype = _i
         lib._typed = True
     return lib
 
@@ -67,6 +79,28 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
+def _check_shapes(q, k, v, *others):
+    """(G, Q, D, N, F) of q [G, Q, D], k [G, N, D], v [G, N, F] on one CUDA
+    device in one kernel dtype; raises on what the kernels do not take."""
+    g, nq, d = q.shape
+    n, f = k.shape[1], v.shape[2]
+    dt, dev = v.dtype, v.device
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
+                        f"got {dt}")
+    if tuple(k.shape) != (g, n, d) or tuple(v.shape[:2]) != (g, n):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
+    vec = 16 // (torch.finfo(dt).bits // 8)    # elements per 16 bytes
+    if d % vec or f % vec:
+        raise ValueError(f"the kernel needs D and F to be multiples of {vec} "
+                         f"for {dt}, got D={d}, F={f}")
+    for t in (q, k) + others:
+        if t.device != dev:
+            raise ValueError(f"all inputs must be on {dev}, got {t.device}")
+    return g, nq, d, n, f
+
+
 def _key_splits(g: int, nq: int, n: int, device) -> int:
     """Key slices of the statistics kernel: enough blocks for two per SM,
     every slice at least one key tile."""
@@ -89,22 +123,8 @@ def fused_cross_attention(q, k, v, attn_clip: float = 500.0,
     if _on_cpu(q):
         out, lse = fused_cross_attention_plain(q, k, v, attn_clip, sm_scale)
         return (out, lse) if return_lse else out
-    g, nq, d = q.shape
-    n, f = k.shape[1], v.shape[2]
+    g, nq, d, n, f = _check_shapes(q, k, v)
     dt, dev = v.dtype, v.device
-    if dt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash attention kernel takes float32 or bfloat16, "
-                        f"got {dt}")
-    if tuple(k.shape) != (g, n, d) or tuple(v.shape[:2]) != (g, n):
-        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} do not match")
-    vec = 16 // (torch.finfo(dt).bits // 8)    # elements per 16 bytes
-    if d % vec or f % vec:
-        raise ValueError(f"the kernel needs D and F to be multiples of {vec} "
-                         f"for {dt}, got D={d}, F={f}")
-    for t in (q, k):
-        if t.device != dev:
-            raise ValueError(f"all inputs must be on {dev}, got {t.device}")
     lib = _lib()
     q_, k_, v_ = (t.to(dt).contiguous() for t in (q, k, v))
     splits = _key_splits(g, nq, n, dev)
@@ -124,6 +144,175 @@ def fused_cross_attention(q, k, v, attn_clip: float = 500.0,
 
 fused_cross_attention.launches = 0
 
+# Keys from which the backward takes the flash kernels (JAX
+# ``FLASH_BWD_MIN_N``, kept equal so that both packages take the same
+# path); below it the recompute backward runs.
+FLASH_BWD_MIN_N = 4096
+
+
+def _probs_and_dscores(q, k, v, do, lse, delta, attn_clip, sm_scale):
+    """The flash backward's recompute (JAX ``_bwd_common``) in fp32:
+    p = exp(clip(s) - lse) and ds = p (dO v^T - delta) [|s| < clip] scale."""
+    s_raw = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    inside = (s_raw.abs() < attn_clip).float()
+    p = torch.exp(s_raw.clamp(-attn_clip, attn_clip) - lse)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta) * inside * sm_scale
+
+
+def flash_backward_dkdv_plain(q, k, v, do, lse, delta, attn_clip=500.0,
+                              sm_scale=None):
+    """``_dkdv_kernel``'s arithmetic at JAX's rounding points: p and ds in
+    fp32, dO cast to fp32, dK = ds^T q and dV = p^T dO summed in fp32 and
+    rounded to k.dtype / v.dtype."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    p, ds = _probs_and_dscores(q, k, v, do, lse, delta, attn_clip, sm_scale)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()).to(k.dtype)
+    dv = torch.matmul(p.transpose(-1, -2), do.float()).to(v.dtype)
+    return dk, dv
+
+
+def flash_backward_dq_plain(q, k, v, do, lse, delta, attn_clip=500.0,
+                            sm_scale=None):
+    """``_dq_kernel``'s arithmetic: dQ = ds k in fp32, rounded to q.dtype."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    _, ds = _probs_and_dscores(q, k, v, do, lse, delta, attn_clip, sm_scale)
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def flash_backward_plain(q, k, v, do, lse, delta, attn_clip=500.0,
+                         sm_scale=None):
+    """(dq, dk, dv) of the flash backward in plain PyTorch."""
+    dk, dv = flash_backward_dkdv_plain(q, k, v, do, lse, delta, attn_clip,
+                                       sm_scale)
+    return (flash_backward_dq_plain(q, k, v, do, lse, delta, attn_clip,
+                                    sm_scale), dk, dv)
+
+
+def _launch_bwd(dkdv, q, k, v, do, lse, delta, attn_clip, sm_scale):
+    g, nq, d, n, f = _check_shapes(q, k, v, do, lse, delta)
+    dt, dev = v.dtype, v.device
+    if tuple(do.shape) != (g, nq, f) or lse.numel() != g * nq \
+            or delta.numel() != g * nq:
+        raise ValueError(f"do {tuple(do.shape)}, lse {tuple(lse.shape)}, "
+                         f"delta {tuple(delta.shape)} do not match q "
+                         f"{tuple(q.shape)} and v {tuple(v.shape)}")
+    lib = _lib()
+    q_, k_, v_, do_ = (t.to(dt).contiguous() for t in (q, k, v, do))
+    lse_, delta_ = (t.float().contiguous() for t in (lse, delta))
+    if dkdv:
+        outs = (torch.empty((g, n, d), dtype=dt, device=dev),
+                torch.empty((g, n, f), dtype=dt, device=dev))
+        ptrs = (None, outs[0].data_ptr(), outs[1].data_ptr())
+    else:
+        outs = (torch.empty((g, nq, d), dtype=dt, device=dev),)
+        ptrs = (outs[0].data_ptr(), None, None)
+    rc = lib.flash_bwd(
+        int(dt == torch.bfloat16), int(dkdv), q_.data_ptr(), k_.data_ptr(),
+        v_.data_ptr(), do_.data_ptr(), lse_.data_ptr(), delta_.data_ptr(),
+        *ptrs, g, nq, n, d, f, float(sm_scale), float(attn_clip),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash backward: CUDA error {rc} at launch")
+    return outs
+
+
+def flash_backward_dkdv(q, k, v, do, lse, delta, attn_clip=500.0,
+                        sm_scale=None):
+    """(dk [G, N, D] in k.dtype, dv [G, N, F] in v.dtype) of out = flash
+    attention, given dO [G, Q, F], the forward's fp32 lse [G, Q, 1] and
+    delta = sum_f dO O [G, Q, 1] fp32. Replaces the Pallas _dkdv_kernel."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if _on_cpu(q):
+        return flash_backward_dkdv_plain(q, k, v, do, lse, delta, attn_clip,
+                                         sm_scale)
+    out = _launch_bwd(True, q, k, v, do, lse, delta, attn_clip, sm_scale)
+    flash_backward_dkdv.launches += 1
+    return out
+
+
+def flash_backward_dq(q, k, v, do, lse, delta, attn_clip=500.0,
+                      sm_scale=None):
+    """dq [G, Q, D] in q.dtype; the arguments of flash_backward_dkdv.
+    Replaces the Pallas _dq_kernel."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if _on_cpu(q):
+        return flash_backward_dq_plain(q, k, v, do, lse, delta, attn_clip,
+                                       sm_scale)
+    (dq,) = _launch_bwd(False, q, k, v, do, lse, delta, attn_clip, sm_scale)
+    flash_backward_dq.launches += 1
+    return dq
+
+
+flash_backward_dkdv.launches = 0
+flash_backward_dq.launches = 0
+
+
+def cross_attention_bwd_recompute(q, k, v, do, attn_clip, sm_scale):
+    """JAX's ``_fca_bwd_xla``: the backward below FLASH_BWD_MIN_N keys,
+    recomputing softmax(clip(q k^T scale)) in fp32 (its own oracle on every
+    device, as in JAX; not a kernel)."""
+    s_raw = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    inside = (s_raw.abs() < attn_clip).float()
+    p = torch.softmax(s_raw.clamp(-attn_clip, attn_clip), dim=-1)
+    g32, v32 = do.float(), v.float()
+    dv = torch.matmul(p.transpose(-1, -2), g32)
+    dp = torch.matmul(g32, v32.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * inside * sm_scale
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    cross_attention_bwd_recompute.launches += 1
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+cross_attention_bwd_recompute.launches = 0
+
+
+class _FusedCrossAttention(torch.autograd.Function):
+    """Flash forward; flash backward at N >= FLASH_BWD_MIN_N keys (saving
+    out and lse), else the recompute backward (saving q, k, v only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attn_clip, sm_scale):
+        out, lse = fused_cross_attention(q, k, v, attn_clip, sm_scale,
+                                         return_lse=True)
+        ctx.attn_clip, ctx.sm_scale = attn_clip, sm_scale
+        ctx.flash = k.shape[1] >= FLASH_BWD_MIN_N
+        if ctx.flash:
+            ctx.save_for_backward(q, k, v, out, lse)
+        else:
+            ctx.save_for_backward(q, k, v)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        clip, scale = ctx.attn_clip, ctx.sm_scale
+        if not ctx.flash:
+            q, k, v = ctx.saved_tensors
+            return cross_attention_bwd_recompute(q, k, v, do, clip,
+                                                 scale) + (None, None)
+        q, k, v, out, lse = ctx.saved_tensors
+        # delta outside the kernels, as JAX computes it outside Pallas
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        dk, dv = flash_backward_dkdv(q, k, v, do, lse, delta, clip, scale)
+        dq = flash_backward_dq(q, k, v, do, lse, delta, clip, scale)
+        return dq, dk, dv, None, None
+
+
+def fused_cross_attention_trainable(q, k, v, attn_clip: float = 500.0,
+                                    sm_scale: Optional[float] = None):
+    """Differentiable fused_cross_attention (JAX
+    ``fused_cross_attention_trainable``); out [G, Q, F] in v.dtype."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FusedCrossAttention.apply(q, k, v, attn_clip, sm_scale)
+
 
 def reset_launches() -> None:
-    fused_cross_attention.launches = 0
+    for fn in (fused_cross_attention, flash_backward_dkdv, flash_backward_dq,
+               cross_attention_bwd_recompute):
+        fn.launches = 0

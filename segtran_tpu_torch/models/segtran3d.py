@@ -1,6 +1,9 @@
 """Segtran3d: I3D backbone -> 3D input FPN with depth pooling ->
 3D-position-coded squeezed fusion transformer -> factored output-FPN tail
-with depth unpooling -> trilinear resize (eval path).
+with depth unpooling -> trilinear resize. ``model.train()`` gives the
+training forward: I3D BatchNorm on batch statistics, dropout at the JAX
+sites; the factored linear head stays, as in JAX while out-FPN dropout is
+inactive.
 
 Counterpart of ``segtran_tpu/models/segtran3d.py`` (reference
 code/networks/segtran3d.py: forward :398-498, in_fpn_forward :285-334,
@@ -28,6 +31,12 @@ class Segtran3d(nn.Module):
     def __init__(self, cfg: Segtran3dConfig):
         super().__init__()
         self.cfg = cfg
+        if cfg.remat:
+            # a torch checkpoint would run the train-mode BatchNorm twice
+            # and update its running statistics twice
+            raise NotImplementedError(
+                "remat belongs to a later slice of the port (the 2D train "
+                "step's remat_blocks)")
         if cfg.backbone_type != "i3d":
             raise NotImplementedError(
                 f"backbone {cfg.backbone_type} belongs to a later slice of "
@@ -85,6 +94,11 @@ class Segtran3d(nn.Module):
         """batch [B, H, W, D, C] -> logits [B, H, W, D, num_classes] fp32."""
         cfg = self.cfg
         dt = cfg.dtype
+        if (self.training and cfg.out_fpn_do_dropout
+                and cfg.hidden_dropout_prob > 0):
+            raise NotImplementedError(
+                "out-FPN dropout in training (the unfactored tail, --outdrop "
+                "with --dropout > 0) belongs to a later slice of the port")
         b, h, w, d, _ = batch.shape
         rgb = (_conv1x1(batch, self.in_bridge_to3, dt)
                if hasattr(self, "in_bridge_to3") else batch.to(dt))

@@ -15,14 +15,17 @@ exact reassociations, so bf16 rounds at the same places:
 * V channel m*F+f belongs to mode m; tied Q/K ("shared") is one parameter
   set applied twice.
 
-With ``use_fused_attention`` (and not in training mode) the squeezed
-layers' two cross-attentions go through the CUDA flash kernel
-(``kernels/squeezed_attention.py``), which always clamps.
+With ``use_fused_attention`` the squeezed layers' two cross-attentions go
+through the CUDA flash kernels (``kernels/squeezed_attention.py``), which
+always clamp: in eval, and in training when attention dropout is 0 (the
+JAX gate), then through the differentiable
+``fused_cross_attention_trainable``.
 
 Parameters are stored fp32 in torch layouts (Linear ``weight [out, in]``;
 the private group linear ``weight [M, F_in, F_out]``) and cast to the
-compute dtype at use. Dropout is a training concern and lives with the
-training slice; these modules implement inference.
+compute dtype at use. Dropout sits at the JAX package's sites (after the
+mid gelu, before the private output's LayerNorm, on the attention probs)
+and draws from an explicit generator (``Dropout``).
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import expansion_epilogue as epi
-from ..kernels.squeezed_attention import fused_cross_attention
+from ..kernels.squeezed_attention import (fused_cross_attention,
+                                          fused_cross_attention_trainable)
 from ..ops.norm import LayerNorm
 
 
@@ -47,6 +51,32 @@ def _clamp_if_exceeds(scores: torch.Tensor, clip: float) -> torch.Tensor:
     """Clamp to [-clip, clip] only when the global max exceeds clip
     (reference segtran_shared.py:575-580); no host sync."""
     return torch.where(scores.max() > clip, scores.clamp(-clip, clip), scores)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training keep each value with probability
+    1 - p and scale it by 1 / (1 - p); the identity in eval or at p = 0.
+    Draws from ``generator`` (a ``torch.Generator`` on the input's device,
+    set with ``set_dropout_generator``), else torch's default one."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Give every Dropout of ``model`` the generator it draws from."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 def dense(x: torch.Tensor, lin: nn.Linear, dtype) -> torch.Tensor:
@@ -72,6 +102,8 @@ class TransLayerSpec:
     pool_modes_feat: str = "softmax"       # softmax | max | mean | none
     fix_private_output_residual: bool = False
     reassociate: bool = True
+    attention_probs_dropout_prob: float = 0.1
+    hidden_dropout_prob: float = 0.1
     use_fused_attention: bool = False
     use_fused_epilogue: bool = False
     ln_eps: float = 1e-12
@@ -151,27 +183,32 @@ class MMPrivateLinear(nn.Module):
 
 
 class MMSharedMid(nn.Module):
-    """Shared FFN middle: Linear(F->F) + gelu (segtran_shared.py:220-251);
-    ``probs`` pushes the attention contraction through the linear."""
+    """Shared FFN middle: Linear(F->F) + gelu + dropout
+    (segtran_shared.py:220-251); ``probs`` pushes the attention contraction
+    through the linear."""
 
-    def __init__(self, feat_dim: int, dtype=torch.float32):
+    def __init__(self, feat_dim: int, dtype=torch.float32,
+                 hidden_dropout_prob: float = 0.0):
         super().__init__()
         self.shared_linear = _SharedLinear(feat_dim, feat_dim, True, dtype)
+        self.dropout = Dropout(hidden_dropout_prob)
 
     def forward(self, x, probs=None, stage: str = "full"):
         y = self.shared_linear(x, probs=probs, stage=stage)
-        return y if stage == "premul" else _gelu_exact(y)
+        return y if stage == "premul" else self.dropout(_gelu_exact(y))
 
 
 class MMPrivateMid(nn.Module):
-    """Private (per-mode) FFN middle (segtran_shared.py:200-218)."""
+    """Private (per-mode) FFN middle + dropout (segtran_shared.py:200-218)."""
 
-    def __init__(self, num_modes: int, feat_dim: int, dtype=torch.float32):
+    def __init__(self, num_modes: int, feat_dim: int, dtype=torch.float32,
+                 hidden_dropout_prob: float = 0.0):
         super().__init__()
         self.group_linear = MMPrivateLinear(num_modes, feat_dim, dtype)
+        self.dropout = Dropout(hidden_dropout_prob)
 
     def forward(self, x):
-        return _gelu_exact(self.group_linear(x))
+        return self.dropout(_gelu_exact(self.group_linear(x)))
 
 
 class MMPrivateOutput(nn.Module):
@@ -180,17 +217,19 @@ class MMPrivateOutput(nn.Module):
     dropped unless ``fix_residual``."""
 
     def __init__(self, num_modes: int, feat_dim: int, fix_residual: bool,
-                 ln_eps: float, dtype=torch.float32):
+                 ln_eps: float, dtype=torch.float32,
+                 hidden_dropout_prob: float = 0.0):
         super().__init__()
         self.group_linear = MMPrivateLinear(num_modes, feat_dim, dtype)
         self.resout_norm_layer = LayerNorm(feat_dim, ln_eps, dtype=dtype)
         self.fix_residual = fix_residual
+        self.dropout = Dropout(hidden_dropout_prob)
 
     def forward(self, x, shortcut):
         y = self.group_linear(x)
         if self.fix_residual:
             y = y + shortcut
-        return self.resout_norm_layer(y)
+        return self.resout_norm_layer(self.dropout(y))
 
 
 class ExpandedFeatTrans(nn.Module):
@@ -211,10 +250,12 @@ class ExpandedFeatTrans(nn.Module):
                                                       dtype=s.dtype)
         if s.has_FFN:
             if s.mid_type == "shared":
-                self.intermediate = MMSharedMid(s.feat_dim, s.dtype)
+                self.intermediate = MMSharedMid(s.feat_dim, s.dtype,
+                                                s.hidden_dropout_prob)
             elif s.mid_type == "private":
                 self.intermediate = MMPrivateMid(s.num_modes, s.feat_dim,
-                                                 s.dtype)
+                                                 s.dtype,
+                                                 s.hidden_dropout_prob)
             else:
                 self.intermediate = None
             if s.trans_output_type != "private":
@@ -223,7 +264,7 @@ class ExpandedFeatTrans(nn.Module):
                     "the port (the model zoo)")
             self.output = MMPrivateOutput(
                 s.num_modes, s.feat_dim, s.fix_private_output_residual,
-                s.ln_eps, s.dtype)
+                s.ln_eps, s.dtype, s.hidden_dropout_prob)
 
     def compute_v(self, input_feat):
         """[B, U2, in] -> [B, M, U2, F]; channel m*F+f is (mode m, f)."""
@@ -340,6 +381,7 @@ class CrossAttFeatTrans(nn.Module):
             self.key = _QKDense(s.in_feat_dim, s.att_size_allmode,
                                 bias=s.qk_have_bias)
         self.out_trans = ExpandedFeatTrans(s)
+        self.attn_dropout = Dropout(s.attention_probs_dropout_prob)
 
     def _key(self) -> _QKDense:
         # tied Q/K: one parameter set applied twice (segtran_shared.py:528-531)
@@ -360,7 +402,9 @@ class CrossAttFeatTrans(nn.Module):
         def proj_k():
             return key(in_key, dt).reshape(b, u2, m, amd).permute(0, 2, 1, 3)
 
-        if s.use_fused_attention and not self.training:
+        # JAX gate (nn/attention.py:597-600): eval, or no attention dropout
+        if s.use_fused_attention and (not self.training
+                                      or s.attention_probs_dropout_prob == 0):
             return self._flash(proj_q(), proj_k(), in_key)
 
         # exact QK reassociation through the small side (nn/attention.py
@@ -388,26 +432,27 @@ class CrossAttFeatTrans(nn.Module):
             scores = torch.matmul(proj_q(), proj_k().transpose(-1, -2))
         scores = _clamp_if_exceeds(scores / math.sqrt(amd), s.attn_clip)
         probs = torch.softmax(scores.float(), dim=-1).to(dt)
-        return self.out_trans(in_key, probs)
+        return self.out_trans(in_key, self.attn_dropout(probs))
 
     def _flash(self, q, k, in_key):
         """The fused branch (nn/attention.py:597-624 of the JAX package):
         the kernel contracts softmax(q k^T) with V, or with V W1 on the
-        attractor-out side, whose mid then finishes after the kernel."""
+        attractor-out side, whose mid then finishes after the kernel. In
+        training the differentiable wrapper runs (flash backward)."""
         s = self.spec
+        attend = (fused_cross_attention_trainable if self.training
+                  else fused_cross_attention)
         out_trans = self.out_trans
         b, m, u1, amd = q.shape
         u2, f = k.shape[2], s.feat_dim
         qg, kg = q.reshape(b * m, u1, amd), k.reshape(b * m, u2, amd)
         if u2 < u1 and out_trans.supports_mid_premul():
             vw = out_trans.apply_mid_premul(in_key)          # [B,M,U2,F]
-            mid_pre = fused_cross_attention(qg, kg, vw.reshape(b * m, u2, f),
-                                            s.attn_clip)
+            mid_pre = attend(qg, kg, vw.reshape(b * m, u2, f), s.attn_clip)
             return out_trans.finish_from_mid_premul(
                 mid_pre.reshape(b, m, u1, f).to(s.dtype))
         v = out_trans.compute_v(in_key)                      # [B,M,U2,F]
-        fused = fused_cross_attention(qg, kg, v.reshape(b * m, u2, f),
-                                      s.attn_clip)
+        fused = attend(qg, kg, v.reshape(b * m, u2, f), s.attn_clip)
         return out_trans(in_key, fused=fused.reshape(b, m, u1, f).to(s.dtype))
 
 

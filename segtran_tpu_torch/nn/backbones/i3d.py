@@ -1,4 +1,4 @@
-"""Inception-v1 I3D feature pyramid, eval path.
+"""Inception-v1 I3D feature pyramid.
 
 Counterpart of ``segtran_tpu/nn/backbones/i3d.py`` (reference
 code/networks/aj_i3d/aj_i3d.py): Unit3D = Conv3d + BatchNorm (eps 1e-3) +
@@ -7,6 +7,10 @@ element at the end: the 7x7x7 stride-2 stem pads (2, 3) on even sizes),
 SAME max pools padded with -inf, the Inception modules, and the five taps
 Segtran3d uses (MaxPool3d_2a_3x3, Conv3d_2c_3x3, Mixed_3c, Mixed_4f,
 Mixed_5c). ``do_pool1=False`` (bb_feat_upsize) drops the 2a max pool.
+In eval BatchNorm is folded into an affine in the compute dtype; in
+training (``model.train()``) it normalises with batch statistics and
+updates its running statistics with flax semantics (momentum 0.99,
+``ops/norm.batch_norm_train``).
 
 Module names follow the JAX package ('Conv3d_1a_7x7' -> conv3d, bn;
 'Mixed_3b' -> b0, b1a, b1b, b2a, b2b, b3b), so converted weights load by
@@ -21,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.norm import batch_norm_train
 from ...ops.resize import max_pool_same, pad_arg, same_pads
 from .efficientnet import FoldedBatchNorm
 
@@ -41,6 +46,8 @@ class Unit3D(nn.Module):
         else:
             x, padding = F.pad(x, pad_arg(pads)), 0
         x = F.conv3d(x, c.weight.to(self.dtype), None, c.stride, padding)
+        if self.training:
+            return F.relu(batch_norm_train(x, self.bn, 0.99, self.dtype))
         return F.relu(self.bn.run(x, self.dtype))
 
 

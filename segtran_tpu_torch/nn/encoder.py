@@ -2,8 +2,9 @@
 segtran_shared.py:819-975; counterpart of ``segtran_tpu/nn/encoder.py``).
 
 Per layer i: vfeat -> affine LayerNorm -> (+ poscode[..., :dim_i]) ->
-non-affine LayerNorm -> * mask -> SqueezedAttFeatTrans. The code is
-computed once at trans_in_dim and sliced per layer.
+non-affine LayerNorm -> dropout (layer 0 only) -> * mask ->
+SqueezedAttFeatTrans. The code is computed once at trans_in_dim and sliced
+per layer.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from torch import nn
 
 from ..configs.base import TransformerConfig
 from ..ops.norm import LayerNorm
-from .attention import SqueezedAttFeatTrans, TransLayerSpec
+from .attention import Dropout, SqueezedAttFeatTrans, TransLayerSpec
 from .poscode import SegtranPosEncoder
 
 
@@ -33,6 +34,8 @@ def layer_spec_from_config(cfg: TransformerConfig, layer_i: int) -> TransLayerSp
         mid_type=cfg.mid_type,
         trans_output_type=cfg.trans_output_type,
         pool_modes_feat=cfg.pool_modes_feat,
+        attention_probs_dropout_prob=cfg.attention_probs_dropout_prob,
+        hidden_dropout_prob=cfg.hidden_dropout_prob,
         fix_private_output_residual=cfg.fix_private_output_residual,
         reassociate=cfg.reassociate,
         use_fused_attention=cfg.use_fused_attention,
@@ -67,6 +70,7 @@ class SegtranFusionEncoder(nn.Module):
                                  num_attractors=cfg.num_attractors,
                                  has_FFN_in_squeeze=cfg.has_FFN_in_squeeze)
             for i in range(n))
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, vfeat: torch.Tensor, voxels_pos: torch.Tensor,
                 vmask: torch.Tensor, spatial_shape: Sequence[int]) -> torch.Tensor:
@@ -80,5 +84,7 @@ class SegtranFusionEncoder(nn.Module):
             if cfg.pos_code_type != "none":
                 feat_comb = feat_normed + cfg.pos_code_weight * pos_code[:, :, :dim_i]
                 feat_normed = self.comb_norm_layers[i](feat_comb)
+            if i == 0:
+                feat_normed = self.dropout(feat_normed)
             vfeat = layer(feat_normed * vmask)
         return vfeat

@@ -1,4 +1,5 @@
-"""LayerNorm with the JAX package's two numeric branches.
+"""LayerNorm with the JAX package's two numeric branches, and train-mode
+BatchNorm with flax semantics.
 
 * fp32: flax ``nn.LayerNorm`` math -- fp32 statistics with the fast variance
   ``E[x^2] - mean^2`` clamped at 0, then ``(x - mean) * (rsqrt(var + eps) *
@@ -60,3 +61,27 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.weight, self.bias, self.eps, self.dtype)
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.Module, momentum: float,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.BatchNorm(use_running_average=False)`` on x [B, C, *spatial]
+    (flax 0.12 ``_compute_stats``/``_normalize``): batch mean and the fast
+    variance ``E[x^2] - E[x]^2`` clipped at 0, both in fp32 over every axis
+    but C; ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in fp32,
+    returned in ``dtype``. The running statistics of ``bn`` (buffers
+    ``running_mean``/``running_var``) move to ``momentum * running + (1 -
+    momentum) * batch`` with the biased batch variance -- not
+    ``nn.BatchNorm3d``'s update, which takes the unbiased variance and the
+    inverse momentum."""
+    dims = [0] + list(range(2, x.dim()))
+    shape = (-1,) + (1,) * (x.dim() - 2)
+    x32 = x.float()
+    mean = x32.mean(dims)
+    var = torch.clamp(x32.square().mean(dims) - mean.square(), min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(momentum).add_((1.0 - momentum) * mean)
+        bn.running_var.mul_(momentum).add_((1.0 - momentum) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    y = (x32 - mean.view(shape)) * mul.view(shape) + bn.bias.float().view(shape)
+    return y.to(dtype)

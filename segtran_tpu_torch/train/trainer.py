@@ -1,0 +1,93 @@
+"""The training step (counterpart of ``segtran_tpu/train/trainer.py``;
+reference train2d.py:1134-1337):
+
+* parameter groups by name (reference train2d.py:515-553): ``alphas`` at
+  100x lr without decay, ``backbone`` at a tenth of the decay, the rest
+  normal; each group a BertAdam group;
+* an optional global-norm clip of all gradients before the groups
+  (optax ``clip_by_global_norm``: unchanged below the norm, else
+  ``g / norm * max_norm``);
+* gradient accumulation over microbatches: gradients summed and divided by
+  their count before the one update, BatchNorm statistics per microbatch
+  and the running statistics updated microbatch after microbatch.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable
+
+import torch
+from torch import nn
+
+from .bertadam import BertAdam
+
+
+def label_params(model: nn.Module) -> Dict[str, str]:
+    """{parameter name: 'high_lr' | 'low_decay' | 'normal'}."""
+    labels = {}
+    for name, _ in model.named_parameters():
+        if "alphas" in name:
+            labels[name] = "high_lr"
+        elif "backbone" in name:
+            labels[name] = "low_decay"
+        else:
+            labels[name] = "normal"
+    return labels
+
+
+def build_optimizer(model: nn.Module, lr: float = 2e-4, decay: float = 1e-4,
+                    t_total: int = 10000, warmup_ratio: float = 0.05
+                    ) -> BertAdam:
+    """BertAdam over the reference's three parameter groups."""
+    hyper = {"normal": dict(lr=lr, weight_decay=decay),
+             "low_decay": dict(lr=lr, weight_decay=decay * 0.1),
+             "high_lr": dict(lr=lr * 100, weight_decay=0.0)}
+    labels = label_params(model)
+    groups = []
+    for label, kw in hyper.items():
+        params = [p for n, p in model.named_parameters()
+                  if labels[n] == label]
+        if params:
+            groups.append(dict(params=params, label=label, **kw))
+    return BertAdam(groups, lr=lr, warmup=warmup_ratio, t_total=t_total)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(params: Iterable[torch.Tensor],
+                         max_norm: float) -> None:
+    """optax ``clip_by_global_norm`` on the .grad of ``params`` in place,
+    with no host synchronisation."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+                    loss_fn: Callable, grad_accum: int = 1,
+                    grad_clip: float = 0.0) -> Callable:
+    """train_step(batch {'image', 'mask'}) -> metrics {name: 0-d tensor},
+    one optimizer update; ``loss_fn(logits, mask) -> (loss, metrics)``.
+    The batch splits into ``grad_accum`` microbatches along dim 0."""
+    params = list(model.parameters())
+
+    def train_step(batch):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        sums: Dict[str, torch.Tensor] = {}
+        for image, mask in zip(batch["image"].chunk(grad_accum),
+                               batch["mask"].chunk(grad_accum)):
+            loss, metrics = loss_fn(model(image), mask)
+            loss.backward()
+            for k, v in metrics.items():
+                sums[k] = sums.get(k, 0) + v.detach()
+        if grad_accum > 1:
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(grad_accum)
+        if grad_clip and grad_clip > 0:
+            clip_by_global_norm_(params, grad_clip)
+        optimizer.step()
+        return {k: v / grad_accum for k, v in sums.items()}
+
+    return train_step

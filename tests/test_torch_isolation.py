@@ -43,9 +43,12 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(tmp_path, monkeypatch):
                                          "--iter", "1"])
     with pytest.raises(RuntimeError, match="CUDA GPU"):
         InferenceEngine(args, None)
-    from segtran_tpu_torch.cli import test3d
+    from segtran_tpu_torch.cli import test3d, train3d
     with pytest.raises(RuntimeError, match="CUDA GPU"):
         test3d.main(["--cpdir", str(tmp_path), "--wholevol"])
+    with pytest.raises(RuntimeError, match="CUDA GPU"):
+        train3d.main(["--ckptdir", str(tmp_path), "--fused", "--dropout",
+                      "0"])
 
 
 def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
@@ -81,3 +84,22 @@ def test_cuda_tensors_never_take_the_plain_flash_version(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel build reached"):
         sa.fused_cross_attention(q, torch.zeros(1, 8, 16),
                                  torch.zeros(1, 8, 16))
+
+
+@pytest.mark.parametrize("wrapper", ["flash_backward_dkdv",
+                                     "flash_backward_dq"])
+def test_cuda_tensors_never_take_the_plain_flash_backward(monkeypatch,
+                                                          wrapper):
+    """The same for the flash backward's dK/dV and dQ wrappers."""
+    import torch
+    from segtran_tpu_torch.kernels import _build
+    from segtran_tpu_torch.kernels import squeezed_attention as sa
+
+    def refuse(name):
+        raise RuntimeError("kernel build reached")
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(sa, "_on_cpu", lambda t: False)
+    q, k, v = torch.zeros(1, 4, 16), torch.zeros(1, 8, 16), torch.zeros(1, 8, 16)
+    with pytest.raises(RuntimeError, match="kernel build reached"):
+        getattr(sa, wrapper)(q, k, v, torch.zeros(1, 4, 16),
+                             torch.zeros(1, 4, 1), torch.zeros(1, 4, 1))
