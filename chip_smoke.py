@@ -44,9 +44,21 @@ Phases, each of which fails the run:
    step of each; one fp32 step of (b) fused against unfused (loss and
    every gradient); test3d on (a)'s checkpoint. Phase 2 holds the dK/dV
    and dQ kernels against their plain version (bf16, fp32), with times.
+7. mbconv -- the fused MBConv front-half kernel against its plain version
+   at the five eff-b4 288^2 shapes the fused-eval gate admits, a stride-2
+   and an expand_ratio-1 block, at batch 8 in bf16 and fp32 (TF32 off),
+   timed beside its plain version and the unfused module chain; the eff-b4
+   backbone at stem stride 1, 288^2, bf16, with fused_eval on and off at
+   batch 8 and 32 (17 launches per forward, endpoints agree); phase 3's
+   batch through the served model with its backbone's fused_eval set (a
+   measurement); the fundus Segtran2d train step at full width through
+   make_train_step (bs 6 with remat_blocks, bs 24 without: ms per step,
+   peak memory, one profiled step) and one fp32 step with remat_blocks on
+   against off (loss, gradients, running statistics updated once).
 
-Before the last line it prints one JSON object with the per-kernel numbers
-and the card's ``name, power.limit``; the last line is
+Before the last line it prints a JSON object with the fundus train step's
+and the fused backbone's numbers, one with the per-kernel numbers, and the
+card's ``name, power.limit``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
 port's sources beside it, it exits non-zero and prints no result.
 """
@@ -473,7 +485,7 @@ def profile_forward(torch, fn, label, groups):
                    for g, v in split.items()})
 
 
-def serve(torch, np, epi, sa, ckdir, logger):
+def serve(torch, np, epi, sa, mb, ckdir, logger):
     from segtran_tpu_torch.cli.serve import (InferenceEngine, build_argparser,
                                              build_model_and_config,
                                              task_settings)
@@ -550,6 +562,26 @@ def serve(torch, np, epi, sa, ckdir, logger):
         perf.update(profile_forward(
             torch, lambda: engine.forward(batch), "one batch-8 forward",
             {"epilogue kernels": "epilogue_kernel", "copies": "Memcpy"}))
+        # phase 7, a measurement: the same batch with the backbone's
+        # fused-eval path (no flag of the CLI sets it)
+        for blk in engine.model.backbone._blocks:
+            blk.fused_eval = True
+        mb.reset_launches()
+        fused_bb = engine.forward(batch)
+        n_mb = mb.mbconv_front.launches
+        bb_ms = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            engine.forward(batch)
+            bb_ms.append((time.perf_counter() - t1) * 1e3)
+        perf.update(forward_ms_batch8_fused_backbone=sorted(bb_ms)[1],
+                    fused_backbone_mbconv_launches=n_mb)
+        log(f"[serving] batch-8 forward with the fused-eval backbone: "
+            f"{n_mb} mbconv_front launches, {sorted(bb_ms)[1]:.3f} ms (vs "
+            f"{perf['forward_ms_batch8']:.3f} ms)")
+        if n_mb == 0 or n_mb % MBCONV_PER_FORWARD:
+            fail(f"the fused-eval backbone launched mbconv_front {n_mb} "
+                 f"times, not {MBCONV_PER_FORWARD} per model call")
     finally:
         engine.close()
     state = engine.model.state_dict()
@@ -571,6 +603,14 @@ def serve(torch, np, epi, sa, ckdir, logger):
         f"mean {mean:.3e} (tol {MODEL_TOL[0]:g}/{MODEL_TOL[1]:g})")
     if not (mx <= MODEL_TOL[0] and mean <= MODEL_TOL[1]):
         fail("fused serving forward disagrees with the unfused modules")
+    mx, mean = compare(fused_bb, ref)
+    perf.update(fused_backbone_vs_unfused_max_abs=mx,
+                fused_backbone_vs_unfused_mean_abs=mean)
+    log(f"[serving] fused-eval backbone vs unfused probabilities (bf16): max "
+        f"{mx:.3e} mean {mean:.3e} (tol {MODEL_TOL[0]:g}/{MODEL_TOL[1]:g})")
+    if not (mx <= MODEL_TOL[0] and mean <= MODEL_TOL[1]):
+        fail("the fused-eval backbone's forward disagrees with the unfused "
+             "modules")
 
     # --fused: flash attention in all 3 translayers (in-squeeze D=F=1792 at
     # layer 0), the out side through V W1 and the private epilogue
@@ -988,12 +1028,412 @@ def training(torch, np, sa, ckdir, logger):
     return perf, launches[TRAIN_CASES[1][0]]
 
 
+# ------------------------------------------------------------ phase 7 ----
+
+# mbconv_front cases: (label, eff-b4 block index at stem stride 1, H): the
+# five shapes of the 17 blocks that the fused-eval gate admits at 288^2,
+# one stride-2 block with asymmetric static pads and one expand_ratio-1
+# block (both outside the gate, which the wrapper takes all the same)
+MBCONV_CASES = [("H144 k3 32->192", 3, 144), ("H72 k5 56->336", 7, 72),
+                ("H36 k3 112->672", 11, 36), ("H36 k5 112->672", 16, 36),
+                ("H36 k5 160->960", 17, 36),
+                ("stride 2 H36 k5 160->960", 22, 36),
+                ("expand 1 H288 k3 48", 0, 288)]
+MBCONV_BATCH = 8
+# the fused bf16 backbone's error against the fp32 one, as a multiple of
+# the unfused bf16 backbone's own error (endpoint_errors)
+BACKBONE_ERR_RATIO = 1.5
+# eff-b4 288^2 at stem stride 1: blocks the fused-eval gate admits
+MBCONV_PER_FORWARD = 17
+
+
+def mbconv_inputs(torch, spec, h, dt, seed):
+    """x [B, H, H, Cin] channels-last (an NHWC view of NCHW memory, as the
+    blocks hold it), weights as the model gives them to the kernel, folded
+    BatchNorm affines in fp32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * s
+    cin, k = spec.in_filters, spec.kernel
+    cexp = cin * spec.expand_ratio
+    x = rn(MBCONV_BATCH, cin, h, h).to(dt).contiguous(
+        memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    aff = lambda: (torch.rand(cexp, generator=g, device="cuda") + 0.5,
+                   rn(cexp, s=0.1))
+    s0, b0 = aff()
+    s1, b1 = aff()
+    w_exp = (rn(cin, cexp, s=1 / math.sqrt(cin)).to(dt)
+             if spec.expand_ratio != 1 else None)
+    w_dw = rn(k, k, cexp, s=1 / k).to(dt)
+    if w_exp is None:
+        s0 = b0 = None
+    return [x, w_exp, s0, b0, w_dw, s1, b1]
+
+
+def mbconv_unfused(torch, F, args, spec):
+    """The unfused module chain of one block's front half, as the backbone
+    runs it (cuDNN 1x1 conv, folded BN, silu, padded depthwise conv, BN,
+    silu, SE mean): the yardstick of tools/prof/_prof_mb.py."""
+    x, w_exp, s0, b0, w_dw, s1, b1 = args
+    dt = x.dtype
+    cexp = w_dw.shape[-1]
+    e = x.permute(0, 3, 1, 2)
+    if w_exp is not None:
+        e = F.conv2d(e, w_exp.t().reshape(cexp, -1, 1, 1))
+        e = F.silu(e * s0.to(dt).view(-1, 1, 1) + b0.to(dt).view(-1, 1, 1))
+    (pt, pb), (pl, pr) = spec.pad
+    e = F.conv2d(F.pad(e, (pl, pr, pt, pb)),
+                 w_dw.permute(2, 0, 1).unsqueeze(1), stride=spec.stride,
+                 groups=cexp)
+    e = F.silu(e * s1.to(dt).view(-1, 1, 1) + b1.to(dt).view(-1, 1, 1))
+    return e, e.mean((2, 3))
+
+
+def check_mbconv(torch, mb):
+    """The kernel against its plain version at every case, bf16 and fp32
+    (TF32 off), with CUDA-event times of the kernel, the plain version and
+    the unfused module chain."""
+    import torch.nn.functional as F
+    from segtran_tpu_torch.nn.backbones.efficientnet import build_block_specs
+    blocks = build_block_specs("eff-b4", 1)[0]
+    results = []
+    for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        for i, (label, bi, h) in enumerate(MBCONV_CASES):
+            spec = blocks[bi]
+            kw = dict(kernel=spec.kernel, stride=spec.stride, pad=spec.pad)
+            args = mbconv_inputs(torch, spec, h, dt, seed=100 + i)
+            out, se = mb.mbconv_front(*args, **kw)
+            ref, se_ref = mb.mbconv_front_reference(*args, **kw)
+            again, se_again = mb.mbconv_front(*args, **kw)
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or out.dtype != dt or \
+                    se.shape != se_ref.shape:
+                fail(f"mbconv_front {label} {dname}: got "
+                     f"{tuple(out.shape)} {out.dtype}, want "
+                     f"{tuple(ref.shape)}")
+            err = (out.float() - ref.float()).abs()
+            max_err, mean_err = float(err.max()), float(err.mean())
+            rel_err = float((err / (1 + ref.float().abs())).max())
+            se_err = float(((se - se_ref).abs() / (1 + se_ref.abs())).max())
+            repeat = bool(torch.equal(out, again) and torch.equal(se, se_again))
+            tol_max, tol_mean = KERNEL_TOL[dname]
+            ms = cuda_ms(torch, lambda: mb.mbconv_front(*args, **kw), iters=10)
+            plain_ms = cuda_ms(
+                torch, lambda: mb.mbconv_front_reference(*args, **kw), iters=3)
+            unfused_ms = cuda_ms(
+                torch, lambda: mbconv_unfused(torch, F, args, spec), iters=10)
+            x = args[0]
+            b, hh, ww, cin = x.shape
+            _, ho, wo, cexp = out.shape
+            flops = 2 * b * ho * wo * spec.kernel ** 2 * cexp
+            if args[1] is not None:
+                flops += 2 * b * hh * ww * cin * cexp
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in args if t is not None)
+            nbytes += out.numel() * out.element_size() + se.numel() * 4
+            t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
+            row = dict(name="mbconv_front", case=label, dtype=dname,
+                       shape=[b, hh, ww, cin, cexp, spec.kernel, spec.stride],
+                       max_abs_err=max_err, mean_abs_err=mean_err,
+                       max_rel_err=rel_err, se_max_rel_err=se_err,
+                       ms=ms, plain_ms=plain_ms, unfused_chain_ms=unfused_ms,
+                       bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       flop=flops, bytes=nbytes, library_ms=None)
+            results.append(row)
+            log(f"[mbconv] {label} {dname} B={b}: max_abs_err {max_err:.3e} "
+                f"max |err|/(1+|plain|) {rel_err:.3e} mean_abs_err "
+                f"{mean_err:.3e}, SE mean {se_err:.3e} (tol {tol_max:g}/"
+                f"{tol_mean:g}); repeatable {repeat}; kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, unfused chain {unfused_ms:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            if not (rel_err <= tol_max and mean_err <= tol_mean
+                    and se_err <= tol_max and repeat):
+                fail(f"mbconv_front {label} {dname} disagrees with its plain "
+                     f"version or does not repeat")
+            del args, out, ref, again
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    return results
+
+
+def seeded_backbone(torch, fused, dtype=None, seed=0):
+    """The eff-b4 backbone at stem stride 1 (bf16 unless given) with seeded
+    weights and non-trivial BatchNorm affines and running statistics."""
+    from segtran_tpu_torch.models.segtran2d import init_segtran2d
+    from segtran_tpu_torch.nn.backbones.efficientnet import (
+        EfficientNetFeatures, FoldedBatchNorm)
+    bb = EfficientNetFeatures("eff-b4", stem_stride=1, fused_eval=fused,
+                              dtype=dtype or torch.bfloat16)
+    init_segtran2d(bb, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in bb.modules():
+            if isinstance(m, FoldedBatchNorm):
+                n = m.weight.shape[0]
+                m.weight.add_(0.1 * torch.randn(n, generator=g))
+                m.bias.add_(0.1 * torch.randn(n, generator=g))
+                m.running_mean.add_(0.1 * torch.randn(n, generator=g))
+                m.running_var.mul_(0.5 + torch.rand(n, generator=g))
+    return bb.cuda().eval()
+
+
+def endpoint_errors(torch, got, truth):
+    """Worst over the endpoints of (max |diff| / max |truth|, mean |diff| /
+    mean |truth|)."""
+    worst = (0.0, 0.0)
+    for g, t in zip(got, truth):
+        d, t = (g.float() - t).abs(), t.abs()
+        worst = (max(worst[0], float(d.max() / t.max())),
+                 max(worst[1], float(d.mean() / t.mean())))
+    return worst
+
+
+def backbone_fused(torch, mb):
+    """The eff-b4 288^2 backbone (stem stride 1, bf16) with fused_eval on
+    and off, same weights, at batch 8 and 32: 17 kernel launches per
+    forward, ms per forward for each. The two bf16 paths round at other
+    points (the unfused chain rounds the expand, each BatchNorm op and each
+    swish to bf16; the kernel keeps them in fp32), so each is held against
+    the fp32 unfused backbone: the fused path's error must stay within
+    BACKBONE_ERR_RATIO of the unfused path's own bf16 error, and within
+    MODEL_TOL of the unfused path."""
+    fused, plain = seeded_backbone(torch, True), seeded_backbone(torch, False)
+    exact = seeded_backbone(torch, False, torch.float32)
+    if {k: v.shape for k, v in fused.state_dict().items()} != {
+            k: v.shape for k, v in plain.state_dict().items()}:
+        fail("fused_eval changed the backbone's state_dict")
+    torch.backends.cudnn.allow_tf32 = False
+    perf, launches = {}, {}
+    for b in (8, 32):
+        g = torch.Generator(device="cuda").manual_seed(b)
+        x = torch.randn(b, 288, 288, 3, generator=g, device="cuda")
+        with torch.inference_mode():
+            mb.reset_launches()
+            got = fused(x)
+            torch.cuda.synchronize()
+            launches[b] = mb.mbconv_front.launches
+            truth = [t.float() for t in exact(x)]
+            unfused = plain(x)
+            e_f = endpoint_errors(torch, got, truth)
+            e_u = endpoint_errors(torch, unfused, truth)
+            e_fu = endpoint_errors(torch, got, [u.float() for u in unfused])
+            finite = all(bool(torch.isfinite(f).all()) for f in got)
+            del got, truth, unfused
+            ms_f = cuda_ms(torch, lambda: fused(x), iters=5)
+            ms_u = cuda_ms(torch, lambda: plain(x), iters=5)
+        log(f"[mbconv] eff-b4 288^2 backbone B={b} bf16: {launches[b]} "
+            f"mbconv_front launches per forward (want "
+            f"{MBCONV_PER_FORWARD}); endpoints against the fp32 backbone "
+            f"(max |diff|/max, mean |diff|/mean): fused {e_f[0]:.3e} "
+            f"{e_f[1]:.3e}, unfused {e_u[0]:.3e} {e_u[1]:.3e} (ratio tol "
+            f"{BACKBONE_ERR_RATIO:g}); fused against unfused {e_fu[0]:.3e} "
+            f"{e_fu[1]:.3e} (tol {MODEL_TOL[0]:g}/{MODEL_TOL[1]:g}); fused "
+            f"{ms_f:.3f} ms, unfused {ms_u:.3f} ms per forward")
+        if launches[b] != MBCONV_PER_FORWARD:
+            fail(f"the fused backbone launched mbconv_front {launches[b]} "
+                 f"times")
+        if not finite or e_f[0] > BACKBONE_ERR_RATIO * e_u[0] \
+                or e_f[1] > BACKBONE_ERR_RATIO * e_u[1]:
+            fail("the fused backbone is further from the fp32 backbone "
+                 "than the unfused bf16 one")
+        if e_fu[0] > MODEL_TOL[0] or e_fu[1] > MODEL_TOL[1]:
+            fail("the fused backbone disagrees with the unfused one")
+        perf[f"bs{b}"] = dict(fused_ms=ms_f, unfused_ms=ms_u,
+                              fused_err_vs_fp32=e_f, unfused_err_vs_fp32=e_u,
+                              fused_vs_unfused=e_fu)
+        del x
+    torch.backends.cudnn.allow_tf32 = True
+    del fused, plain, exact
+    torch.cuda.empty_cache()
+    return perf, launches[8]
+
+
+# the fundus Segtran2d train step (bench.py's bench_fundus_train): eff-b4,
+# 3 classes, 3 translayers 1792->1792->896->448, 256 attractors, bf16,
+# dropout 0.1, BCE (0, 1, 2) + Dice 0.5, BertAdam with the recipe defaults
+# and the global clip 0.1; (batch, remat_blocks) as bench's two lines
+FUNDUS_TRAIN_CASES = [(6, True), (24, False)]
+FUNDUS_SIZE = 288
+# fp32 remat on vs off: the loss and the running statistics come from the
+# same forward (equal to rounding); gradients as max |diff| / max |off|,
+# within 1e-2 or within REMAT_FLOOR times the spread of two runs of the
+# step without remat (the bilinear resizes' backward adds with atomics, so
+# a gradient that the train-mode BatchNorms nearly cancel differs from run
+# to run)
+REMAT_TOL = {"loss_rel": 1e-6, "stats": 1e-6, "grad": 1e-2}
+REMAT_FLOOR = 3.0
+REMAT_NOISE = 1e-6
+
+
+def fundus_config(torch, dtype, remat_blocks):
+    from segtran_tpu_torch.configs.base import Segtran2dConfig
+    cfg = Segtran2dConfig(backbone_type="eff-b4", num_classes=3, dtype=dtype,
+                          remat_blocks=remat_blocks).derive(
+                              translayer_compress_ratios=(1.0, 1.0, 2.0, 2.0))
+    if (cfg.translayer_dims != (1792, 1792, 896, 448)
+            or cfg.num_attractors != 256 or cfg.num_modes != 4
+            or cfg.hidden_dropout_prob != 0.1):
+        fail(f"unexpected fundus training config {cfg}")
+    return cfg
+
+
+def fundus_batch(torch, bs, seed):
+    """Synthetic 288^2 images and one-hot 3-class masks, made on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    image = torch.randn(bs, FUNDUS_SIZE, FUNDUS_SIZE, 3, generator=g,
+                        device="cuda")
+    cls = torch.randint(0, 3, (bs, FUNDUS_SIZE, FUNDUS_SIZE), generator=g,
+                        device="cuda")
+    return {"image": image,
+            "mask": torch.nn.functional.one_hot(cls, 3).float()}
+
+
+def fundus_model(torch, cfg, seed=0):
+    from segtran_tpu_torch.models.segtran2d import Segtran2d
+    from segtran_tpu_torch.nn.attention import set_dropout_generator
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    model = init_with_reference_schemes(Segtran2d(cfg), cfg, seed).cuda()
+    set_dropout_generator(model, torch.Generator(device="cuda").manual_seed(
+        seed))
+    return model
+
+
+def fundus_remat_check(torch):
+    """One fp32 forward + backward (TF32 off) of the full-width model at
+    batch 2 with remat_blocks on, and twice with it off, same weights and
+    generator: equal loss, running statistics updated once, gradients
+    within REMAT_TOL or REMAT_FLOOR times the two plain runs' spread."""
+    from segtran_tpu_torch.train.trainer import make_loss_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = fundus_batch(torch, 2, seed=5)
+    loss_fn = make_loss_fn(3, (0.0, 1.0, 2.0))
+    runs = []
+    for remat_blocks in (True, False, False):
+        model = fundus_model(torch, fundus_config(torch, torch.float32,
+                                                  remat_blocks))
+        loss, _ = loss_fn(model.train()(batch["image"]), batch["mask"])
+        loss.backward()
+        runs.append((
+            float(loss.detach()),
+            {n: p.grad for n, p in model.named_parameters()
+             if p.grad is not None},
+            {n: b for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}))
+        del model, loss
+    torch.backends.cudnn.allow_tf32 = True
+    (l_on, g_on, s_on), (l_off, g_off, s_off), (_, g_again, _) = runs
+    loss_rel = abs(l_on - l_off) / abs(l_off)
+    # a gradient whose largest entry lies below REMAT_NOISE of the model's
+    # largest is zero by structure (the mode softmax's shared shift):
+    # rounding noise, held against the model's largest gradient instead
+    g_max = max(float(g.abs().max()) for g in g_off.values())
+
+    def rel(grads, n):
+        g = g_off[n]
+        return float((grads[n] - g).abs().max()) / max(
+            float(g.abs().max()), REMAT_NOISE * g_max)
+
+    w_on = max((rel(g_on, n), n) for n in g_off)
+    w_floor = max((rel(g_again, n), n) for n in g_off)
+    grad_tol = max(REMAT_TOL["grad"], REMAT_FLOOR * w_floor[0])
+    stats = max(float((s_on[n] - v).abs().max() / (1 + v.abs().max()))
+                for n, v in s_off.items())
+    log(f"[fundus_train] fp32 remat_blocks on vs off at batch 2: loss "
+        f"{l_on:.7f} vs {l_off:.7f} (rel {loss_rel:.2e}); worst gradient "
+        f"max |diff| / max |off| {w_on[0]:.2e} ({w_on[1]}) over "
+        f"{len(g_off)} tensors (two runs without remat: "
+        f"{rel(g_again, w_on[1]):.2e} there), two runs without remat "
+        f"{w_floor[0]:.2e} ({w_floor[1]}), tol {grad_tol:.2e}; running "
+        f"statistics max |diff|"
+        f" / (1 + max) {stats:.2e} over {len(s_off)} (tol "
+        f"{REMAT_TOL['stats']:g})")
+    if set(g_on) != set(g_off) or set(s_on) != set(s_off):
+        fail("remat_blocks changed the set of gradients or statistics")
+    if (loss_rel > REMAT_TOL["loss_rel"] or w_on[0] > grad_tol
+            or stats > REMAT_TOL["stats"]):
+        fail("the fp32 step with remat_blocks disagrees with the step "
+             "without it")
+    return dict(fp32_remat_loss_rel=loss_rel, fp32_remat_worst_grad=w_on[0],
+                fp32_remat_worst_grad_tensor=w_on[1],
+                fp32_plain_rerun_worst_grad=w_floor[0],
+                fp32_remat_stats_diff=stats)
+
+
+def fundus_training(torch):
+    """The fundus train step at full width through make_train_step: bs 6
+    with remat_blocks, bs 24 without; ms per step (host clock around 3
+    steps after a warm one, ending in a synchronise), peak memory, one
+    profiled step; then the fp32 remat check."""
+    from segtran_tpu_torch.train.trainer import (build_optimizer,
+                                                 make_loss_fn,
+                                                 make_train_step)
+    perf = {}
+    for bs, remat_blocks in FUNDUS_TRAIN_CASES:
+        label = f"bs{bs} remat_blocks {'on' if remat_blocks else 'off'}"
+        model = fundus_model(torch, fundus_config(torch, torch.bfloat16,
+                                                  remat_blocks))
+        opt = build_optimizer(model)
+        step = make_train_step(model, opt, make_loss_fn(3, (0.0, 1.0, 2.0)),
+                               grad_clip=0.1)
+        batch = fundus_batch(torch, bs, seed=bs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            step(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = [step(batch)["loss"] for _ in range(3)]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 3 * 1e3
+        except torch.cuda.OutOfMemoryError:
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            log(f"[fundus_train] {label}: out of memory on the 80 GB card "
+                f"at a peak of {peak:.2f} GB allocated")
+            perf[label] = dict(out_of_memory=True, peak_mem_gb=peak)
+            del model, opt, step, batch
+            torch.cuda.empty_cache()
+            continue
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        finite = all(bool(torch.isfinite(v)) for v in losses) and all(
+            p.grad is None or bool(torch.isfinite(p.grad).all())
+            for p in model.parameters())
+        row = dict(ms_per_step=ms, imgs_per_s=bs * 1e3 / ms,
+                   peak_mem_gb=peak, loss=[float(v) for v in losses],
+                   finite=finite)
+        row.update(profile_forward(
+            torch, lambda: (step(batch), torch.cuda.synchronize()),
+            f"one fundus train step {label}",
+            {"conv fprop": "fprop", "conv dgrad": "dgrad",
+             "conv wgrad": "wgrad", "depthwise": "depthwise",
+             "gemm": "gemm", "elementwise": "elementwise",
+             "reductions": "reduce_kernel", "batch norm": "batch_norm",
+             "resizes": "upsample_bilinear"}))
+        log(f"[fundus_train] {label}: {ms:.2f} ms per step "
+            f"({row['imgs_per_s']:.1f} images/s), peak {peak:.2f} GB, "
+            f"losses {row['loss']}, finite {finite}")
+        if not finite:
+            fail(f"fundus train step {label}: a loss or gradient is not "
+                 f"finite")
+        perf[label] = row
+        del model, opt, step, batch
+        torch.cuda.empty_cache()
+    perf.update(fundus_remat_check(torch))
+    torch.cuda.empty_cache()
+    return perf
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
                                              "GPU; no arguments runs every "
                                              "phase")
-    ap.add_argument("--only", choices=["flash_backward", "training"],
+    ap.add_argument("--only", choices=["flash_backward", "training",
+                                       "mbconv", "fundus_training"],
                     default=None,
                     help="build and run only this check, print no result")
     only = ap.parse_args(argv).only
@@ -1009,6 +1449,7 @@ def main(argv=None) -> int:
     import numpy as np
     from segtran_tpu_torch.kernels import _build
     from segtran_tpu_torch.kernels import expansion_epilogue as epi
+    from segtran_tpu_torch.kernels import mbconv as mb
     from segtran_tpu_torch.kernels import squeezed_attention as sa
 
     t_all = time.perf_counter()
@@ -1032,6 +1473,16 @@ def main(argv=None) -> int:
         rows = check_flash_backward(torch, sa)
         print(json.dumps({"flash_backward": rows, "card": card}), flush=True)
         return 0
+    if only == "mbconv":
+        rows = check_mbconv(torch, mb)
+        bb_perf, _ = backbone_fused(torch, mb)
+        print(json.dumps({"mbconv": rows, "backbone": bb_perf, "card": card}),
+              flush=True)
+        return 0
+    if only == "fundus_training":
+        perf = fundus_training(torch)
+        print(json.dumps({"fundus_train": perf, "card": card}), flush=True)
+        return 0
     if only == "training":
         try:
             train_perf, _ = training(torch, np, sa, ckdir, logger)
@@ -1042,8 +1493,8 @@ def main(argv=None) -> int:
     kernels = (check_kernels(torch, epi) + check_flash(torch, sa)
                + check_flash_backward(torch, sa))
     try:
-        perf, launches, state, cfg, batch = serve(torch, np, epi, sa, ckdir,
-                                                  logger)
+        perf, launches, state, cfg, batch = serve(torch, np, epi, sa, mb,
+                                                  ckdir, logger)
         log(f"[serving] {json.dumps(perf)} on {card}")
         nonreassociated(torch, np, epi, state, cfg, batch)
         del state
@@ -1058,6 +1509,10 @@ def main(argv=None) -> int:
         launches.update(flash_backward_dkdv=n_dkdv, flash_backward_dq=n_dq)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
+    kernels += check_mbconv(torch, mb)
+    bb_perf, launches["mbconv_front"] = backbone_fused(torch, mb)
+    log(f"[mbconv] {json.dumps(bb_perf)} on {card}")
+    fundus_perf = fundus_training(torch)
 
     replaces = {
         "fused_mid_output_pool": "segtran_tpu/kernels/expansion_epilogue.py:333",
@@ -1067,18 +1522,21 @@ def main(argv=None) -> int:
             "segtran_tpu/kernels/expansion_epilogue.py:289",
         "fused_cross_attention": "segtran_tpu/kernels/squeezed_attention.py:107",
         "flash_backward_dkdv": "segtran_tpu/kernels/squeezed_attention.py:204",
-        "flash_backward_dq": "segtran_tpu/kernels/squeezed_attention.py:234"}
+        "flash_backward_dq": "segtran_tpu/kernels/squeezed_attention.py:234",
+        "mbconv_front": "segtran_tpu/kernels/mbconv.py:146"}
     # one entry per kernel: bf16 at the first shape of each (the flash
-    # kernels: the in-squeeze at N=8640); launches from the main path of
-    # its slice (serving for the first two, the whole-volume run for the
-    # next two, the 160x192x144 train steps for the backward pair); every
-    # measured row is printed above
+    # kernels: the in-squeeze at N=8640; mbconv_front: H=144 k3 32->192);
+    # launches from the main path of its slice (serving for the first two,
+    # the whole-volume run for the next two, the 160x192x144 train steps for
+    # the backward pair, one batch-8 forward of the fused-eval eff-b4
+    # backbone for mbconv_front); every measured row is printed above
     entries = []
     for name in ("fused_mid_output_pool_permode", "fused_mid_output_pool",
                  "fused_private_output_pool", "fused_cross_attention",
-                 "flash_backward_dkdv", "flash_backward_dq"):
+                 "flash_backward_dkdv", "flash_backward_dq", "mbconv_front"):
         r = next(k for k in kernels if k["name"] == name and k["dtype"] == "bf16")
         src = ("expansion_epilogue" if "output_pool" in name
+               else "mbconv" if name == "mbconv_front"
                else "squeezed_attention")
         entries.append(dict(
             name=name, route="cuda",
@@ -1088,6 +1546,8 @@ def main(argv=None) -> int:
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r.get("library_ms")))
     log(f"[done] {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"fundus_train": fundus_perf, "backbone": bb_perf,
+                      "card": card}), flush=True)
     print(json.dumps({"kernels": entries, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -147,7 +147,6 @@ def _refuse_later_slices(args) -> None:
         (args.inchan_to3_scheme not in (None, "bridgeconv"),
          f"--into3 {args.inchan_to3_scheme}", "the 3D input bridges"),
         (args.use_attn_consist_loss, "--attnconsist", "the DA slice"),
-        (args.remat, "--remat", "the 2D train step's remat"),
         (args.tensor_parallel > 1 or args.ndevices > 1,
          "--tp/--ndevices above 1", "the multi-GPU slice"),
         (not args.use_squeezed_transformer, "--nosqueeze",

@@ -1,10 +1,10 @@
-"""Typed configuration for the Segtran2d serving path and Segtran3d
-whole-volume inference.
+"""Typed configuration for Segtran2d (serving, training) and Segtran3d
+(whole-volume inference, training).
 
 Counterpart of ``segtran_tpu/configs/base.py``: the same frozen dataclasses,
 field names and ``derive()`` rules (layer-compression cumprod, FPN check),
 with ``dtype`` held as a torch dtype. Only the fields the ported paths read
-are kept (serving, 3-D evaluation, 3-D training).
+are kept (serving, 2-D training, 3-D evaluation, 3-D training).
 """
 from __future__ import annotations
 
@@ -72,6 +72,8 @@ class TransformerConfig:
     # dropout in training (reference segtran_shared.py:90-156)
     hidden_dropout_prob: float = 0.1
     attention_probs_dropout_prob: float = 0.1
+    # dropout on the out-FPN features in training (the unfactored tail)
+    out_fpn_do_dropout: bool = False
     # the reference init passes (nn/init.py)
     base_initializer_range: float = 0.02
     query_idbias_scale: float = 10.0
@@ -87,6 +89,10 @@ class TransformerConfig:
     reassociate: bool = True
     # the reference's MMPrivateOutput drops its residual; True corrects it
     fix_private_output_residual: bool = False
+    # recompute the backbone and the encoder in the backward (nn/remat.py)
+    remat: bool = False
+    # recompute each EfficientNet block in the backward (Segtran2d)
+    remat_blocks: bool = False
 
     ln_eps: float = 1e-12
     dtype: Any = torch.float32             # compute dtype; params stay fp32
@@ -159,10 +165,6 @@ class Segtran3dConfig(TransformerConfig):
     # depth pooling of the in-FPN features before the transformer
     D_pool_K: int = 2
     out_fpn_upsampleD_scheme: str = "interp"   # interp | conv | none
-    # dropout on the out-FPN features in training (the unfactored tail)
-    out_fpn_do_dropout: bool = False
-    # rematerialise the backbone and the encoder in the backward
-    remat: bool = False
 
     @property
     def bb_feat_dims(self) -> Tuple[int, ...]:

@@ -1,5 +1,12 @@
 """Segtran2d: EfficientNet backbone -> input FPN -> squeezed fusion
-transformer -> factored output-FPN tail -> bilinear resize (eval path).
+transformer -> factored output-FPN tail -> bilinear resize.
+
+``model.train()`` gives the training forward (JAX ``train=True``): the
+backbone's BatchNorm on batch statistics and its drop-connect, dropout at
+the encoder's JAX sites, and, with ``out_fpn_do_dropout``, the unfactored
+out-FPN tail with dropout before ``out_conv``. ``cfg.remat`` recomputes the
+backbone and the encoder in the backward, ``cfg.remat_blocks`` each
+backbone block (``nn/remat.py``).
 
 Counterpart of ``segtran_tpu/models/segtran2d.py`` (reference
 code/networks/segtran2d.py: forward :314-438, in_fpn_forward :235-271,
@@ -17,10 +24,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import Segtran2dConfig
+from ..nn.attention import Dropout
 from ..nn.backbones.efficientnet import EfficientNetFeatures
 from ..nn.encoder import SegtranFusionEncoder
 from ..nn.heads import Conv1x1Params, apply_pointwise, compose_1x1
 from ..nn.poscode import gen_all_indices
+from ..nn.remat import remat
 from ..ops.resize import avg_pool_nhwc, resize_linear
 
 
@@ -56,7 +65,7 @@ class Segtran2d(nn.Module):
         dims = cfg.bb_feat_dims
         self.backbone = EfficientNetFeatures(
             cfg.backbone_type, stem_stride=1 if cfg.bb_feat_upsize else 2,
-            dtype=cfg.dtype)
+            remat_blocks=cfg.remat_blocks, dtype=cfg.dtype)
         for layer in cfg.in_fpn_layers[:-1]:
             setattr(self, f"in_fpn{layer}{layer + 1}_conv",
                     nn.Conv2d(dims[layer], dims[layer + 1], 1))
@@ -77,6 +86,7 @@ class Segtran2d(nn.Module):
             self.out_fpn_bridgeconv = Conv1x1Params(dims[last_out_layer],
                                                     cfg.trans_out_dim)
         self.out_conv = Conv1x1Params(cfg.trans_out_dim, cfg.num_classes)
+        self.out_fpn_dropout = Dropout(cfg.hidden_dropout_prob)
 
     def _fpn_step(self, prefix, layer, curr, feats, scheme, dt):
         upconv = _conv1x1(curr, getattr(self, f"{prefix}_fpn{layer}{layer + 1}_conv"), dt)
@@ -99,7 +109,8 @@ class Segtran2d(nn.Module):
         pooled = avg_pool_nhwc(batch.abs(), (pool_stride, pool_stride))
         nonzero_mask = pooled.sum(-1) > 0                    # [B, H2, W2]
 
-        feats = self.backbone(batch)
+        rematted = cfg.remat and self.training and torch.is_grad_enabled()
+        feats = remat(self.backbone, batch) if rematted else self.backbone(batch)
 
         # input FPN
         curr = feats[cfg.in_fpn_layers[0]]
@@ -120,16 +131,26 @@ class Segtran2d(nn.Module):
                                device=batch.device)
         voxels_pos = xy[None].expand(b, h2 * w2, 2)
 
-        vfeat_fused = self.voxel_fusion(vfeat_fpn, voxels_pos,
-                                        vmask[..., None].to(dt), (h2, w2))
+        enc_args = (vfeat_fpn, voxels_pos, vmask[..., None].to(dt), (h2, w2))
+        vfeat_fused = (remat(self.voxel_fusion, *enc_args) if rematted
+                       else self.voxel_fusion(*enc_args))
         vfeat_fused = vfeat_fused.reshape(b, h2, w2, cfg.trans_out_dim)
 
-        # output FPN with the factored linear tail (segtran2d.py:184-205 of
-        # the JAX package): bias in b1, none on the fused branch
         curr = feats[cfg.out_fpn_layers[0]]
         for layer in self.extra_layers:
             curr = self._fpn_step("out", layer, curr, feats, cfg.out_fpn_scheme, dt)
         wo, bo = self.out_conv.matrix()
+        if (cfg.out_fpn_do_dropout and self.training
+                and cfg.hidden_dropout_prob > 0):
+            # the unfactored tail (JAX segtran2d.py:206-214): bridge, add
+            # the upsampled fused features, dropout, out_conv
+            if hasattr(self, "out_fpn_bridgeconv"):
+                curr = apply_pointwise(curr, *self.out_fpn_bridgeconv.matrix())
+            out_feat = curr + resize_linear(vfeat_fused, curr.shape[1:3])
+            scores = apply_pointwise(self.out_fpn_dropout(out_feat), wo, bo)
+            return resize_linear(scores.float(), (h, w))
+        # output FPN with the factored linear tail (segtran2d.py:184-205 of
+        # the JAX package): bias in b1, none on the fused branch
         if hasattr(self, "out_fpn_bridgeconv"):
             wb, bb = self.out_fpn_bridgeconv.matrix()
             w1, b1 = compose_1x1(wb, bb, wo, bo)

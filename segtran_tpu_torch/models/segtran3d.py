@@ -3,7 +3,8 @@
 with depth unpooling -> trilinear resize. ``model.train()`` gives the
 training forward: I3D BatchNorm on batch statistics, dropout at the JAX
 sites; the factored linear head stays, as in JAX while out-FPN dropout is
-inactive.
+inactive. ``cfg.remat`` recomputes the backbone and the encoder in the
+backward (``nn/remat.py``: the running statistics move once).
 
 Counterpart of ``segtran_tpu/models/segtran3d.py`` (reference
 code/networks/segtran3d.py: forward :398-498, in_fpn_forward :285-334,
@@ -23,6 +24,7 @@ from ..nn.encoder import SegtranFusionEncoder
 from ..nn.heads import (Conv1x1Params, apply_pointwise, compose_1x1,
                         compose_fold_head)
 from ..nn.poscode import gen_all_indices
+from ..nn.remat import remat
 from ..ops.resize import avg_pool_nhwc, resize_linear
 from .segtran2d import _conv1x1, _GroupNorm, init_segtran2d
 
@@ -31,12 +33,6 @@ class Segtran3d(nn.Module):
     def __init__(self, cfg: Segtran3dConfig):
         super().__init__()
         self.cfg = cfg
-        if cfg.remat:
-            # a torch checkpoint would run the train-mode BatchNorm twice
-            # and update its running statistics twice
-            raise NotImplementedError(
-                "remat belongs to a later slice of the port (the 2D train "
-                "step's remat_blocks)")
         if cfg.backbone_type != "i3d":
             raise NotImplementedError(
                 f"backbone {cfg.backbone_type} belongs to a later slice of "
@@ -114,7 +110,8 @@ class Segtran3d(nn.Module):
         pooled = avg_pool_nhwc(vol.abs(), pool)
         nonzero_mask = (pooled.sum(-1) > 0).float()
 
-        feats = self.backbone(vol)
+        rematted = cfg.remat and self.training and torch.is_grad_enabled()
+        feats = remat(self.backbone, vol) if rematted else self.backbone(vol)
 
         # input FPN
         curr = feats[cfg.in_fpn_layers[0]]
@@ -144,9 +141,10 @@ class Segtran3d(nn.Module):
             device=batch.device)
         voxels_pos = zyx[None].expand(b, n, 3)
 
-        vfeat_fused = self.voxel_fusion(vfeat_fpn, voxels_pos,
-                                        vmask.reshape(b, n)[..., None],
-                                        (d2, h2, w2))
+        enc_args = (vfeat_fpn, voxels_pos, vmask.reshape(b, n)[..., None],
+                    (d2, h2, w2))
+        vfeat_fused = (remat(self.voxel_fusion, *enc_args) if rematted
+                       else self.voxel_fusion(*enc_args))
         vfeat_fused = vfeat_fused.reshape(b, d2, h2, w2, cfg.trans_out_dim)
 
         # output FPN with the factored linear tail (nn/heads.py)

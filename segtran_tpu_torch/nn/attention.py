@@ -73,9 +73,11 @@ class Dropout(nn.Module):
 
 
 def set_dropout_generator(model: nn.Module, generator) -> None:
-    """Give every Dropout of ``model`` the generator it draws from."""
+    """Give every module of ``model`` that draws random masks (Dropout, the
+    EfficientNet blocks' drop-connect: a ``generator`` attribute) the
+    generator it draws from."""
     for m in model.modules():
-        if isinstance(m, Dropout):
+        if hasattr(m, "generator"):
             m.generator = generator
 
 

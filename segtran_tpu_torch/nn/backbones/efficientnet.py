@@ -1,17 +1,25 @@
-"""EfficientNet feature extractor, eval path.
+"""EfficientNet feature extractor.
 
 Counterpart of ``segtran_tpu/nn/backbones/efficientnet.py`` (reference
 code/efficientnet/model.py, utils.py): round_filters / round_repeats
 scaling, MBConv (expand -> depthwise -> SE from the input filters ->
-project, swish, id-skip), BatchNorm eps 1e-3, endpoints after segments
-0, 1, 2, 4 plus the head, and **static TF-SAME pads** computed from the
-variant's nominal size chain (e.g. 380 for b4, halved after the stem
-whatever the stem stride), not from the runtime size -- released weights
-were trained with those pads.
+project, swish, id-skip + drop-connect), BatchNorm eps 1e-3 / momentum
+0.99, endpoints after segments 0, 1, 2, 4 plus the head, and **static
+TF-SAME pads** computed from the variant's nominal size chain (e.g. 380 for
+b4, halved after the stem whatever the stem stride), not from the runtime
+size -- released weights were trained with those pads.
 
 Public tensors are NHWC as in the JAX package; convolutions run NCHW
 logically (channels-last memory on the GPU). BatchNorm is folded in fp32
-and applied in the compute dtype (``FoldedBatchNorm``).
+and applied in the compute dtype (``FoldedBatchNorm``), on the running
+statistics in eval and on the batch statistics in training
+(``module.train()``). In training, residual blocks drop their branch per
+sample (drop-connect, rate ``drop_connect_rate * i / n`` for block i) and
+``remat_blocks`` recomputes each block in the backward (``nn.remat``).
+
+``fused_eval`` sends the eval forward of the blocks that JAX's gate admits
+(stride 1, an expand, 36 <= H <= 144) through the fused front-half kernel
+(``kernels/mbconv.py``); it changes neither the parameters nor training.
 """
 from __future__ import annotations
 
@@ -22,6 +30,10 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...kernels.mbconv import fold_bn, mbconv_front
+from ...ops.norm import update_running_stats
+from ..remat import remat
 
 # name: (width_coefficient, depth_coefficient, nominal_resolution, dropout)
 EFFICIENTNET_PARAMS = {
@@ -133,31 +145,64 @@ class _Conv(nn.Conv2d):
 
 
 class FoldedBatchNorm(nn.Module):
-    """Eval BatchNorm folded into one per-channel affine,
+    """BatchNorm folded into one per-channel affine,
     ``a = weight * rsqrt(var + eps)``, ``b = bias - mean * a`` in fp32,
-    applied as ``x * a + b`` in the compute dtype (eps 1e-3, TF
-    convention)."""
+    applied as ``x * a + b`` in the compute dtype (eps 1e-3, momentum 0.99,
+    TF convention). In training, mean and var are the batch's: fp32
+    ``E[x]`` and the biased ``E[x^2] - E[x]^2`` with no clamp, as JAX's
+    ``FoldedBatchNorm`` takes them; the running statistics move toward
+    them."""
 
-    def __init__(self, feats: int, eps: float = 1e-3):
+    def __init__(self, feats: int, eps: float = 1e-3, momentum: float = 0.99):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(feats))
         self.bias = nn.Parameter(torch.zeros(feats))
         self.register_buffer("running_mean", torch.zeros(feats))
         self.register_buffer("running_var", torch.ones(feats))
         self.eps = eps
+        self.momentum = momentum
+
+    def folded(self, mean=None, var=None):
+        """(a, b) fp32, from the running statistics unless given."""
+        return fold_bn(self.weight.float(), self.bias.float(),
+                       self.running_mean.float() if mean is None else mean,
+                       self.running_var.float() if var is None else var,
+                       self.eps)
 
     def run(self, x, dtype):                      # x: [B, C, *spatial]
-        a = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
-        b = self.bias.float() - self.running_mean.float() * a
+        if self.training:
+            dims = [0] + list(range(2, x.dim()))
+            xf = x.float()
+            mean = xf.mean(dims)
+            var = xf.square().mean(dims) - mean.square()
+            update_running_stats(self, mean, var, self.momentum)
+            a, b = self.folded(mean, var)
+        else:
+            a, b = self.folded()
         shape = (-1,) + (1,) * (x.dim() - 2)
         return x * a.to(dtype).view(shape) + b.to(dtype).view(shape)
 
 
+def _drop_connect(x, rate: float, generator=None):
+    """Per-sample stochastic depth (reference utils.py:129-154): keep each
+    sample's branch with probability 1 - rate, scaled by 1 / (1 - rate)
+    (the scale rounded to x.dtype, as in JAX)."""
+    keep = 1.0 - rate
+    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
+                   device=x.device)
+    mask = (u < keep).to(x.dtype)
+    return x / torch.tensor(keep, dtype=x.dtype, device=x.device) * mask
+
+
 class MBConvBlock(nn.Module):
-    def __init__(self, spec: _BlockSpec, dtype=torch.float32):
+    def __init__(self, spec: _BlockSpec, drop_rate: float = 0.0,
+                 fused_eval: bool = False, dtype=torch.float32):
         super().__init__()
         s = self.spec = spec
+        self.drop_rate = drop_rate
+        self.fused_eval = fused_eval
         self.dtype = dtype
+        self.generator = None            # drop-connect's, if set
         expanded = s.in_filters * s.expand_ratio
         if s.expand_ratio != 1:
             self._expand_conv = _Conv(s.in_filters, expanded, 1)
@@ -176,18 +221,51 @@ class MBConvBlock(nn.Module):
 
     def forward(self, x):                        # NCHW, compute dtype
         s, dt = self.spec, self.dtype
+        if (self.fused_eval and not self.training and s.stride == 1
+                and s.expand_ratio != 1 and 36 <= x.shape[2] <= 144):
+            # JAX's gate (measured on the TPU), kept so that both packages
+            # take the same path
+            return self._fused_eval(x)
         inputs = x
         if s.expand_ratio != 1:
             x = F.silu(self._bn0.run(self._expand_conv.run(x, dt), dt))
         x = F.silu(self._bn1.run(self._depthwise_conv.run(x, dt), dt))
         if self.has_se:
-            se = x.mean(dim=(2, 3), keepdim=True)
-            se = F.silu(self._se_reduce.run(se, dt))
-            x = torch.sigmoid(self._se_expand.run(se, dt)) * x
+            x = self._se(x, x.mean(dim=(2, 3), keepdim=True))
         x = self._bn2.run(self._project_conv.run(x, dt), dt)
         if s.stride == 1 and s.in_filters == s.out_filters:
+            if self.training and self.drop_rate > 0:
+                x = _drop_connect(x, self.drop_rate, self.generator)
             x = x + inputs
         return x
+
+    def _se(self, x, mean):
+        dt = self.dtype
+        se = F.silu(self._se_reduce.run(mean, dt))
+        return torch.sigmoid(self._se_expand.run(se, dt)) * x
+
+    def _fused_eval(self, x):
+        """The eval forward through ``mbconv_front`` (JAX
+        ``_fused_eval_call``): the kernel reads the channels-last input
+        through an NHWC view and gives the depthwise output and the SE
+        mean; SE scaling, project, BN2 and the residual stay in PyTorch."""
+        s, dt = self.spec, self.dtype
+        expanded = s.in_filters * s.expand_ratio
+        w_exp = self._expand_conv.weight.reshape(expanded, s.in_filters).t()
+        s0, b0 = self._bn0.folded()
+        w_dw = self._depthwise_conv.weight.reshape(
+            expanded, s.kernel, s.kernel).permute(1, 2, 0)
+        s1, b1 = self._bn1.folded()
+        dw, se_mean = mbconv_front(
+            x.permute(0, 2, 3, 1), w_exp.to(dt), s0, b0, w_dw.to(dt), s1, b1,
+            kernel=s.kernel, stride=s.stride, pad=s.pad)
+        dw = dw.permute(0, 3, 1, 2)
+        if self.has_se:
+            dw = self._se(dw, se_mean.to(dt)[:, :, None, None])
+        y = self._bn2.run(self._project_conv.run(dw, dt), dt)
+        if s.in_filters == s.out_filters:
+            y = y + x
+        return y
 
 
 class EfficientNetFeatures(nn.Module):
@@ -195,15 +273,21 @@ class EfficientNetFeatures(nn.Module):
     extract_endpoints)."""
 
     def __init__(self, variant: str = "eff-b4", stem_stride: int = 2,
-                 in_channels: int = 3, dtype=torch.float32):
+                 in_channels: int = 3, drop_connect_rate: float = 0.2,
+                 fused_eval: bool = False, remat_blocks: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         blocks, self.ep_idx, stem_f, head_f, stem_pad = build_block_specs(
             variant, stem_stride)
         self.dtype = dtype
+        self.remat_blocks = remat_blocks
         self._conv_stem = _Conv(in_channels, stem_f, 3, stem_stride,
                                 pad=stem_pad)
         self._bn0 = FoldedBatchNorm(stem_f)
-        self._blocks = nn.ModuleList(MBConvBlock(b, dtype) for b in blocks)
+        n = len(blocks)
+        self._blocks = nn.ModuleList(
+            MBConvBlock(b, drop_connect_rate * i / n, fused_eval, dtype)
+            for i, b in enumerate(blocks))
         self._conv_head = _Conv(blocks[-1].out_filters, head_f, 1)
         self._bn1 = FoldedBatchNorm(head_f)
 
@@ -215,9 +299,11 @@ class EfficientNetFeatures(nn.Module):
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
         x = F.silu(self._bn0.run(self._conv_stem.run(x, dt), dt))
+        rematted = (self.remat_blocks and self.training
+                    and torch.is_grad_enabled())
         endpoints = []
         for i, blk in enumerate(self._blocks):
-            x = blk(x)
+            x = remat(blk, x) if rematted else blk(x)
             if (i + 1) in self.ep_idx:
                 endpoints.append(x)
         x = F.silu(self._bn1.run(self._conv_head.run(x, dt), dt))

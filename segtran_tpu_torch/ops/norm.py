@@ -1,5 +1,6 @@
-"""LayerNorm with the JAX package's two numeric branches, and train-mode
-BatchNorm with flax semantics.
+"""LayerNorm with the JAX package's two numeric branches, train-mode
+BatchNorm with flax semantics, and the freeze of running statistics that a
+checkpoint's recompute runs under.
 
 * fp32: flax ``nn.LayerNorm`` math -- fp32 statistics with the fast variance
   ``E[x^2] - mean^2`` clamped at 0, then ``(x - mean) * (rsqrt(var + eps) *
@@ -12,6 +13,7 @@ Parameters are named ``weight``/``bias`` (torch LayerNorm names).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -63,6 +65,34 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps, self.dtype)
 
 
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Within this context no BatchNorm inside ``module`` moves its running
+    statistics: a checkpoint's recompute of the module's forward runs under
+    it, so that a forward run twice updates them once, as JAX's
+    ``nn.remat`` does. Nests: each module gets its own flag back."""
+    mods = list(module.modules())
+    before = [m.__dict__.get("stats_frozen", False) for m in mods]
+    for m in mods:
+        m.stats_frozen = True
+    try:
+        yield
+    finally:
+        for m, flag in zip(mods, before):
+            m.stats_frozen = flag
+
+
+@torch.no_grad()
+def update_running_stats(bn: nn.Module, mean: torch.Tensor,
+                         var: torch.Tensor, momentum: float) -> None:
+    """``running = momentum * running + (1 - momentum) * batch`` on the
+    ``running_mean``/``running_var`` buffers of ``bn``, unless frozen."""
+    if getattr(bn, "stats_frozen", False):
+        return
+    bn.running_mean.mul_(momentum).add_((1.0 - momentum) * mean)
+    bn.running_var.mul_(momentum).add_((1.0 - momentum) * var)
+
+
 def batch_norm_train(x: torch.Tensor, bn: nn.Module, momentum: float,
                      dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.BatchNorm(use_running_average=False)`` on x [B, C, *spatial]
@@ -79,9 +109,7 @@ def batch_norm_train(x: torch.Tensor, bn: nn.Module, momentum: float,
     x32 = x.float()
     mean = x32.mean(dims)
     var = torch.clamp(x32.square().mean(dims) - mean.square(), min=0.0)
-    with torch.no_grad():
-        bn.running_mean.mul_(momentum).add_((1.0 - momentum) * mean)
-        bn.running_var.mul_(momentum).add_((1.0 - momentum) * var)
+    update_running_stats(bn, mean, var, momentum)
     mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
     y = (x32 - mean.view(shape)) * mul.view(shape) + bn.bias.float().view(shape)
     return y.to(dtype)

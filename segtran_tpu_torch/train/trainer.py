@@ -9,15 +9,19 @@ reference train2d.py:1134-1337):
   ``g / norm * max_norm``);
 * gradient accumulation over microbatches: gradients summed and divided by
   their count before the one update, BatchNorm statistics per microbatch
-  and the running statistics updated microbatch after microbatch.
+  and the running statistics updated microbatch after microbatch;
+* the 2-D loss (reference train2d.py:1228-1318): (1 - dice_w) BCE with
+  pos-weights + dice_w times the class-weighted Dice of classes 1..C-1.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence
 
 import torch
 from torch import nn
 
+from ..ops.losses import dice_loss_indiv, weighted_bce_with_logits
+from ..ops.resize import resize_linear
 from .bertadam import BertAdam
 
 
@@ -49,6 +53,56 @@ def build_optimizer(model: nn.Module, lr: float = 2e-4, decay: float = 1e-4,
         if params:
             groups.append(dict(params=params, label=label, **kw))
     return BertAdam(groups, lr=lr, warmup=warmup_ratio, t_total=t_total)
+
+
+def make_class_weights(num_classes: int, focus_class: int = -1
+                       ) -> torch.Tensor:
+    """Ones, background 0, ``focus_class`` 2 (with more than two classes),
+    normalised to sum 1 (reference train2d.py:1123-1127)."""
+    w = torch.ones(num_classes)
+    w[0] = 0.0
+    if focus_class != -1 and num_classes > 2:
+        w[focus_class] = 2.0
+    return w / w.sum()
+
+
+def make_loss_fn(num_classes: int, bce_weight: Sequence[float],
+                 dice_w: float = 0.5, focus_class: int = -1) -> Callable:
+    """(logits [B, H, W, C], mask [B, H, W, C]) -> (loss, metrics): logits
+    resized bilinearly to the mask's size where they differ; the BCE
+    pos-weights rescaled to sum to C - 1 (reference train2d.py:814)."""
+    class_weights = make_class_weights(num_classes, focus_class).tolist()
+    bce = torch.tensor(bce_weight, dtype=torch.float32)
+    pos_weight = (bce * (num_classes - 1) / bce.sum()).reshape(
+        1, 1, 1, num_classes)
+
+    def loss_fn(logits, mask):
+        if logits.shape[1:3] != mask.shape[1:3]:
+            logits = resize_linear(logits, tuple(mask.shape[1:3]))
+        probs = torch.sigmoid(logits.float())
+        ce = weighted_bce_with_logits(logits, mask,
+                                      pos_weight.to(logits.device))
+        dice_total = 0.0
+        metrics = {}
+        for cls in range(1, num_classes):
+            d = dice_loss_indiv(probs[..., cls], mask[..., cls])
+            metrics[f"dice_loss_cls{cls}"] = d
+            dice_total = dice_total + d * class_weights[cls]
+        loss = (1.0 - dice_w) * ce + dice_w * dice_total
+        return loss, {"loss": loss, "ce_loss": ce, "dice_loss": dice_total,
+                      **metrics}
+
+    return loss_fn
+
+
+def resolve_remat_blocks(batch_size: int, grad_accum: int, n_devices: int,
+                         tensor_parallel: int):
+    """JAX train2d's rule for ``remat_blocks`` (kept so that both packages
+    take the same path; its threshold was measured on the TPU): on below a
+    per-device microbatch of 12. Returns (remat_blocks, microbatch)."""
+    dp = max(n_devices // max(tensor_parallel, 1), 1)
+    mb = max(batch_size // max(grad_accum, 1) // dp, 1)
+    return mb < 12, mb
 
 
 @torch.no_grad()

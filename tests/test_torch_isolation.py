@@ -13,6 +13,9 @@ _PROBE = r"""
 import importlib, pkgutil, sys
 import segtran_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for want in ("kernels.mbconv", "nn.remat", "nn.backbones.efficientnet",
+             "train.trainer"):
+    assert "segtran_tpu_torch." + want in names, want
 for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
@@ -103,3 +106,21 @@ def test_cuda_tensors_never_take_the_plain_flash_backward(monkeypatch,
     with pytest.raises(RuntimeError, match="kernel build reached"):
         getattr(sa, wrapper)(q, k, v, torch.zeros(1, 4, 16),
                              torch.zeros(1, 4, 1), torch.zeros(1, 4, 1))
+
+
+def test_cuda_tensors_never_take_the_plain_mbconv_version(monkeypatch):
+    """The same for the fused MBConv front half."""
+    import torch
+    from segtran_tpu_torch.kernels import _build
+    from segtran_tpu_torch.kernels import mbconv as mb
+
+    def refuse(name):
+        raise RuntimeError("kernel build reached")
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(mb, "_on_cpu", lambda t: False)
+    x = torch.zeros(1, 6, 6, 8)
+    with pytest.raises(RuntimeError, match="kernel build reached"):
+        mb.mbconv_front(x, torch.zeros(8, 48), torch.ones(48),
+                        torch.zeros(48), torch.zeros(3, 3, 48),
+                        torch.ones(48), torch.zeros(48), kernel=3, stride=1,
+                        pad=((1, 1), (1, 1)))
