@@ -43,7 +43,10 @@ Phases, each of which fails the run:
    recompute-backward launch; ms per step, peak memory and one profiled
    step of each; one fp32 step of (b) fused against unfused (loss and
    every gradient); test3d on (a)'s checkpoint. Phase 2 holds the dK/dV
-   and dQ kernels against their plain version (bf16, fp32), with times.
+   and dQ kernels (thread-block clusters) against their plain version
+   (bf16, fp32), with times, each case's cluster, grids, dQ key splits and
+   cudaOccupancyMaxActiveClusters, and times the pair beside the recompute
+   backward at the recipe crop's in-squeeze (N = 2352).
 7. mbconv -- the fused MBConv front-half kernel against its plain version
    at the five eff-b4 288^2 shapes the fused-eval gate admits, a stride-2
    and an expand_ratio-1 block, at batch 8 in bf16 and fp32 (TF32 off),
@@ -322,6 +325,10 @@ FLASH_BWD_CASES = [("in-squeeze N=8640", 1, 1024, 8640, 1024, 1024, 1.0),
 # rounding points), then each output rounds to bf16; fp32 differs only in
 # summation order
 BWD_TOL = {"bf16": (2e-2, 1e-2), "fp32": (1e-4, 1e-5)}
+# timing only, bf16: the in-squeeze of the 112x112x96 recipe crop at batch
+# 4 (N = 2352 < FLASH_BWD_MIN_N, so training takes the recompute backward
+# there): the flash pair beside cross_attention_bwd_recompute
+FLASH_BWD_TIMING_CASE = ("recipe crop N=2352", 4, 1024, 2352, 1024, 1024)
 
 
 def sdpa_backward_call(torch, q, k, v, do, scale):
@@ -350,14 +357,67 @@ def sdpa_backward_call(torch, q, k, v, do, scale):
     fail("no scaled_dot_product_attention backend took the inputs")
 
 
+def bwd_launch_shape(torch, sa, label, dname, g, nq, n, d, f, dt):
+    """Log the backward kernels' plan (cluster, grids, dQ key splits) and
+    cudaOccupancyMaxActiveClusters of each kernel; the built kernels'
+    shared memory must be the plan's."""
+    plan = sa._bwd_plan(g, nq, n, d, f, dt, sa._sm_count("cuda"))
+    occ = sa.bwd_occupancy(plan, dt)
+    log(f"[flash-bwd] {label} {dname}: clusters of {plan.cluster} CTAs x "
+        f"{plan.width} columns, {plan.tile}-row tiles; dK/dV grid "
+        f"{plan.dkdv_grid}, dQ grid {plan.dq_grid} ({plan.splits} key "
+        f"splits of {plan.split_tiles} tiles); smem {occ['dkdv']['smem']} B;"
+        f" max active clusters dK/dV {occ['dkdv']['max_active_clusters']}, "
+        f"dQ {occ['dq']['max_active_clusters']}")
+    if any(occ[x]["smem"] != plan.dkdv_smem for x in occ):
+        fail(f"flash backward {label} {dname}: the kernels take {occ} bytes "
+             f"of shared memory, the plan {plan.dkdv_smem}")
+    return dict(cluster=plan.cluster, width=plan.width, tile=plan.tile,
+                dkdv_grid=list(plan.dkdv_grid), dq_grid=list(plan.dq_grid),
+                dq_splits=plan.splits, smem=plan.dkdv_smem,
+                max_active_clusters={x: occ[x]["max_active_clusters"]
+                                     for x in occ})
+
+
+def time_recipe_crop(torch, sa):
+    """FLASH_BWD_TIMING_CASE: the flash pair's time beside the recompute
+    backward's on the same inputs (bf16), data for FLASH_BWD_MIN_N."""
+    label, g, nq, n, d, f = FLASH_BWD_TIMING_CASE
+    gen = torch.Generator(device="cuda").manual_seed(300)
+    q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((g, nq, d), (g, n, d), (g, n, f),
+                                      (g, nq, f)))
+    scale = 1.0 / math.sqrt(d)
+    launch = bwd_launch_shape(torch, sa, label, "bf16", g, nq, n, d, f,
+                              torch.bfloat16)
+    out, lse = sa.fused_cross_attention(q, k, v, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    args = (q, k, v, do, lse, delta, 500.0, scale)
+    pair_ms = cuda_ms(torch, lambda: (sa.flash_backward_dkdv(*args),
+                                      sa.flash_backward_dq(*args)), iters=3)
+    recompute_ms = cuda_ms(torch, lambda: sa.cross_attention_bwd_recompute(
+        q, k, v, do, 500.0, scale), iters=3)
+    log(f"[flash-bwd] {label} bf16 G,Q,N,D,F={g},{nq},{n},{d},{f} (timing "
+        f"only): flash dK/dV + dQ {pair_ms:.4f} ms, recompute backward "
+        f"{recompute_ms:.4f} ms")
+    del q, k, v, do, out, lse, delta, args
+    torch.cuda.empty_cache()
+    return dict(name="flash_backward_recipe_crop", dtype="bf16", case=label,
+                shape=[g, nq, n, d, f], pair_ms=pair_ms,
+                recompute_ms=recompute_ms, **launch)
+
+
 def check_flash_backward(torch, sa):
     """The dK/dV and dQ kernels against their plain versions on the same
     inputs (the kernel forward's lse, delta = sum dO O), bit-for-bit
-    repeatability, and times: kernel, plain, SDPA backward, bound."""
+    repeatability, the launch shape, and times: kernel, plain, SDPA
+    backward, bound; then the recipe-crop timing."""
     results = []
     torch.backends.cuda.matmul.allow_tf32 = False
     for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         for i, (label, g, nq, n, d, f, qk) in enumerate(FLASH_BWD_CASES):
+            launch = bwd_launch_shape(torch, sa, label, dname, g, nq, n, d,
+                                      f, dt)
             gen = torch.Generator(device="cuda").manual_seed(200 + i)
 
             def rn(*shape, s=1.0):
@@ -421,7 +481,7 @@ def check_flash_backward(torch, sa):
                            bound_ms=max(t_ops, t_bytes) * 1e3,
                            bound_by=("operations" if t_ops >= t_bytes
                                      else "bytes"),
-                           flop=flops, bytes=nbytes)
+                           flop=flops, bytes=nbytes, **launch)
                 results.append(row)
                 log(f"[flash-bwd] {name} {label} {dname} "
                     f"G,Q,N,D,F={g},{nq},{n},{d},{f}: max |err|/max |plain| "
@@ -440,6 +500,7 @@ def check_flash_backward(torch, sa):
             del q, k, v, do, out, lse, delta, args, dq, dk, dv
             del dq_ref, dk_ref, dv_ref, dk2, dv2
         torch.cuda.empty_cache()
+    results.append(time_recipe_crop(torch, sa))
     return results
 
 

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,9 +47,11 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.flash_fwd.argtypes = [_i] + [_vp] * 7 + [_i] * 6 + [_d, _d, _vp]
         lib.flash_fwd.restype = _i
-        lib.flash_bwd.argtypes = [_i, _i] + [_vp] * 9 + [_i] * 5 + [_d, _d,
-                                                                  _vp]
+        lib.flash_bwd.argtypes = [_i, _i] + [_vp] * 10 + [_i] * 7 + [
+            _d, _d, _vp]
         lib.flash_bwd.restype = _i
+        lib.flash_bwd_occupancy.argtypes = [_i] * 4 + [_vp, _vp]
+        lib.flash_bwd_occupancy.restype = _i
         lib._typed = True
     return lib
 
@@ -101,10 +103,14 @@ def _check_shapes(q, k, v, *others):
     return g, nq, d, n, f
 
 
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _key_splits(g: int, nq: int, n: int, device) -> int:
     """Key slices of the statistics kernel: enough blocks for two per SM,
     every slice at least one key tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sm_count(device)
     q_tiles, n_tiles = -(-nq // _TQ), -(-n // _TN)
     want = max(1, min(n_tiles, -(-2 * sms // (q_tiles * g))))
     per = -(-n_tiles // want)
@@ -191,6 +197,87 @@ def flash_backward_plain(q, k, v, do, lse, delta, attn_clip=500.0,
                                     sm_scale), dk, dv)
 
 
+# the backward kernels' limits: a portable cluster, one CTA's shared memory
+_BWD_MAX_CLUSTER = 8
+_SMEM_MAX = 232448
+_BWD_RING = 3          # slots of the streamed tiles' ring
+
+
+class BwdPlan(NamedTuple):
+    """Launch shape of the flash backward kernels (``csrc/
+    squeezed_attention.cu``): CTA c of a cluster owns columns
+    ``d_slices[c]`` of D and ``f_slices[c]`` of F (None: no slice)."""
+    width: int                   # columns of a CTA's slice
+    cluster: int                 # CTAs per cluster
+    tile: int                    # rows of a query or key tile
+    d_slices: Tuple
+    f_slices: Tuple
+    dkdv_grid: Tuple[int, int, int]
+    dq_grid: Tuple[int, int, int]
+    splits: int                  # dQ key splits
+    split_tiles: int             # key tiles per split, the last may hold fewer
+    dkdv_smem: int               # bytes per CTA
+    dq_smem: int
+
+
+def _bwd_plan(g: int, nq: int, n: int, d: int, f: int, dtype,
+              sms: int) -> BwdPlan:
+    """The kernels' decomposition: 128-column slices (256 where D or F
+    exceeds 1024), one cluster of max(ceil(D/W), ceil(F/W)) CTAs per key
+    tile (dK/dV) or per query tile and key split (dQ), tiles of
+    16 KB / (W * itemsize) rows, and dQ key splits for about eight waves of
+    clusters on `sms` SMs (so that a last, partial wave costs little).
+    Raises ValueError for a shape the kernels do not take (a cluster above
+    8 CTAs, or too much shared memory)."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    width = 128 if max(d, f) <= 1024 else 256
+    n_d, n_f = -(-d // width), -(-f // width)
+    cluster = max(n_d, n_f)
+    if cluster > _BWD_MAX_CLUSTER:
+        raise ValueError(
+            f"flash backward: D={d}, F={f} needs a cluster of {cluster} CTAs "
+            f"of {width} columns; the kernels take at most "
+            f"{_BWD_MAX_CLUSTER} (D, F <= {_BWD_MAX_CLUSTER * 256})")
+    tile = 16384 // (width * es)
+    pad = 16 // es
+    smem = (es * (2 + 2 * _BWD_RING) * tile * (width + pad)
+            + 4 * (2 * tile * (tile + 4) + 2 * _BWD_RING * tile)
+            + es * 4 * tile * (tile + pad))
+    if smem > _SMEM_MAX:
+        raise ValueError(f"flash backward: {smem} bytes of shared memory per "
+                         f"CTA at D={d}, F={f}, over {_SMEM_MAX}")
+    q_tiles, n_tiles = -(-nq // tile), -(-n // tile)
+    waves = max(1, sms // cluster)       # clusters the card runs at once
+    want = max(1, min(n_tiles, -(-8 * waves // (q_tiles * g))))
+    splits = -(-n_tiles // -(-n_tiles // want))
+    per = -(-n_tiles // splits)          # as the kernel splits the keys
+
+    def slices(width_total, count):
+        return tuple((c * width, min(width_total, (c + 1) * width))
+                     if c < count else None for c in range(cluster))
+    return BwdPlan(width, cluster, tile, slices(d, n_d), slices(f, n_f),
+                   (cluster * n_tiles, g, 1), (cluster * q_tiles, splits, g),
+                   splits, per, smem, smem)
+
+
+def bwd_occupancy(plan: BwdPlan, dtype) -> dict:
+    """Per kernel: the shared-memory bytes the built kernel takes (which
+    must equal the plan's) and cudaOccupancyMaxActiveClusters for the
+    plan's cluster; builds the kernels. For logging on the card."""
+    lib = _lib()
+    out = {}
+    for name, dkdv in (("dkdv", 1), ("dq", 0)):
+        smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
+        rc = lib.flash_bwd_occupancy(int(dtype == torch.bfloat16), dkdv,
+                                     plan.width, plan.cluster,
+                                     ctypes.addressof(smem),
+                                     ctypes.addressof(clusters))
+        if rc != 0:
+            raise RuntimeError(f"flash_bwd_occupancy: CUDA error {rc}")
+        out[name] = dict(smem=smem.value, max_active_clusters=clusters.value)
+    return out
+
+
 def _launch_bwd(dkdv, q, k, v, do, lse, delta, attn_clip, sm_scale):
     g, nq, d, n, f = _check_shapes(q, k, v, do, lse, delta)
     dt, dev = v.dtype, v.device
@@ -200,20 +287,23 @@ def _launch_bwd(dkdv, q, k, v, do, lse, delta, attn_clip, sm_scale):
                          f"delta {tuple(delta.shape)} do not match q "
                          f"{tuple(q.shape)} and v {tuple(v.shape)}")
     lib = _lib()
+    plan = _bwd_plan(g, nq, n, d, f, dt, _sm_count(dev))
     q_, k_, v_, do_ = (t.to(dt).contiguous() for t in (q, k, v, do))
     lse_, delta_ = (t.float().contiguous() for t in (lse, delta))
     if dkdv:
         outs = (torch.empty((g, n, d), dtype=dt, device=dev),
                 torch.empty((g, n, f), dtype=dt, device=dev))
-        ptrs = (None, outs[0].data_ptr(), outs[1].data_ptr())
+        ptrs = (None, outs[0].data_ptr(), outs[1].data_ptr(), None)
     else:
         outs = (torch.empty((g, nq, d), dtype=dt, device=dev),)
-        ptrs = (outs[0].data_ptr(), None, None)
+        part = torch.empty((plan.splits, g, nq, d), dtype=torch.float32,
+                           device=dev)
+        ptrs = (outs[0].data_ptr(), None, None, part.data_ptr())
     rc = lib.flash_bwd(
         int(dt == torch.bfloat16), int(dkdv), q_.data_ptr(), k_.data_ptr(),
         v_.data_ptr(), do_.data_ptr(), lse_.data_ptr(), delta_.data_ptr(),
-        *ptrs, g, nq, n, d, f, float(sm_scale), float(attn_clip),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *ptrs, g, nq, n, d, f, plan.width, plan.splits, float(sm_scale),
+        float(attn_clip), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash backward: CUDA error {rc} at launch")
     return outs
