@@ -12,10 +12,14 @@ Phases, each of which fails the run:
    per mode, F=896 and 448 all modes; mid [2,4,1296,896] for the private
    tier) and at the BraTS whole-volume private tier (mid [1,4,8640,1024]),
    and the flash cross-attention kernel at the BraTS in/out-squeeze shapes
-   (N=8640 and 18000 tokens), a ragged shape and a clamp case, in bf16 and
-   fp32 (TF32 off for fp32); time each, its plain version and, for the
-   flash kernels, scaled_dot_product_attention (forward; forward +
-   backward minus forward) with CUDA events.
+   (N=8640 and 18000 tokens), a ragged shape, a clamp case and the fundus
+   layer-0 in/out-squeeze (D=F=1792; D=448, F=1792), in bf16 and fp32
+   (TF32 off for fp32), each launch bit-for-bit repeatable, with its plan
+   (slice width, cluster, grid, key splits), the built kernel's shared
+   memory and cudaOccupancyMaxActiveClusters, and its time at the other
+   slice width; time each, its plain version and, for the flash kernels,
+   scaled_dot_product_attention (forward; forward + backward minus
+   forward) with CUDA events.
 3. serving -- the InferenceEngine of cli/serve.py at full width (eff-b4,
    3 translayers 1792->1792->896->448, 256 attractors, bf16, --fusedepi,
    576^2 frames through 288^2 patches, --maxbatch 8) from a seeded port
@@ -230,6 +234,11 @@ FLASH_CASES = [("in-squeeze N=8640", 1, 1024, 8640, 1024, 1024, 1.0),
                ("out-squeeze N=18000", 4, 18000, 1024, 256, 1024, 1.0),
                ("ragged", 3, 1000, 1333, 200, 264, 1.0),
                ("clamp", 1, 256, 512, 64, 64, 30.0)]
+# the two flash calls of layer 0 of the --fused fundus serving forward at
+# batch 8 (nn/attention._flash): the in-squeeze (256 attractors <- 1296
+# tokens, D=F=1792) and the out-squeeze (4 modes of D=448, V W1 F=1792)
+FLASH_FUNDUS_CASES = [("fundus in-squeeze", 8, 256, 1296, 1792, 1792, 1.0),
+                      ("fundus out-squeeze", 32, 1296, 256, 448, 1792, 1.0)]
 
 
 def sdpa_call(torch, q, k, v, scale):
@@ -254,11 +263,39 @@ def sdpa_call(torch, q, k, v, scale):
     fail("no scaled_dot_product_attention backend took the inputs")
 
 
+def fwd_launch_shape(torch, sa, label, dname, g, nq, n, d, f, dt):
+    """Log the forward kernel's plan (width, cluster, grid, key splits) and
+    cudaOccupancyMaxActiveClusters; the built kernel's shared memory must
+    be the plan's."""
+    plan = sa._fwd_plan(g, nq, n, d, f, dt, sa._sm_count("cuda"))
+    occ = sa.fwd_occupancy(plan, dt)
+    log(f"[flash] {label} {dname}: clusters of {plan.cluster} CTAs x "
+        f"{plan.width} columns, {plan.tile} x {plan.key_tile} cells, scores "
+        f"in {plan.halves} key half(s), grid {plan.grid} ({plan.splits} key "
+        f"splits of {plan.split_tiles} tiles); smem "
+        f"{occ['smem']} B; max active clusters "
+        f"{occ['max_active_clusters']}")
+    if occ["smem"] != plan.smem:
+        fail(f"flash forward {label} {dname}: the kernel takes "
+             f"{occ['smem']} bytes of shared memory, the plan {plan.smem}")
+    return dict(cluster=plan.cluster, width=plan.width, tile=plan.tile,
+                key_tile=plan.key_tile, halves=plan.halves,
+                grid=list(plan.grid), splits=plan.splits, smem=plan.smem,
+                max_active_clusters=occ["max_active_clusters"])
+
+
 def check_flash(torch, sa):
+    """The forward kernel against its plain version (out, lse), bit-for-bit
+    repeatability, the launch shape, and times: kernel, plain, SDPA,
+    bound, and the kernel at the other slice width (128 <-> 256, where its
+    cluster fits), which must agree too."""
     results = []
     torch.backends.cuda.matmul.allow_tf32 = False
     for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        for i, (label, g, nq, n, d, f, qk) in enumerate(FLASH_CASES):
+        for i, (label, g, nq, n, d, f, qk) in enumerate(FLASH_CASES
+                                                        + FLASH_FUNDUS_CASES):
+            launch = fwd_launch_shape(torch, sa, label, dname, g, nq, n, d,
+                                      f, dt)
             gen = torch.Generator(device="cuda").manual_seed(100 + i)
 
             def rn(*shape, s=1.0):
@@ -267,6 +304,8 @@ def check_flash(torch, sa):
             q, k, v = rn(g, nq, d, s=qk), rn(g, n, d, s=qk), rn(g, n, f)
             scale = 1.0 / math.sqrt(d)
             out, lse = sa.fused_cross_attention(q, k, v, return_lse=True)
+            out2, lse2 = sa.fused_cross_attention(q, k, v, return_lse=True)
+            repeat = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
             ref, ref_lse = sa.fused_cross_attention_plain(q, k, v, 500.0,
                                                           scale)
             torch.cuda.synchronize()
@@ -280,6 +319,15 @@ def check_flash(torch, sa):
             tol_max, tol_mean = KERNEL_TOL[dname]
             ms = cuda_ms(torch, lambda: sa.fused_cross_attention(q, k, v),
                          iters=5)
+            alt = 256 if launch["width"] == 128 else 128
+            alt_ms = alt_rel = None
+            if max(-(-d // alt), -(-f // alt)) <= 8:
+                alt_out, _ = sa._launch_fwd(q, k, v, 500.0, scale, alt)
+                alt_rel = float(((alt_out.float() - ref.float()).abs()
+                                 / (1 + ref.float().abs())).max())
+                alt_ms = cuda_ms(torch, lambda: sa._launch_fwd(
+                    q, k, v, 500.0, scale, alt), iters=5)
+                del alt_out
             plain_ms = cuda_ms(torch, lambda: sa.fused_cross_attention_plain(
                 q, k, v, 500.0, scale), iters=3)
             backend, sdpa = sdpa_call(torch, q, k, v, scale)
@@ -291,23 +339,34 @@ def check_flash(torch, sa):
             row = dict(name="fused_cross_attention", dtype=dname, case=label,
                        shape=[g, nq, n, d, f], max_abs_err=max_err,
                        mean_abs_err=mean_err, max_rel_err=rel_err,
-                       lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, library_backend=backend,
+                       lse_max_abs_err=lse_err, repeatable=repeat, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       library_backend=backend,
                        bound_ms=max(t_ops, t_bytes) * 1e3,
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
-                       flop=flops, bytes=nbytes)
+                       flop=flops, bytes=nbytes, alt_width=alt,
+                       alt_width_ms=alt_ms, alt_width_max_rel_err=alt_rel,
+                       **launch)
             results.append(row)
+            alt_note = (f"width {alt}: {alt_ms:.4f} ms (err {alt_rel:.3e})"
+                        if alt_ms is not None else f"width {alt}: no plan")
             log(f"[flash] {label} {dname} G,Q,N,D,F={g},{nq},{n},{d},{f}: "
                 f"max |err|/(1+|plain|) {rel_err:.3e} mean_abs_err "
                 f"{mean_err:.3e} (tol {tol_max:g}/{tol_mean:g}), lse "
-                f"{lse_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                f"ms, sdpa[{backend}] {library_ms:.4f} ms, bound "
-                f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {flops:.3e} "
-                f"FLOP, {nbytes:.3e} B)")
+                f"{lse_err:.3e}, repeatable {repeat}; kernel {ms:.4f} ms "
+                f"(width {launch['width']}; {alt_note}), plain "
+                f"{plain_ms:.4f} ms, sdpa[{backend}] {library_ms:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                f"{flops:.3e} FLOP, {nbytes:.3e} B)")
             if not (rel_err <= tol_max and mean_err <= tol_mean
                     and lse_err <= 1e-3):
                 fail(f"flash {label} {dname} disagrees with its plain version")
-            del q, k, v, out, lse, ref, ref_lse
+            if alt_rel is not None and alt_rel > tol_max:
+                fail(f"flash {label} {dname} at width {alt} disagrees with "
+                     f"its plain version")
+            if not repeat:
+                fail(f"flash {label} {dname} is not repeatable")
+            del q, k, v, out, lse, out2, lse2, ref, ref_lse
         torch.cuda.empty_cache()
     return results
 
@@ -857,8 +916,8 @@ def wholevol(torch, np, epi, sa, ckdir, logger):
             prof = profile_forward(
                 torch, lambda: (models["fused"](vol), torch.cuda.synchronize()),
                 f"one {tag} whole-volume forward",
-                {"flash statistics": "stats_kernel", "flash output":
-                 "out_kernel", "epilogue kernels": "epilogue_kernel",
+                {"flash forward": "fwd_kernel", "flash merge":
+                 "fwd_merge_kernel", "epilogue kernels": "epilogue_kernel",
                  "group norm statistics": "RowwiseMoments",
                  "trilinear resizes": "upsample_trilinear",
                  "max pools": "max_pool3d"})
@@ -947,7 +1006,7 @@ def train_step_perf(torch, train3d, model, args, task, dev, batch, label):
     prof = profile_forward(
         torch, lambda: (step(batch), torch.cuda.synchronize()),
         f"one {label} train step",
-        {"flash statistics": "stats_kernel", "flash output": "out_kernel",
+        {"flash forward": "fwd_kernel", "flash merge": "fwd_merge_kernel",
          "flash dK/dV": "dkdv_kernel", "flash dQ": "dq_kernel",
          "conv fprop": "fprop", "conv dgrad": "dgrad", "conv wgrad": "wgrad",
          "group norm statistics": "RowwiseMoments",
@@ -1493,8 +1552,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
                                              "GPU; no arguments runs every "
                                              "phase")
-    ap.add_argument("--only", choices=["flash_backward", "training",
-                                       "mbconv", "fundus_training"],
+    ap.add_argument("--only", choices=["flash", "flash_backward",
+                                       "training", "mbconv",
+                                       "fundus_training"],
                     default=None,
                     help="build and run only this check, print no result")
     only = ap.parse_args(argv).only
@@ -1530,6 +1590,10 @@ def main(argv=None) -> int:
     logger.addHandler(logging.StreamHandler(sys.stderr))
     logger.setLevel(logging.INFO)
     ckdir = os.path.join(ROOT, "build", "chip_smoke")
+    if only == "flash":
+        rows = check_flash(torch, sa)
+        print(json.dumps({"flash": rows, "card": card}), flush=True)
+        return 0
     if only == "flash_backward":
         rows = check_flash_backward(torch, sa)
         print(json.dumps({"flash_backward": rows, "card": card}), flush=True)

@@ -1,13 +1,17 @@
-// Flash cross-attention forward for Hopper (sm_90a):
+// Flash cross-attention for Hopper (sm_90a), forward and backward. The
+// forward:
 //
 //     s   = clip(q k^T * scale, -clip, clip)      fp32, padded keys -inf
-//     m   = max_n s,  l = sum_n exp(s - m)        fp32
-//     out = (sum_n T(exp(s - m)) v) / l           fp32 sum, rounded to T
+//     m   = max_n s,  l = sum_n exp(s - m)        fp32, online over key tiles
+//     out = (sum_n T(exp(s - m)) v) / l           fp32 sum, rounded to T once
 //     lse = m + log(l)                            fp32
 //
 // with q [G, Q, D], k [G, N, D], v [G, N, F] in the compute type T (bf16 or
 // fp32). Replaces the Pallas forward of segtran_tpu/kernels/
-// squeezed_attention.py (_fused_forward / _attn_kernel).
+// squeezed_attention.py (_fused_forward / _attn_kernel): per key tile the
+// running max m and sum l are updated, p = exp(s - m_new) is rounded to T
+// against the running max (JAX's rounding point, `p.astype(v.dtype)`), and
+// the fp32 accumulator is rescaled by alpha = exp(m_old - m_new).
 //
 // What bounds it on an H100 SXM: at the BraTS whole-volume shapes (bf16;
 // in-squeeze G=1, Q=1024, N=8640, D=F=1024; out-squeeze G=4, Q=8640,
@@ -15,35 +19,70 @@
 // (3.6e10 and 9.1e10, 37 and 92 us at 989 TFLOP/s) against 20-90 MB of
 // compulsory traffic (6-27 us at 3.35 TB/s): bound by operations.
 //
-// The design. The TPU kernel keeps a [TQ, F] fp32 accumulator in VMEM and
-// rescales it as its online softmax walks the keys; at F=1024 a 64-row
-// accumulator is 256 KB, more than a block's 227 KB of shared memory. So
-// the softmax statistics and the product are two kernels:
+// The design (fwd_kernel, after the backward below, whose machinery it
+// shares). The TPU kernel keeps a [TQ, F] fp32 accumulator in VMEM; at
+// F=1024 a 64-row accumulator is 256 KB, more than an SM holds. So the
+// width is split over the CTAs of a thread-block cluster, as in the
+// backward: with W = 128 columns (256 where D or F exceeds 1024), CTA c of a
+// cluster of C = max(ceil(D/W), ceil(F/W)) <= 8 owns F slice c and keeps
+// q[:, D slice c % nD] of its TB-row query tile resident (nD = ceil(D/W),
+// TB W sizeof(T) = 16 KB). A cell is that query tile by a tile of TK = 2 TB
+// keys (64 x 128 in bf16 at W = 128). Per cell, the ranks below nD compute
+// the partial scores q k^T over their D slice, each over all TK keys or,
+// where the cluster has room for two ranks per slice (2 nD <= C, as at the
+// out-squeeze's D=256), ranks [0, 2 nD) over one key half each; the owner
+// of each row (TB/C rows per CTA) sums the partials in slice order through
+// distributed shared memory, scales, clips and masks them, updates the
+// row's m and l in its own shared memory, and stores p and alpha into
+// every CTA's buffers; ranks < ceil(F/W) rescale their accumulator rows by
+// alpha and add p v[:, Fc]. Each score tile is computed once, and the keys
+// are walked once.
 //
-// 1. stats_kernel: per (G, 64-row query tile, slice of the keys) an online
-//    max and sum over 64-key tiles, written as partial (m, l) per slice.
-//    Slicing the keys across blocks fills the card when Q is small (the
-//    in-squeeze has 16 query tiles on 132 SMs).
-// 2. out_kernel: per (G, query tile, 128-column slice of F) it merges the
-//    partial (m, l) and walks all key tiles once more: recomputes s, forms
-//    p = exp(s - m) in T and accumulates p v in fp32 registers, with no
-//    rescaling since m is final. Every F slice recomputes q k^T: the price
-//    of keeping the accumulator on chip, F/128 times the q k^T work.
+// The schedule: one cluster barrier per cell. Step i computes tile i's
+// partial scores, passes the barrier (after which they, and tile i - 1's p
+// and alpha, are visible everywhere), loads k of tile i + 1 and v of tile
+// i, publishes tile i's p and alpha and adds tile i - 1's p v. Partial
+// scores, p and alpha alternate between two buffers, so one barrier orders
+// both the reads and the reuse; k has one slot (loaded after its scores)
+// and v two: 227,584 bytes of shared memory in bf16 at W = 128, one CTA of
+// 8 warps per SM. What holds it back is not the tensor work but each
+// cell's chain: the scores of the ranks that compute them, the barrier
+// and distributed shared memory, the softmax step and the loads, each
+// 10-25% (tools/ablate_flash_fwd.py). The cell of 2 TB keys, the single
+// barrier and the key halves each took 15-30% off the time at the path
+// shapes; the wider W = 256 (half the rows per cell) measured slower at
+// every shape where both fit, so the plan keeps W = 128 up to D, F = 1024.
 //
-// q and k are streamed over D through a ring of [64, KC] shared-memory
-// tiles filled by cp.async (D up to 1792 on the 2D path), with row strides
-// padded off multiples of 128 bytes against bank conflicts; each key
-// tile's v slice is fetched with the first depth stage. bf16 products run
-// on the tensor cores through WMMA 16x16x16 (fp32 accumulate); fp32
-// products run on the CUDA cores in full fp32, so the fp32 build is an
-// exact-precision check. Ragged Q, N and F are masked in-kernel; D and F
-// must be multiples of 16 bytes' worth of elements (the wrapper checks).
+// Executed passes of 2 G Q N x (width), counted against the minimal S + PV:
+// the previous pair of kernels (a statistics pass, then one output block
+// per 128-column F slice recomputing q k^T) executed 10 at the in-squeeze
+// (S 1 + 8, PV 1), 3.25 at the out-squeeze and 16 at D=F=1792 (S 1 + 14,
+// PV 1); this kernel executes 2, 1.25 and 2, the minimum.
+//
+// Q=1024 gives only 16 query tiles, so the keys are split over clusters
+// (about eight waves, as dQ splits them). With one split the kernel writes
+// out = acc / l (each CTA reads its rows' l from their owners) and lse;
+// with more, each split writes its fp32 acc and (m, l) to scratch and
+// fwd_merge_kernel rescales them to the common max in split order: no
+// atomics, bit-for-bit repeatable. Every split holds at least one key tile
+// and every key tile at least one valid key, so m is finite after a
+// split's first tile and no -inf - (-inf) arises.
+//
+// mma.sync (m16n8k16, ldmatrix operands, fp32 accumulators) rather than
+// wgmma: each warp owns 16 rows of a 64- or 32-row tile, which fits the
+// row ownership of the cluster reduction and the per-row rescale (a
+// thread's accumulator rows are r and r + 8, two multiplies per fragment),
+// and the p operand is written by other CTAs, so it needs no wgmma
+// shared-memory layout. fp32 runs the same decomposition on the CUDA cores
+// in full fp32 (no TF32), so the fp32 build checks the indexing, the
+// rescale and the merge exactly. Ragged Q, N, D and F are masked in-kernel;
+// D and F must be multiples of 16 bytes' worth of elements (the wrapper
+// checks).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -52,41 +91,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int TQ = 64;  // query rows per block
-constexpr int TN = 64;  // keys per tile
-constexpr int TF = 128; // output columns per block
-constexpr int kStages = 3;
 
 using bf16 = __nv_bfloat16;
-
-// depth of one staged q/k tile and the shared-memory row strides: q/k
-// stage (LDK), scores (LDS), p (LDP), v (LDV), output staging (LDO)
-template <typename T> struct Tile;
-template <> struct Tile<bf16> {
-  static constexpr int KC = 64, LDK = KC + 8, LDS = TN + 4, LDP = TN + 8,
-                       LDV = TF + 8, LDO = TF + 4;
-};
-template <> struct Tile<float> {
-  static constexpr int KC = 32, LDK = KC + 4, LDS = TN + 4, LDP = TN + 4,
-                       LDV = TF + 4, LDO = TF + 4;
-};
-
-template <typename T> constexpr size_t ring_bytes() {
-  return sizeof(T) * 2 * kStages * TQ * Tile<T>::LDK;  // q ring + k ring
-}
-template <typename T> constexpr size_t stats_smem() {
-  return ring_bytes<T>() + sizeof(float) * TQ * Tile<T>::LDS;
-}
-template <typename T> constexpr size_t out_smem() {
-  using S = Tile<T>;
-  return ring_bytes<T>() + sizeof(float) * TQ * S::LDS +
-         sizeof(T) * TQ * S::LDP + sizeof(T) * TN * S::LDV +
-         sizeof(float) * 2 * TQ;
-}
-static_assert(sizeof(float) * TQ * Tile<bf16>::LDO <= ring_bytes<bf16>(),
-              "output staging reuses the q/k ring");
-static_assert(sizeof(float) * TQ * Tile<float>::LDO <= ring_bytes<float>(),
-              "output staging reuses the q/k ring");
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -107,7 +113,6 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
@@ -141,272 +146,6 @@ __device__ __forceinline__ void stage_tile(T* dst, int ldd, const T* X,
     const int r = v / PER_ROW, c = (v % PER_ROW) * VEC;
     const bool in = r < valid_rows && c < valid_cols;
     cp_async16(dst + r * ldd + c, in ? X + r * ld + c : X, in ? 16 : 0);
-  }
-}
-
-// scr[TQ][TN] (row stride LDS, fp32) = q[0:TQ] . k[0:TN]^T over depth D,
-// unscaled. q and k point at the tile's first rows (row stride D). `pre`
-// issues extra copies into the first cp.async group. Starts and ends with
-// a block barrier; on return every copy of this call has landed.
-template <typename T, typename Pre>
-__device__ void score_tile(const T* q, int q_rows, const T* k, int k_rows,
-                           int D, T* sq, T* sk, float* scr, Pre pre) {
-  using S = Tile<T>;
-  constexpr int KC = S::KC, LDK = S::LDK, LDS = S::LDS;
-  const int nk = (D + KC - 1) / KC;
-  auto issue = [&](int t) {
-    if (t == 0) pre();
-    if (t < nk) {
-      const int k0 = t * KC;
-      stage_tile<T, TQ, KC>(sq + (t % kStages) * TQ * LDK, LDK, q + k0, D,
-                            q_rows, D - k0);
-      stage_tile<T, TN, KC>(sk + (t % kStages) * TN * LDK, LDK, k + k0, D,
-                            k_rows, D - k0);
-    }
-    cp_async_commit();  // an empty group past the end keeps the count
-  };
-  __syncthreads();      // the ring, scr and v may still be read
-#pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) issue(t);
-  const int tid = threadIdx.x;
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    // warp w: row tile w % 4 (16 rows), key columns (w / 4) * 32 + [0, 32)
-    const int warp = tid >> 5, rt = warp % 4, ch = warp / 4;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-    for (int t = 0; t < nk; ++t) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      issue(t + kStages - 1);
-      const T* a = sq + (t % kStages) * TQ * LDK + rt * 16 * LDK;
-      const T* b = sk + (t % kStages) * TN * LDK + ch * 32 * LDK;
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, a + kk, LDK);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          // k^T as a column-major [KC, TN] operand: (d, n) at n * LDK + d
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fb, b + j * 16 * LDK + kk, LDK);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-    }
-    cp_async_wait<0>();
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(scr + rt * 16 * LDS + ch * 32 + j * 16, acc[j],
-                              LDS, wmma::mem_row_major);
-  } else {
-    // thread t: key column t % TN, query rows t / TN + 4 i
-    constexpr int RS = kThreads / TN, RT = TQ / RS;
-    const int col = tid % TN, r0 = tid / TN;
-    float acc[RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i) acc[i] = 0.f;
-    for (int t = 0; t < nk; ++t) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      issue(t + kStages - 1);
-      const T* a = sq + (t % kStages) * TQ * LDK;
-      const T* b = sk + (t % kStages) * TN * LDK + col * LDK;
-#pragma unroll 8
-      for (int kk = 0; kk < KC; ++kk) {
-        const float bv = b[kk];
-#pragma unroll
-        for (int i = 0; i < RT; ++i)
-          acc[i] = fmaf(a[(r0 + RS * i) * LDK + kk], bv, acc[i]);
-      }
-    }
-    cp_async_wait<0>();
-#pragma unroll
-    for (int i = 0; i < RT; ++i) scr[(r0 + RS * i) * LDS + col] = acc[i];
-  }
-  __syncthreads();
-}
-
-struct Params {
-  const void* q;  // [G, Q, D]
-  const void* k;  // [G, N, D]
-  const void* v;  // [G, N, F]
-  void* out;      // [G, Q, F]
-  float* lse;     // [G, Q]
-  float* pm;      // [G, splits, Q] partial max
-  float* pl;      // [G, splits, Q] partial sum
-  int Q, N, D, F, splits;
-  float scale, clip;
-};
-
-// the score the softmax sees: scaled, clipped, -inf past the last key
-__device__ __forceinline__ float score(float dot, int col, int n_valid,
-                                       float scale, float clip) {
-  const float s = fminf(fmaxf(dot * scale, -clip), clip);
-  return col < n_valid ? s : -INFINITY;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) stats_kernel(Params p) {
-  using S = Tile<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sq = reinterpret_cast<T*>(smem);
-  T* sk = sq + kStages * TQ * S::LDK;
-  float* scr = reinterpret_cast<float*>(sk + kStages * TN * S::LDK);
-
-  const int g = blockIdx.z, q0 = blockIdx.x * TQ;
-  const int q_rows = min(TQ, p.Q - q0);
-  const int nt = (p.N + TN - 1) / TN;
-  const int per = (nt + p.splits - 1) / p.splits;
-  const int t0 = blockIdx.y * per, t1 = min(nt, t0 + per);
-  const T* qg = static_cast<const T*>(p.q) + ((long long)g * p.Q + q0) * p.D;
-  const T* kg = static_cast<const T*>(p.k) + (long long)g * p.N * p.D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int RPW = TQ / kWarps;  // rows of each warp
-  float m[RPW], l[RPW];
-#pragma unroll
-  for (int j = 0; j < RPW; ++j) {
-    m[j] = -INFINITY;
-    l[j] = 0.f;
-  }
-  for (int t = t0; t < t1; ++t) {
-    const int n0 = t * TN;
-    score_tile<T>(qg, q_rows, kg + (long long)n0 * p.D, min(TN, p.N - n0),
-                  p.D, sq, sk, scr, [] {});
-#pragma unroll
-    for (int j = 0; j < RPW; ++j) {
-      const float* row = scr + (warp * RPW + j) * S::LDS;
-      const float a = score(row[lane], n0 + lane, p.N, p.scale, p.clip);
-      const float b =
-          score(row[lane + 32], n0 + lane + 32, p.N, p.scale, p.clip);
-      const float mn = fmaxf(m[j], warp_max(fmaxf(a, b)));
-      l[j] = l[j] * expf(m[j] - mn) + warp_sum(expf(a - mn) + expf(b - mn));
-      m[j] = mn;
-    }
-  }
-  if (lane == 0) {
-    const long long base = ((long long)g * p.splits + blockIdx.y) * p.Q + q0;
-#pragma unroll
-    for (int j = 0; j < RPW; ++j) {
-      const int r = warp * RPW + j;
-      if (r < q_rows) {
-        p.pm[base + r] = m[j];
-        p.pl[base + r] = l[j];
-      }
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1) out_kernel(Params p) {
-  using S = Tile<T>;
-  constexpr int LDS = S::LDS, LDP = S::LDP, LDV = S::LDV, LDO = S::LDO;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sq = reinterpret_cast<T*>(smem);
-  T* sk = sq + kStages * TQ * S::LDK;
-  float* scr = reinterpret_cast<float*>(sk + kStages * TN * S::LDK);
-  T* sp = reinterpret_cast<T*>(scr + TQ * LDS);
-  T* sv = sp + TQ * LDP;
-  float* row_m = reinterpret_cast<float*>(sv + TN * LDV);
-  float* row_l = row_m + TQ;
-  float* so = reinterpret_cast<float*>(smem);  // output staging, after use
-
-  const int g = blockIdx.z, q0 = blockIdx.x * TQ, f0 = blockIdx.y * TF;
-  const int q_rows = min(TQ, p.Q - q0), f_cols = p.F - f0;
-  const int tid = threadIdx.x;
-  const T* qg = static_cast<const T*>(p.q) + ((long long)g * p.Q + q0) * p.D;
-  const T* kg = static_cast<const T*>(p.k) + (long long)g * p.N * p.D;
-  const T* vg = static_cast<const T*>(p.v) + (long long)g * p.N * p.F + f0;
-
-  // merge the partial statistics of the key slices
-  if (tid < TQ) {
-    float mm = 0.f, ll = 1.f;
-    if (tid < q_rows) {
-      const long long base = (long long)g * p.splits * p.Q + q0 + tid;
-      mm = -INFINITY;
-      for (int s = 0; s < p.splits; ++s) mm = fmaxf(mm, p.pm[base + s * p.Q]);
-      ll = 0.f;
-      for (int s = 0; s < p.splits; ++s)
-        ll += p.pl[base + s * p.Q] * expf(p.pm[base + s * p.Q] - mm);
-      if (blockIdx.y == 0)
-        p.lse[(long long)g * p.Q + q0 + tid] = mm + logf(ll);
-    }
-    row_m[tid] = mm;
-    row_l[tid] = ll;
-  }
-
-  using namespace nvcuda;
-  constexpr bool kTC = std::is_same<T, bf16>::value;
-  // bf16: warp w owns rows (w % 4) * 16 and columns (w / 4) * 64, 4 frags
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> facc[kTC ? 4 : 1];
-  // fp32: thread t owns column t % TF and rows t / TF + 2 i
-  constexpr int RS = kThreads / TF, RT = TQ / RS;
-  float acc[kTC ? 1 : RT];
-  if constexpr (kTC) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(facc[j], 0.f);
-  } else {
-#pragma unroll
-    for (int i = 0; i < RT; ++i) acc[i] = 0.f;
-  }
-  const int warp = tid >> 5, rt = warp % 4, ch = warp / 4;
-
-  const int nt = (p.N + TN - 1) / TN;
-  for (int t = 0; t < nt; ++t) {
-    const int n0 = t * TN, k_rows = min(TN, p.N - n0);
-    score_tile<T>(qg, q_rows, kg + (long long)n0 * p.D, k_rows, p.D, sq, sk,
-                  scr, [&] {
-                    stage_tile<T, TN, TF>(sv, LDV, vg + (long long)n0 * p.F,
-                                          p.F, k_rows, f_cols);
-                  });
-    // p = exp(s - m) rounded to T; zero past the last key
-    for (int i = tid; i < TQ * TN; i += kThreads) {
-      const int r = i / TN, c = i % TN;
-      const float s = score(scr[r * LDS + c], n0 + c, p.N, p.scale, p.clip);
-      sp[r * LDP + c] = from_f<T>(expf(s - row_m[r]));
-    }
-    __syncthreads();
-    if constexpr (kTC) {
-#pragma unroll
-      for (int kk = 0; kk < TN; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, sp + rt * 16 * LDP + kk, LDP);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, sv + kk * LDV + ch * 64 + j * 16, LDV);
-          wmma::mma_sync(facc[j], fa, fb, facc[j]);
-        }
-      }
-    } else {
-      const int col = tid % TF, r0 = tid / TF;
-#pragma unroll 8
-      for (int kk = 0; kk < TN; ++kk) {
-        const float bv = to_f(sv[kk * LDV + col]);
-#pragma unroll
-        for (int i = 0; i < RT; ++i)
-          acc[i] = fmaf(to_f(sp[(r0 + RS * i) * LDP + kk]), bv, acc[i]);
-      }
-    }
-  }
-  __syncthreads();  // the ring is free: stage the accumulator there
-  if constexpr (kTC) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(so + rt * 16 * LDO + ch * 64 + j * 16, facc[j],
-                              LDO, wmma::mem_row_major);
-  } else {
-    const int col = tid % TF, r0 = tid / TF;
-#pragma unroll
-    for (int i = 0; i < RT; ++i) so[(r0 + RS * i) * LDO + col] = acc[i];
-  }
-  __syncthreads();
-  T* og = static_cast<T*>(p.out) + ((long long)g * p.Q + q0) * p.F + f0;
-  for (int i = tid; i < TQ * TF; i += kThreads) {
-    const int r = i / TF, c = i % TF;
-    if (r < q_rows && c < f_cols)
-      og[(long long)r * p.F + c] = from_f<T>(so[r * LDO + c] / row_l[r]);
   }
 }
 
@@ -495,10 +234,11 @@ struct BwdParams {
   float scale, clip;
 };
 
-// tile rows TB, row strides (LD: W-wide tiles in T; LDS: fp32 partials;
-// LDP: p / ds in T; each padded by 16 bytes against bank conflicts) and the
+// The cell geometry of the cluster kernels (forward and backward): tile
+// rows TB, row strides (LD: W-wide tiles in T; LDS: fp32 partials; LDP: p /
+// ds in T; each padded by 16 bytes against bank conflicts) and the
 // accumulator floats per thread of one [TB, W] output
-template <typename T, int W> struct Bwd {
+template <typename T, int W> struct Cell {
   static constexpr bool kTC = std::is_same<T, bf16>::value;
   static constexpr int TB = 16384 / (W * static_cast<int>(sizeof(T)));
   static constexpr int LD = W + 16 / static_cast<int>(sizeof(T));
@@ -506,23 +246,24 @@ template <typename T, int W> struct Bwd {
   static constexpr int LDP = TB + 16 / static_cast<int>(sizeof(T));
   static constexpr int ACC = TB * W / kThreads;
   static constexpr int TILE = TB * LD;
-  static constexpr size_t smem() {
-    return sizeof(T) * (2 + 2 * kRing) * TILE +
-           sizeof(float) * (2 * TB * LDS + 2 * kRing * TB) +
-           sizeof(T) * 4 * TB * LDP;
-  }
 };
 
 // the shared-memory carve-up of both backward kernels (the same in every
 // CTA, so a peer's buffer is this CTA's address mapped to its rank)
 template <typename T, int W> struct BwdSmem {
+  static constexpr size_t bytes() {
+    using B = Cell<T, W>;
+    return sizeof(T) * (2 + 2 * kRing) * B::TILE +
+           sizeof(float) * (2 * B::TB * B::LDS + 2 * kRing * B::TB) +
+           sizeof(T) * 4 * B::TB * B::LDP;
+  }
   T* res[2];  // resident tiles: k and v (dK/dV) or q and dO (dQ)
   T* ring;    // kRing slots of two streamed tiles
   float *ps, *pdp;      // this CTA's partial S and dP of the cell
   float* stats;         // kRing slots of lse [TB] and delta [TB]
   T* pds;               // two buffers of the cell's whole p and ds
   __device__ explicit BwdSmem(unsigned char* smem) {
-    using B = Bwd<T, W>;
+    using B = Cell<T, W>;
     res[0] = reinterpret_cast<T*>(smem);
     res[1] = res[0] + B::TILE;
     ring = res[1] + B::TILE;
@@ -533,15 +274,15 @@ template <typename T, int W> struct BwdSmem {
   }
   // lse (which 0) or delta (which 1) of the query rows of step t
   __device__ float* stat(int t, int which) const {
-    return stats + (2 * (t % kRing) + which) * Bwd<T, W>::TB;
+    return stats + (2 * (t % kRing) + which) * Cell<T, W>::TB;
   }
   // p (which 0) or ds (which 1) of the cells of parity `buf`
   __device__ T* cell(int buf, int which) const {
-    return pds + (2 * (buf & 1) + which) * Bwd<T, W>::TB * Bwd<T, W>::LDP;
+    return pds + (2 * (buf & 1) + which) * Cell<T, W>::TB * Cell<T, W>::LDP;
   }
   // streamed tile `which` (0: D-wide, 1: F-wide) of step t
   __device__ T* slot(int t, int which) const {
-    return ring + (2 * (t % kRing) + which) * Bwd<T, W>::TILE;
+    return ring + (2 * (t % kRing) + which) * Cell<T, W>::TILE;
   }
 };
 
@@ -620,18 +361,19 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// out[TB][TB] (fp32, row stride LDS) = A . B^T over the W columns of one
-// slice; A and B [TB][W] stored by rows (row stride LD)
-template <typename T, int W>
+// out[TB][NB] (fp32, row stride LDS) = A . B^T over the W columns of one
+// slice; A [TB][W] and B [NB][W] stored by rows (row stride LD)
+template <typename T, int W, int LDS = Cell<T, W>::LDS,
+          int NB = Cell<T, W>::TB>
 __device__ void slice_scores(const T* A, const T* B, float* out) {
-  using K = Bwd<T, W>;
-  constexpr int TB = K::TB, LD = K::LD, LDS = K::LDS;
+  using K = Cell<T, W>;
+  constexpr int TB = K::TB, LD = K::LD;
   const int tid = threadIdx.x;
   if constexpr (K::kTC) {
-    // warp w: rows (w % WM) * 16, key columns (w / WM) * TB / WN
-    constexpr int WM = TB / 16, WN = kWarps / WM, NT = TB / WN / 8;
+    // warp w: rows (w % WM) * 16, key columns (w / WM) * NB / WN
+    constexpr int WM = TB / 16, WN = kWarps / WM, NT = NB / WN / 8;
     const int warp = tid >> 5, lane = tid & 31;
-    const int m0 = (warp % WM) * 16, n0 = (warp / WM) * (TB / WN);
+    const int m0 = (warp % WM) * 16, n0 = (warp / WM) * (NB / WN);
     float acc[NT][4] = {};
 #pragma unroll 4
     for (int k0 = 0; k0 < W; k0 += 16) {
@@ -661,9 +403,9 @@ __device__ void slice_scores(const T* A, const T* B, float* out) {
       store_pair(out + (r + 8) * LDS + c + j * 8, acc[j][2], acc[j][3]);
     }
   } else {
-    // thread t: key column t % TB, rows t / TB + RS i
-    constexpr int RS = kThreads / TB, RT = TB * TB / kThreads;
-    const int col = tid % TB, r0 = tid / TB;
+    // thread t: key column t % NB, rows t / NB + RS i
+    constexpr int RS = kThreads / NB, RT = TB * NB / kThreads;
+    const int col = tid % NB, r0 = tid / NB;
     float acc[RT] = {};
 #pragma unroll 4
     for (int k = 0; k < W; k += 4) {
@@ -683,26 +425,27 @@ __device__ void slice_scores(const T* A, const T* B, float* out) {
   }
 }
 
-// acc[TB][W] += A . B over the rows [K0, K1) of a cell: A = X [TB][TB] or
-// X^T (kTransA; X row stride LDP), B [TB][W] stored [k][n] (row stride
+// acc[TB][W] += A . B over the rows [K0, K1) of a cell: A = X [TB][K1] or
+// X^T (kTransA; X row stride LDX), B [K1][W] stored [k][n] (row stride
 // LD). bf16: warp w owns rows (w % WM) * 16 and columns (w / WM) * 64,
 // eight n8 tiles of four floats; fp32: thread t owns column t % W and rows
 // t / W + RS i.
-template <typename T, int W, bool kTransA, int K0, int K1>
+template <typename T, int W, bool kTransA, int K0, int K1,
+          int LDX = Cell<T, W>::LDP>
 __device__ __forceinline__ void accumulate(const T* X, const T* B,
-                                           float (&acc)[Bwd<T, W>::ACC]) {
-  using K = Bwd<T, W>;
+                                           float (&acc)[Cell<T, W>::ACC]) {
+  using K = Cell<T, W>;
   constexpr int TB = K::TB;
   const int tid = threadIdx.x;
   if constexpr (K::kTC) {
     constexpr int WM = TB / 16;
     const int warp = tid >> 5;
     const int m0 = (warp % WM) * 16, n0 = (warp / WM) * 64;
-    static_assert(K0 % 16 == 0 && K1 % 16 == 0 && K1 <= TB, "k16 steps");
+    static_assert(K0 % 16 == 0 && K1 % 16 == 0, "k16 steps");
 #pragma unroll
     for (int k0 = K0; k0 < K1; k0 += 16) {
       unsigned a[4];
-      load_a<kTransA>(a, X, K::LDP, m0, k0);
+      load_a<kTransA>(a, X, LDX, m0, k0);
 #pragma unroll
       for (int j = 0; j < 8; j += 2) {
         unsigned b[4];
@@ -720,8 +463,7 @@ __device__ __forceinline__ void accumulate(const T* X, const T* B,
 #pragma unroll
       for (int i = 0; i < K::ACC; ++i) {
         const int r = r0 + RS * i;
-        acc[i] = fmaf(kTransA ? X[k * K::LDP + r] : X[r * K::LDP + k], b,
-                      acc[i]);
+        acc[i] = fmaf(kTransA ? X[k * LDX + r] : X[r * LDX + k], b, acc[i]);
       }
     }
   }
@@ -730,10 +472,10 @@ __device__ __forceinline__ void accumulate(const T* X, const T* B,
 // Write the [TB, W] accumulator to out (row stride ld, element type O:
 // T, or fp32 for the dQ partials), rows < rows and columns < cols.
 template <typename T, int W, typename O>
-__device__ __forceinline__ void store_acc(const float (&acc)[Bwd<T, W>::ACC],
+__device__ __forceinline__ void store_acc(const float (&acc)[Cell<T, W>::ACC],
                                           O* out, long long ld, int rows,
                                           int cols) {
-  using K = Bwd<T, W>;
+  using K = Cell<T, W>;
   const int tid = threadIdx.x;
   if constexpr (K::kTC) {
     constexpr int WM = K::TB / 16;
@@ -771,7 +513,7 @@ __device__ void publish_rows(const BwdParams& p, const BwdSmem<T, W>& sm,
                              const float* lse_t, const float* delta_t,
                              int buf, int q0, int n0, int rank, int C,
                              int nD, int nF) {
-  using K = Bwd<T, W>;
+  using K = Cell<T, W>;
   constexpr int TB = K::TB, HALF = TB / 2;
   cg::cluster_group cluster = cg::this_cluster();
   const int rpc = (TB + C - 1) / C, r0 = rank * rpc, r1 = min(TB, r0 + rpc);
@@ -834,7 +576,7 @@ __device__ __forceinline__ void stage_stats(const BwdParams& p, int g, int q0,
 
 template <typename T, int W>
 __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(BwdParams p) {
-  using K = Bwd<T, W>;
+  using K = Cell<T, W>;
   constexpr int TB = K::TB;
   extern __shared__ __align__(128) unsigned char smem[];
   const BwdSmem<T, W> sm(smem);
@@ -921,7 +663,7 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(BwdParams p) {
 
 template <typename T, int W>
 __global__ void __launch_bounds__(kThreads, 1) dq_kernel(BwdParams p) {
-  using K = Bwd<T, W>;
+  using K = Cell<T, W>;
   constexpr int TB = K::TB;
   extern __shared__ __align__(128) unsigned char smem[];
   const BwdSmem<T, W> sm(smem);
@@ -1021,15 +763,359 @@ __global__ void dq_sum_kernel(const float* part, T* dq, long long count,
   dq[i + 3] = from_f<T>(s.w);
 }
 
+
+// ------------------------------------------------------------- forward ----
+//
+// fwd_kernel: one cluster per (G, query tile, key split), over the split's
+// key tiles (the note at the top of this file).
+
+struct FwdParams {
+  const void* q;    // [G, Q, D]
+  const void* k;    // [G, N, D]
+  const void* v;    // [G, N, F]
+  void* out;        // [G, Q, F]
+  float* lse;       // [G, Q]
+  float* acc_part;  // [splits, G, Q, F] fp32 (more than one split)
+  float* ml_part;   // [2, splits, G, Q] fp32: m, then l
+  int Q, N, D, F, splits;
+  float scale, clip;
+};
+
+// The forward's cell: TB query rows by TK = 2 TB keys (the backward's
+// cells are TB x TB), so that each cluster barrier covers twice the keys:
+// k and v tiles of TK rows, fp32 partial scores (row stride LDS, 8 banks
+// past a multiple of 32, so the MMA fragments' pair stores do not
+// conflict) and p in T (row stride LDP, padded by 16 bytes)
+template <typename T, int W> struct FwdCell {
+  static constexpr int TB = Cell<T, W>::TB, TK = 2 * TB;
+  static constexpr int LDS = TK + 8;
+  static constexpr int LDP = TK + 16 / static_cast<int>(sizeof(T));
+  static constexpr int KTILE = TK * Cell<T, W>::LD;
+};
+
+// the forward's shared-memory carve-up (the same in every CTA)
+template <typename T, int W> struct FwdSmem {
+  static constexpr size_t bytes() {
+    using F = FwdCell<T, W>;
+    return sizeof(T) * (Cell<T, W>::TILE + 3 * F::KTILE) +
+           sizeof(float) * (2 * F::TB * F::LDS + 5 * F::TB) +
+           sizeof(T) * 2 * F::TB * F::LDP;
+  }
+  T* q;           // q[:, Dc] of the query tile, resident
+  T* kv;          // a slot of k[:, Dc], then two of v[:, Fc]
+  float* ps;      // two buffers of this CTA's partial scores of the cell
+  float* alpha;   // two buffers of the cell's rescale factors [TB]
+  float *m, *l;   // running max and sum of the rows this CTA owns [TB]
+  float* fin;     // the final l of every row, read from its owner [TB]
+  T* pb;          // two buffers of the cell's p
+  __device__ explicit FwdSmem(unsigned char* smem) {
+    using F = FwdCell<T, W>;
+    q = reinterpret_cast<T*>(smem);
+    kv = q + Cell<T, W>::TILE;
+    ps = reinterpret_cast<float*>(kv + 3 * F::KTILE);
+    alpha = ps + 2 * F::TB * F::LDS;
+    m = alpha + 2 * F::TB;
+    l = m + F::TB;
+    fin = l + F::TB;
+    pb = reinterpret_cast<T*>(fin + F::TB);
+  }
+  // partial scores, p and alpha of the cells of parity `buf`
+  __device__ float* scores(int buf) const {
+    return ps + (buf & 1) * FwdCell<T, W>::TB * FwdCell<T, W>::LDS;
+  }
+  __device__ T* cell(int buf) const {
+    return pb + (buf & 1) * FwdCell<T, W>::TB * FwdCell<T, W>::LDP;
+  }
+  __device__ float* alphas(int buf) const {
+    return alpha + (buf & 1) * FwdCell<T, W>::TB;
+  }
+  // the k tile, and the v tile of key tile t
+  __device__ T* kslot() const { return kv; }
+  __device__ T* vslot(int t) const {
+    return kv + (1 + (t & 1)) * FwdCell<T, W>::KTILE;
+  }
+};
+
+// N adjacent fp32 values at `at` (16-byte rows, N-aligned)
+template <int N>
+__device__ __forceinline__ void load_n(float (&v)[N], const float* at) {
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(at);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else if constexpr (N == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(at);
+    v[0] = x.x, v[1] = x.y;
+  } else {
+    v[0] = *at;
+  }
+}
+// N adjacent values rounded to T, stored at `at` in one access
+template <typename T, int N>
+__device__ __forceinline__ void store_n(T* at, const float (&v)[N]) {
+  if constexpr (N == 1) {
+    *at = from_f<T>(v[0]);
+  } else if constexpr (N == 2) {
+    store_pair(at, v[0], v[1]);
+  } else if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float4*>(at) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<unsigned*>(&lo);
+    u.y = *reinterpret_cast<unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(at) = u;
+  }
+}
+
+// Multiply (kDivide: divide) row r of the [TB, W] accumulator by x[r]; in
+// the mma.sync layout a thread's rows are r and r + 8.
+template <typename T, int W, bool kDivide>
+__device__ __forceinline__ void scale_rows(float (&acc)[Cell<T, W>::ACC],
+                                           const float* x) {
+  using K = Cell<T, W>;
+  const int tid = threadIdx.x;
+  if constexpr (K::kTC) {
+    constexpr int WM = K::TB / 16;
+    const int r = ((tid >> 5) % WM) * 16 + ((tid & 31) >> 2);
+    const float a = x[r], b = x[r + 8];
+#pragma unroll
+    for (int j = 0; j < K::ACC; j += 4) {
+      acc[j] = kDivide ? acc[j] / a : acc[j] * a;
+      acc[j + 1] = kDivide ? acc[j + 1] / a : acc[j + 1] * a;
+      acc[j + 2] = kDivide ? acc[j + 2] / b : acc[j + 2] * b;
+      acc[j + 3] = kDivide ? acc[j + 3] / b : acc[j + 3] * b;
+    }
+  } else {
+    constexpr int RS = kThreads / W;
+    const int r0 = tid / W;
+#pragma unroll
+    for (int i = 0; i < K::ACC; ++i) {
+      const float s = x[r0 + RS * i];
+      acc[i] = kDivide ? acc[i] / s : acc[i] * s;
+    }
+  }
+}
+
+// The rows of a forward cell that CTA `rank` owns, one warp per row and
+// CPL adjacent keys per lane: sum the partial scores of the nD slices of D
+// in their order through distributed shared memory (key half h from ranks
+// h nD + [0, nD) where `halves` is 2, else all keys from ranks [0, nD)),
+// scale, clip and mask them (n0: the cell's first key), update the row's
+// running max m and sum l in this CTA's shared memory, and store p =
+// exp(s - m_new) in T and alpha = exp(m_old - m_new) into the buffers
+// `buf` of every CTA of the cluster.
 template <typename T, int W>
-cudaLaunchConfig_t bwd_config(const BwdParams& p, int G, bool dkdv, int C,
-                              cudaLaunchAttribute* attr, cudaStream_t stream) {
-  using K = Bwd<T, W>;
+__device__ void publish_softmax(const FwdParams& p, const FwdSmem<T, W>& sm,
+                                int buf, int n0, int rank, int C, int nD,
+                                int halves) {
+  using F = FwdCell<T, W>;
+  constexpr int TB = F::TB, CPL = F::TK / 32;
+  static_assert(F::TK % 32 == 0 && TB % CPL == 0, "whole lanes");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int warp = threadIdx.x >> 5, c = (threadIdx.x & 31) * CPL;
+  const int from = halves == 2 ? c / TB * nD : 0;  // the first rank of c
+  const int rpc = (TB + C - 1) / C, r1 = min(TB, (rank + 1) * rpc);
+  for (int r = rank * rpc + warp; r < r1; r += kWarps) {
+    float x[kMaxCluster][CPL];
+#pragma unroll
+    for (int i = 0; i < kMaxCluster; ++i)  // all loads first, then sums
+      if (i < nD)
+        load_n(x[i], cluster.map_shared_rank(sm.scores(buf) + r * F::LDS + c,
+                                             from + i));
+    const float m_old = sm.m[r];
+    float s[CPL], mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxCluster; ++i)
+        if (i < nD) dot += x[i][j];
+      const float clipped = fminf(fmaxf(dot * p.scale, -p.clip), p.clip);
+      s[j] = n0 + c + j < p.N ? clipped : -INFINITY;
+      mx = fmaxf(mx, s[j]);
+    }
+    const float m_new = fmaxf(m_old, warp_max(mx));
+    float pv[CPL], sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      pv[j] = expf(s[j] - m_new);
+      sum += pv[j];
+    }
+    sum = warp_sum(sum);
+    const float alpha = expf(m_old - m_new);
+    if ((threadIdx.x & 31) == 0) {
+      sm.l[r] = sm.l[r] * alpha + sum;
+      sm.m[r] = m_new;
+    }
+    T* at_p = sm.cell(buf) + r * F::LDP + c;
+    float* at_a = sm.alphas(buf) + r;
+    for (int i = 0; i < C; ++i) {
+      store_n(cluster.map_shared_rank(at_p, i), pv);
+      if ((threadIdx.x & 31) == 0) *cluster.map_shared_rank(at_a, i) = alpha;
+    }
+  }
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads, 1) fwd_kernel(FwdParams p) {
+  using K = Cell<T, W>;
+  using F = FwdCell<T, W>;
+  constexpr int TB = F::TB, TK = F::TK;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const FwdSmem<T, W> sm(smem);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int nD = (p.D + W - 1) / W, nF = (p.F + W - 1) / W;
+  // Rank r computes the partial scores of D slice r % nD; where the
+  // cluster has room for two ranks per slice, over key half r / nD of the
+  // cell, else over all its keys. Rank r owns F slice r.
+  const int halves = 2 * nD <= C ? 2 : 1, half = rank / nD;
+  const bool has_d = rank < halves * nD, has_f = rank < nF;
+  const int g = blockIdx.z, q0 = blockIdx.x / C * TB;
+  const int dc0 = rank % nD * W, fc0 = rank * W;
+  const int q_rows = min(TB, p.Q - q0);
+  const long long row0 = static_cast<long long>(g) * p.Q + q0;
+  const int nt = (p.N + TK - 1) / TK, per = (nt + p.splits - 1) / p.splits;
+  const int t0 = blockIdx.y * per, m = min(nt, t0 + per) - t0;
+  const T* kg = static_cast<const T*>(p.k) + (long long)g * p.N * p.D + dc0;
+  const T* vg = static_cast<const T*>(p.v) + (long long)g * p.N * p.F + fc0;
+  auto stage_k = [&](int i) {  // this rank's k of the split's key tile i
+    const int n0 = (t0 + i) * TK + (halves == 2 ? half * TB : 0);
+    const T* at = kg + (long long)min(n0, p.N - 1) * p.D;  // rows < N - n0
+    if (!has_d) return;
+    if (halves == 2)
+      stage_tile<T, TB, W>(sm.kslot(), K::LD, at, p.D, p.N - n0, p.D - dc0);
+    else
+      stage_tile<T, TK, W>(sm.kslot(), K::LD, at, p.D, p.N - n0, p.D - dc0);
+  };
+  auto issue = [&](int i) {  // k of tile i + 1 and v[:, Fc] of tile i
+    if (i + 1 < m) stage_k(i + 1);
+    if (i < m && has_f) {
+      const int n0 = (t0 + i) * TK;
+      stage_tile<T, TK, W>(sm.vslot(i), K::LD, vg + (long long)n0 * p.F, p.F,
+                           p.N - n0, p.F - fc0);
+    }
+    cp_async_commit();
+  };
+  if (has_d)
+    stage_tile<T, TB, W>(sm.q, K::LD,
+                         static_cast<const T*>(p.q) + row0 * p.D + dc0, p.D,
+                         q_rows, p.D - dc0);
+  stage_k(0);
+  cp_async_commit();
+  for (int r = threadIdx.x; r < TB; r += kThreads) {
+    sm.m[r] = -INFINITY;
+    sm.l[r] = 0.f;
+  }
+  float acc[K::ACC];
+#pragma unroll
+  for (int i = 0; i < K::ACC; ++i) acc[i] = 0.f;
+
+  // Step i: the partial scores of key tile i; one cluster barrier, after
+  // which they, and tile i - 1's p and alpha, are visible in the cluster,
+  // and every CTA is done with tile i's k and tile i - 2's v and p; the
+  // loads of k of tile i + 1 (into the one k slot) and v of tile i; tile
+  // i's p and alpha, stored in every CTA; tile i - 1's p v, after the
+  // rescale by its alpha. Partial scores, p and alpha alternate between
+  // two buffers, so a step's stores never meet the reads of the one
+  // before. The first barrier also orders every CTA's start before any
+  // peer access.
+  for (int i = 0; i <= m; ++i) {
+    cp_async_wait<0>();  // k of tile i, v of tile i - 1
+    __syncthreads();
+    if (i < m && has_d) {
+      if (halves == 2)
+        slice_scores<T, W, F::LDS>(sm.q, sm.kslot(), sm.scores(i) + half * TB);
+      else
+        slice_scores<T, W, F::LDS, TK>(sm.q, sm.kslot(), sm.scores(i));
+    }
+    __syncthreads();  // done with the k slot
+    cluster_arrive();
+    issue(i);
+    cluster_wait();
+    if (i < m)
+      publish_softmax<T, W>(p, sm, i, (t0 + i) * TK, rank, C, nD, halves);
+    if (i > 0 && has_f) {
+      scale_rows<T, W, false>(acc, sm.alphas(i - 1));
+      accumulate<T, W, false, 0, TK, F::LDP>(sm.cell(i - 1), sm.vslot(i - 1),
+                                             acc);
+    }
+  }
+
+  const int rpc = (TB + C - 1) / C, r0 = rank * rpc, r1 = min(TB, r0 + rpc);
+  if (p.splits == 1) {
+    // out = acc / l, each row's l read from its owner; lse by the owners
+    if (has_f)
+      for (int r = threadIdx.x; r < TB; r += kThreads)
+        sm.fin[r] = *cluster.map_shared_rank(sm.l + r, r / rpc);
+    for (int r = r0 + threadIdx.x; r < r1; r += kThreads)
+      if (r < q_rows) p.lse[row0 + r] = sm.m[r] + logf(sm.l[r]);
+    cluster_arrive();  // no CTA exits while a peer reads its l
+    cluster_wait();
+    if (has_f) {
+      scale_rows<T, W, true>(acc, sm.fin);
+      store_acc<T, W>(acc, static_cast<T*>(p.out) + row0 * p.F + fc0, p.F,
+                      q_rows, p.F - fc0);
+    }
+  } else {
+    // this split's fp32 acc and (m, l), for fwd_merge_kernel
+    const long long rows = static_cast<long long>(gridDim.z) * p.Q;
+    const long long at = blockIdx.y * rows + row0;
+    if (has_f)
+      store_acc<T, W>(acc, p.acc_part + at * p.F + fc0, p.F, q_rows,
+                      p.F - fc0);
+    for (int r = r0 + threadIdx.x; r < r1; r += kThreads)
+      if (r < q_rows) {
+        p.ml_part[at + r] = sm.m[r];
+        p.ml_part[p.splits * rows + at + r] = sm.l[r];
+      }
+  }
+}
+
+// out = the key splits' fp32 partial outputs rescaled to their common max
+// M and summed in split order, over L = sum_s l_s exp(m_s - M), rounded to
+// T; lse = M + log L. Four columns per thread (F is a multiple of 4).
+template <typename T>
+__global__ void fwd_merge_kernel(const float* acc, const float* ml, T* out,
+                                 float* lse, long long rows, int F,
+                                 int splits) {
+  const long long i = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * 4;
+  if (i >= rows * F) return;
+  const long long row = i / F;
+  const float* m = ml + row;
+  const float* l = ml + splits * rows + row;
+  float M = -INFINITY;
+  for (int s = 0; s < splits; ++s) M = fmaxf(M, m[s * rows]);
+  float L = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float e = expf(m[s * rows] - M);
+    const float4 x = *reinterpret_cast<const float4*>(acc + s * rows * F + i);
+    L += l[s * rows] * e;
+    a.x += x.x * e;
+    a.y += x.y * e;
+    a.z += x.z * e;
+    a.w += x.w * e;
+  }
+  out[i] = from_f<T>(a.x / L);
+  out[i + 1] = from_f<T>(a.y / L);
+  out[i + 2] = from_f<T>(a.z / L);
+  out[i + 3] = from_f<T>(a.w / L);
+  if (i % F == 0) lse[row] = M + logf(L);
+}
+
+// ------------------------------------------------------------ launches ----
+
+// a launch of `grid` in clusters of C CTAs along x
+cudaLaunchConfig_t cluster_config(dim3 grid, int C, size_t smem,
+                                  cudaLaunchAttribute* attr,
+                                  cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dkdv ? dim3(C * ((p.N + K::TB - 1) / K::TB), G, 1)
-                     : dim3(C * ((p.Q + K::TB - 1) / K::TB), p.splits, G);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = K::smem();
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = C;
@@ -1040,16 +1126,42 @@ cudaLaunchConfig_t bwd_config(const BwdParams& p, int G, bool dkdv, int C,
   return cfg;
 }
 
+// the cluster size of width W, or 0 where W is not one of the kernels'
+int cluster_size(int D, int F, int W) {
+  if (W != 128 && W != 256) return 0;
+  const int C = max((D + W - 1) / W, (F + W - 1) / W);
+  return C <= kMaxCluster ? C : 0;
+}
+
+// the shared-memory bytes of `kern` and how many of its clusters of C CTAs
+// the card holds at once
+template <typename Kern>
+cudaError_t occupancy(Kern kern, size_t bytes, int C, int* smem,
+                      int* clusters) {
+  *smem = static_cast<int>(bytes);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(dim3(C, 1, 1), C, bytes, &attr, 0);
+  return cudaOccupancyMaxActiveClusters(clusters, kern, &cfg);
+}
+
 template <typename T, int W>
 cudaError_t launch_bwd_w(const BwdParams& p, int G, bool dkdv, int C,
                          cudaStream_t stream) {
+  constexpr int TB = Cell<T, W>::TB;
+  constexpr size_t smem = BwdSmem<T, W>::bytes();
   auto kern = dkdv ? dkdv_kernel<T, W> : dq_kernel<T, W>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Bwd<T, W>::smem()));
+      static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = bwd_config<T, W>(p, G, dkdv, C, &attr, stream);
+  const dim3 grid = dkdv ? dim3(C * ((p.N + TB - 1) / TB), G, 1)
+                         : dim3(C * ((p.Q + TB - 1) / TB), p.splits, G);
+  const cudaLaunchConfig_t cfg = cluster_config(grid, C, smem, &attr, stream);
   e = cudaLaunchKernelEx(&cfg, kern, p);
   if (e != cudaSuccess) return e;
   e = cudaGetLastError();
@@ -1062,17 +1174,10 @@ cudaError_t launch_bwd_w(const BwdParams& p, int G, bool dkdv, int C,
   return cudaGetLastError();
 }
 
-// the cluster size of width W, or 0 where W is not one of the kernels'
-int bwd_cluster(int D, int F, int W) {
-  if (W != 128 && W != 256) return 0;
-  const int C = max((D + W - 1) / W, (F + W - 1) / W);
-  return C <= kMaxCluster ? C : 0;
-}
-
 template <typename T>
 cudaError_t launch_bwd(const BwdParams& p, int G, bool dkdv, int W,
                        cudaStream_t stream) {
-  const int C = bwd_cluster(p.D, p.F, W);
+  const int C = cluster_size(p.D, p.F, W);
   if (C == 0 || p.splits < 1) return cudaErrorInvalidValue;
   return W == 128 ? launch_bwd_w<T, 128>(p, G, dkdv, C, stream)
                   : launch_bwd_w<T, 256>(p, G, dkdv, C, stream);
@@ -1080,36 +1185,49 @@ cudaError_t launch_bwd(const BwdParams& p, int G, bool dkdv, int W,
 
 template <typename T, int W>
 cudaError_t bwd_occupancy_w(bool dkdv, int C, int* smem, int* clusters) {
-  auto kern = dkdv ? dkdv_kernel<T, W> : dq_kernel<T, W>;
-  *smem = static_cast<int>(Bwd<T, W>::smem());
+  return occupancy(dkdv ? dkdv_kernel<T, W> : dq_kernel<T, W>,
+                   BwdSmem<T, W>::bytes(), C, smem, clusters);
+}
+
+template <typename T, int W>
+cudaError_t launch_fwd_w(const FwdParams& p, int G, int C,
+                         cudaStream_t stream) {
+  constexpr int TB = Cell<T, W>::TB;
+  constexpr size_t smem = FwdSmem<T, W>::bytes();
+  auto kern = fwd_kernel<T, W>;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  BwdParams p = {};
-  p.Q = p.N = Bwd<T, W>::TB;
-  p.splits = 1;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = bwd_config<T, W>(p, 1, dkdv, C, &attr, 0);
-  return cudaOccupancyMaxActiveClusters(clusters, kern, &cfg);
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3(C * ((p.Q + TB - 1) / TB), p.splits, G), C, smem, &attr, stream);
+  e = cudaLaunchKernelEx(&cfg, kern, p);
+  if (e != cudaSuccess) return e;
+  e = cudaGetLastError();
+  if (e != cudaSuccess || p.splits == 1) return e;
+  const long long rows = static_cast<long long>(G) * p.Q;
+  const unsigned blocks =
+      static_cast<unsigned>((rows * p.F / 4 + kThreads - 1) / kThreads);
+  fwd_merge_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      p.acc_part, p.ml_part, static_cast<T*>(p.out), p.lse, rows, p.F,
+      p.splits);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const Params& p, int G, cudaStream_t stream) {
-  const int qt = (p.Q + TQ - 1) / TQ;
-  auto sk = stats_kernel<T>;
-  auto ok = out_kernel<T>;
-  cudaError_t e = cudaFuncSetAttribute(
-      sk, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(stats_smem<T>()));
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(ok, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(out_smem<T>()));
-  if (e != cudaSuccess) return e;
-  sk<<<dim3(qt, p.splits, G), kThreads, stats_smem<T>(), stream>>>(p);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  ok<<<dim3(qt, (p.F + TF - 1) / TF, G), kThreads, out_smem<T>(), stream>>>(p);
-  return cudaGetLastError();
+cudaError_t launch_fwd(const FwdParams& p, int G, int W,
+                       cudaStream_t stream) {
+  const int C = cluster_size(p.D, p.F, W);
+  if (C == 0 || p.splits < 1) return cudaErrorInvalidValue;
+  return W == 128 ? launch_fwd_w<T, 128>(p, G, C, stream)
+                  : launch_fwd_w<T, 256>(p, G, C, stream);
+}
+
+template <typename T, int W>
+cudaError_t fwd_occupancy_w(int C, int* smem, int* clusters) {
+  return occupancy(fwd_kernel<T, W>, FwdSmem<T, W>::bytes(), C, smem,
+                   clusters);
 }
 
 }  // namespace
@@ -1117,20 +1235,23 @@ cudaError_t launch(const Params& p, int G, cudaStream_t stream) {
 extern "C" {
 
 // q [G,Q,D], k [G,N,D], v [G,N,F] -> out [G,Q,F] (compute type), lse [G,Q]
-// fp32; pm, pl: fp32 scratch of G*splits*Q each. Every one of the `splits`
-// key slices must hold at least one key tile (the wrapper picks splits).
+// fp32. `width` (128 or 256) is the column slice of each CTA of a cluster,
+// `splits` the key splits, each holding at least one key tile (the
+// wrapper's plan). With more than one split, acc_part (splits*G*Q*F) and
+// ml_part (2*splits*G*Q) are fp32 scratch; else they may be null.
 int flash_fwd(int is_bf16, const void* q, const void* k, const void* v,
-              void* out, float* lse, float* pm, float* pl, int G, int Q, int N,
-              int D, int F, int splits, double scale, double clip,
-              void* stream) {
-  Params p = {};
-  p.q = q; p.k = k; p.v = v; p.out = out; p.lse = lse; p.pm = pm; p.pl = pl;
+              void* out, float* lse, float* acc_part, float* ml_part, int G,
+              int Q, int N, int D, int F, int width, int splits, double scale,
+              double clip, void* stream) {
+  FwdParams p = {};
+  p.q = q; p.k = k; p.v = v; p.out = out; p.lse = lse;
+  p.acc_part = acc_part; p.ml_part = ml_part;
   p.Q = Q; p.N = N; p.D = D; p.F = F; p.splits = splits;
   p.scale = static_cast<float>(scale);
   p.clip = static_cast<float>(clip);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_bf16 ? launch<bf16>(p, G, st)
-                                  : launch<float>(p, G, st));
+  return static_cast<int>(is_bf16 ? launch_fwd<bf16>(p, G, width, st)
+                                  : launch_fwd<float>(p, G, width, st));
 }
 
 // The flash backward: `dkdv` != 0 writes dk [G,N,D] and dv [G,N,F], else
@@ -1155,9 +1276,26 @@ int flash_bwd(int is_bf16, int dkdv, const void* q, const void* k,
               : launch_bwd<float>(p, G, dkdv != 0, width, st));
 }
 
-// The shared-memory bytes of one CTA of a backward kernel at `width`, and
+// The shared-memory bytes of one CTA of the forward kernel at `width`, and
 // how many of its clusters of `cluster` CTAs the card holds at once
 // (cudaOccupancyMaxActiveClusters).
+int flash_fwd_occupancy(int is_bf16, int width, int cluster, int* smem_bytes,
+                        int* max_clusters) {
+  if ((width != 128 && width != 256) || cluster < 1 || cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int* sm = smem_bytes;
+  int* mc = max_clusters;
+  cudaError_t e;
+  if (is_bf16)
+    e = width == 128 ? fwd_occupancy_w<bf16, 128>(cluster, sm, mc)
+                     : fwd_occupancy_w<bf16, 256>(cluster, sm, mc);
+  else
+    e = width == 128 ? fwd_occupancy_w<float, 128>(cluster, sm, mc)
+                     : fwd_occupancy_w<float, 256>(cluster, sm, mc);
+  return static_cast<int>(e);
+}
+
+// The same for a backward kernel (`dkdv` != 0: dK/dV, else dQ).
 int flash_bwd_occupancy(int is_bf16, int dkdv, int width, int cluster,
                         int* smem_bytes, int* max_clusters) {
   if ((width != 128 && width != 256) || cluster < 1 || cluster > kMaxCluster)

@@ -17,9 +17,9 @@ tensors on the CPU they run their plain PyTorch versions (``*_plain``);
 for CUDA tensors they launch the hand-written kernels in
 ``csrc/squeezed_attention.cu`` (built by nvcc for sm_90a at first use) or
 raise. Each wrapper counts its launches in ``<wrapper>.launches``: one
-forward call is one launch of the kernel pair (softmax statistics, then
-the output); ``flash_backward_dkdv`` and ``flash_backward_dq`` count one
-kernel each.
+forward call is one launch (the cluster kernel, and the merge of its key
+splits where there is more than one); ``flash_backward_dkdv`` and
+``flash_backward_dq`` count one kernel each.
 
 ``fused_cross_attention_trainable`` is the autograd counterpart of the JAX
 custom_vjp: at N >= ``FLASH_BWD_MIN_N`` keys its backward runs the flash
@@ -38,15 +38,16 @@ import torch
 from . import _build
 
 _SRC = "squeezed_attention"
-_TQ, _TN = 64, 64          # the kernel's query and key tiles
 _vp, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
 
 def _lib():
     lib = _build.load(_SRC)
     if not getattr(lib, "_typed", False):
-        lib.flash_fwd.argtypes = [_i] + [_vp] * 7 + [_i] * 6 + [_d, _d, _vp]
+        lib.flash_fwd.argtypes = [_i] + [_vp] * 7 + [_i] * 7 + [_d, _d, _vp]
         lib.flash_fwd.restype = _i
+        lib.flash_fwd_occupancy.argtypes = [_i] * 3 + [_vp, _vp]
+        lib.flash_fwd_occupancy.restype = _i
         lib.flash_bwd.argtypes = [_i, _i] + [_vp] * 10 + [_i] * 7 + [
             _d, _d, _vp]
         lib.flash_bwd.restype = _i
@@ -107,14 +108,138 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _key_splits(g: int, nq: int, n: int, device) -> int:
-    """Key slices of the statistics kernel: enough blocks for two per SM,
-    every slice at least one key tile."""
-    sms = _sm_count(device)
-    q_tiles, n_tiles = -(-nq // _TQ), -(-n // _TN)
-    want = max(1, min(n_tiles, -(-2 * sms // (q_tiles * g))))
-    per = -(-n_tiles // want)
-    return -(-n_tiles // per)
+# the cluster kernels' limits: a portable cluster, one CTA's shared memory
+_MAX_CLUSTER = 8
+_SMEM_MAX = 232448
+_RING = 3              # slots of the backward's streamed tiles' ring
+
+
+def _cluster_slices(what: str, d: int, f: int, dtype, width=None):
+    """The column slices of the cluster kernels (forward and backward):
+    W = 128 columns per CTA (256 where D or F exceeds 1024, unless
+    `width` names one), C = max(ceil(D/W), ceil(F/W)) CTAs per cluster,
+    tiles of 16 KB / (W * itemsize) rows. Returns (element size, W, C,
+    tile, d_slices, f_slices), CTA c owning columns d_slices[c] of D and
+    f_slices[c] of F (None: no slice). Raises ValueError naming the shape
+    where C exceeds 8."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    if width is None:
+        width = 128 if max(d, f) <= 1024 else 256
+    n_d, n_f = -(-d // width), -(-f // width)
+    cluster = max(n_d, n_f)
+    if cluster > _MAX_CLUSTER:
+        raise ValueError(
+            f"{what}: D={d}, F={f} needs a cluster of {cluster} CTAs "
+            f"of {width} columns; the kernels take at most "
+            f"{_MAX_CLUSTER} (D, F <= {_MAX_CLUSTER * 256})")
+
+    def slices(total, count):
+        return tuple((c * width, min(total, (c + 1) * width))
+                     if c < count else None for c in range(cluster))
+    return (es, width, cluster, 16384 // (width * es), slices(d, n_d),
+            slices(f, n_f))
+
+
+def _key_splits(n_tiles: int, clusters: int, cluster: int, sms: int):
+    """(splits, tiles per split) of `n_tiles` key tiles for about eight
+    waves of `clusters` clusters per split on `sms` SMs (so that a last,
+    partial wave costs little); every split holds at least one tile."""
+    waves = max(1, sms // cluster)       # clusters the card runs at once
+    want = max(1, min(n_tiles, -(-8 * waves // clusters)))
+    splits = -(-n_tiles // -(-n_tiles // want))
+    return splits, -(-n_tiles // splits)  # as the kernels split the keys
+
+
+def _check_smem(what: str, smem: int, d: int, f: int) -> None:
+    if smem > _SMEM_MAX:
+        raise ValueError(f"{what}: {smem} bytes of shared memory per CTA at "
+                         f"D={d}, F={f}, over {_SMEM_MAX}")
+
+
+class FwdPlan(NamedTuple):
+    """Launch shape of the flash forward (``fwd_kernel`` in ``csrc/
+    squeezed_attention.cu``): CTA c of a cluster owns columns
+    ``f_slices[c]`` of F (None: no slice); the partial scores of D slice
+    ``d_slices[j]`` come from CTA j, over all keys of a cell, or with
+    ``halves`` 2 from CTAs j and j + nD, one key half each."""
+    width: int                   # columns of a CTA's slice
+    cluster: int                 # CTAs per cluster
+    tile: int                    # rows of a query tile
+    key_tile: int                # keys of a key tile (2 * tile)
+    d_slices: Tuple
+    f_slices: Tuple
+    halves: int                  # key halves of a cell's partial scores
+    grid: Tuple[int, int, int]   # (cluster * query tiles, splits, G)
+    splits: int                  # key splits
+    split_tiles: int             # key tiles per split, the last may hold fewer
+    smem: int                    # bytes per CTA
+    acc_scratch: int             # fp32 elements of the splits' outputs
+    stats_scratch: int           # fp32 elements of their (m, l)
+
+
+def _fwd_plan(g: int, nq: int, n: int, d: int, f: int, dtype, sms: int,
+              width: Optional[int] = None) -> FwdPlan:
+    """The forward's decomposition: one cluster per (G, query tile, key
+    split), cells of a query tile by a key tile of twice its rows, key
+    splits for about eight waves of clusters, and fp32 scratch for the
+    splits' partial outputs and (m, l) where there is more than one.
+    `width` overrides the slice width (for measuring). Raises ValueError
+    for a shape the kernel does not take."""
+    what = "flash forward"
+    es, width, cluster, tile, d_sl, f_sl = _cluster_slices(what, d, f, dtype,
+                                                           width)
+    pad, keys = 16 // es, 2 * tile
+    smem = (es * (tile + 3 * keys) * (width + pad)   # q, one k and two v
+            + 4 * (2 * tile * (keys + 8) + 5 * tile)  # scores, statistics
+            + es * 2 * tile * (keys + pad))          # two p buffers
+    _check_smem(what, smem, d, f)
+    q_tiles, n_tiles = -(-nq // tile), -(-n // keys)
+    splits, per = _key_splits(n_tiles, q_tiles * g, cluster, sms)
+    merged = splits > 1
+    n_d = -(-d // width)
+    return FwdPlan(width, cluster, tile, keys, d_sl, f_sl,
+                   2 if 2 * n_d <= cluster else 1,
+                   (cluster * q_tiles, splits, g), splits, per, smem,
+                   splits * g * nq * f if merged else 0,
+                   2 * splits * g * nq if merged else 0)
+
+
+def fwd_occupancy(plan: FwdPlan, dtype) -> dict:
+    """The shared-memory bytes the built forward kernel takes (which must
+    equal the plan's) and cudaOccupancyMaxActiveClusters for the plan's
+    cluster; builds the kernels. For logging on the card."""
+    smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _lib().flash_fwd_occupancy(int(dtype == torch.bfloat16), plan.width,
+                                    plan.cluster, ctypes.addressof(smem),
+                                    ctypes.addressof(clusters))
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd_occupancy: CUDA error {rc}")
+    return dict(smem=smem.value, max_active_clusters=clusters.value)
+
+
+def _launch_fwd(q, k, v, attn_clip, sm_scale, width=None):
+    """(out, lse) from the forward kernel at the plan's width, or at
+    `width` (for measuring); raises on what the kernel does not take."""
+    g, nq, d, n, f = _check_shapes(q, k, v)
+    dt, dev = v.dtype, v.device
+    lib = _lib()
+    plan = _fwd_plan(g, nq, n, d, f, dt, _sm_count(dev), width)
+    q_, k_, v_ = (t.to(dt).contiguous() for t in (q, k, v))
+    out = torch.empty((g, nq, f), dtype=dt, device=dev)
+    lse = torch.empty((g, nq, 1), dtype=torch.float32, device=dev)
+    part = torch.empty((plan.acc_scratch + plan.stats_scratch,),
+                       dtype=torch.float32, device=dev)
+    acc_ptr = part.data_ptr() if plan.acc_scratch else None
+    stats_ptr = part[plan.acc_scratch:].data_ptr() if plan.acc_scratch \
+        else None
+    rc = lib.flash_fwd(
+        int(dt == torch.bfloat16), q_.data_ptr(), k_.data_ptr(), v_.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), acc_ptr, stats_ptr, g, nq, n, d, f,
+        plan.width, plan.splits, float(sm_scale), float(attn_clip),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_cross_attention: CUDA error {rc} at launch")
+    return out, lse
 
 
 def fused_cross_attention(q, k, v, attn_clip: float = 500.0,
@@ -128,23 +253,9 @@ def fused_cross_attention(q, k, v, attn_clip: float = 500.0,
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if _on_cpu(q):
         out, lse = fused_cross_attention_plain(q, k, v, attn_clip, sm_scale)
-        return (out, lse) if return_lse else out
-    g, nq, d, n, f = _check_shapes(q, k, v)
-    dt, dev = v.dtype, v.device
-    lib = _lib()
-    q_, k_, v_ = (t.to(dt).contiguous() for t in (q, k, v))
-    splits = _key_splits(g, nq, n, dev)
-    out = torch.empty((g, nq, f), dtype=dt, device=dev)
-    lse = torch.empty((g, nq, 1), dtype=torch.float32, device=dev)
-    part = torch.empty((2, g * splits * nq), dtype=torch.float32, device=dev)
-    rc = lib.flash_fwd(
-        int(dt == torch.bfloat16), q_.data_ptr(), k_.data_ptr(), v_.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), part[0].data_ptr(),
-        part[1].data_ptr(), g, nq, n, d, f, splits, float(sm_scale),
-        float(attn_clip), torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_cross_attention: CUDA error {rc} at launch")
-    fused_cross_attention.launches += 1
+    else:
+        out, lse = _launch_fwd(q, k, v, attn_clip, sm_scale)
+        fused_cross_attention.launches += 1
     return (out, lse) if return_lse else out
 
 
@@ -197,12 +308,6 @@ def flash_backward_plain(q, k, v, do, lse, delta, attn_clip=500.0,
                                     sm_scale), dk, dv)
 
 
-# the backward kernels' limits: a portable cluster, one CTA's shared memory
-_BWD_MAX_CLUSTER = 8
-_SMEM_MAX = 232448
-_BWD_RING = 3          # slots of the streamed tiles' ring
-
-
 class BwdPlan(NamedTuple):
     """Launch shape of the flash backward kernels (``csrc/
     squeezed_attention.cu``): CTA c of a cluster owns columns
@@ -229,33 +334,16 @@ def _bwd_plan(g: int, nq: int, n: int, d: int, f: int, dtype,
     clusters on `sms` SMs (so that a last, partial wave costs little).
     Raises ValueError for a shape the kernels do not take (a cluster above
     8 CTAs, or too much shared memory)."""
-    es = 2 if dtype == torch.bfloat16 else 4
-    width = 128 if max(d, f) <= 1024 else 256
-    n_d, n_f = -(-d // width), -(-f // width)
-    cluster = max(n_d, n_f)
-    if cluster > _BWD_MAX_CLUSTER:
-        raise ValueError(
-            f"flash backward: D={d}, F={f} needs a cluster of {cluster} CTAs "
-            f"of {width} columns; the kernels take at most "
-            f"{_BWD_MAX_CLUSTER} (D, F <= {_BWD_MAX_CLUSTER * 256})")
-    tile = 16384 // (width * es)
+    what = "flash backward"
+    es, width, cluster, tile, d_sl, f_sl = _cluster_slices(what, d, f, dtype)
     pad = 16 // es
-    smem = (es * (2 + 2 * _BWD_RING) * tile * (width + pad)
-            + 4 * (2 * tile * (tile + 4) + 2 * _BWD_RING * tile)
+    smem = (es * (2 + 2 * _RING) * tile * (width + pad)
+            + 4 * (2 * tile * (tile + 4) + 2 * _RING * tile)
             + es * 4 * tile * (tile + pad))
-    if smem > _SMEM_MAX:
-        raise ValueError(f"flash backward: {smem} bytes of shared memory per "
-                         f"CTA at D={d}, F={f}, over {_SMEM_MAX}")
+    _check_smem(what, smem, d, f)
     q_tiles, n_tiles = -(-nq // tile), -(-n // tile)
-    waves = max(1, sms // cluster)       # clusters the card runs at once
-    want = max(1, min(n_tiles, -(-8 * waves // (q_tiles * g))))
-    splits = -(-n_tiles // -(-n_tiles // want))
-    per = -(-n_tiles // splits)          # as the kernel splits the keys
-
-    def slices(width_total, count):
-        return tuple((c * width, min(width_total, (c + 1) * width))
-                     if c < count else None for c in range(cluster))
-    return BwdPlan(width, cluster, tile, slices(d, n_d), slices(f, n_f),
+    splits, per = _key_splits(n_tiles, q_tiles * g, cluster, sms)
+    return BwdPlan(width, cluster, tile, d_sl, f_sl,
                    (cluster * n_tiles, g, 1), (cluster * q_tiles, splits, g),
                    splits, per, smem, smem)
 

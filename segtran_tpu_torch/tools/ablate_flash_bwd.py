@@ -26,7 +26,7 @@ from ..kernels import _build
 from ..kernels import squeezed_attention as sa
 
 _SCORES = "__device__ void slice_scores(const T* A, const T* B, float* out) {\n"
-_PRODUCTS = ("float (&acc)[Bwd<T, W>::ACC]) {\n  using K = Bwd<T, W>;\n"
+_PRODUCTS = ("float (&acc)[Cell<T, W>::ACC]) {\n  using K = Cell<T, W>;\n"
              "  constexpr int TB = K::TB;\n")
 _PUBLISH = "                             int nD, int nF) {\n"
 _ARRIVE = ('asm volatile("barrier.cluster.arrive.release.aligned;\\n" ::: '
@@ -57,11 +57,11 @@ VARIANTS["own shared memory and block barriers"] = VARIANTS[
                                        (_WAIT, "")]
 
 
-def _build_variants(out_dir: Path) -> dict:
+def _build_variants(out_dir: Path, variants=None) -> dict:
     src = (_build.CSRC / "squeezed_attention.cu").read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
+    for i, (name, edits) in enumerate((variants or VARIANTS).items()):
         text = src
         for old, new in edits:
             if old not in text:
