@@ -9,22 +9,26 @@ Phases, each of which fails the run:
    at once; print the card's name and power limit.
 2. kernels -- hold each expansion-epilogue kernel against its plain
    PyTorch version at the fundus flagship's shapes (P [8,4,1296,256]; F=1792
-   per mode, F=896 and 448 all modes; mid [2,4,1296,896] for the private
-   tier) and at the BraTS whole-volume private tier (mid [1,4,8640,1024]),
-   and the flash cross-attention kernel at the BraTS in/out-squeeze shapes
+   through the per-mode tier's wrapper, F=896 and 448 through the
+   all-modes one, both one launch of the full tier's cluster kernel; mid
+   [2,4,1296,896] for the private tier) and at the BraTS whole-volume
+   private tier (mid [1,4,8640,1024]), and the flash cross-attention
+   kernel at the BraTS in/out-squeeze shapes
    (N=8640 and 18000 tokens), a ragged shape, a clamp case and the fundus
    layer-0 in/out-squeeze (D=F=1792; D=448, F=1792), in bf16 and fp32
    (TF32 off for fp32), each launch bit-for-bit repeatable, with its plan
-   (slice width, cluster, grid, key splits), the built kernel's shared
-   memory and cudaOccupancyMaxActiveClusters, and its time at the other
-   slice width; time each, its plain version and, for the flash kernels,
+   (slice width, cluster, row or query tile, grid, key splits), the built
+   kernel's shared memory and cudaOccupancyMaxActiveClusters, and for the
+   flash forward its time at the other slice width; time each, its plain
+   version, for the epilogue kernels the products alone through
+   torch.matmul (a yardstick), and for the flash kernels
    scaled_dot_product_attention (forward; forward + backward minus
    forward) with CUDA events.
 3. serving -- the InferenceEngine of cli/serve.py at full width (eff-b4,
    3 translayers 1792->1792->896->448, 256 attractors, bf16, --fusedepi,
    576^2 frames through 288^2 patches, --maxbatch 8) from a seeded port
    checkpoint; 16 requests from 4 client threads; the launch counters must
-   show 4 per-mode and 2 all-modes launches per forward; one forward is
+   show 1 per-mode and 2 all-modes launches per forward; one forward is
    profiled (device time by kernel); the same batch through the unfused
    modules must agree.
    The same batch through an engine with --fused --fusedepi (flash
@@ -99,6 +103,9 @@ KERNEL_TOL = {"bf16": (3e-2, 4e-3), "fp32": (1e-4, 1e-5)}
 # fused vs unfused model, bf16 probabilities in [0, 1]: the two paths round
 # at different places (kernel tiles vs PyTorch ops) through three layers
 MODEL_TOL = (0.1, 5e-3)                                       # (max, mean)
+# the expansion-epilogue kernels' names in a profile: the full tier's
+# cluster kernel and the private tier's
+EPILOGUE_KERNELS = ("mid_pool_kernel", "epilogue_kernel")
 
 
 def log(msg):
@@ -172,6 +179,37 @@ def epilogue_work(kind, b, m, n, a, f, args):
     return flops, nbytes
 
 
+def epi_launch_shape(torch, epi, name, dname, b, m, n, a, f, dt):
+    """Log the full tier's plan (width, cluster, row tile, grid) and
+    cudaOccupancyMaxActiveClusters; the built kernel's shared memory must
+    be the plan's."""
+    plan = epi._epi_plan(b, m, n, a, f, dt, epi._sm_count("cuda"))
+    occ = epi.epi_occupancy(plan, dt)
+    log(f"[kernels] {name} {dname} F={f}: clusters of {plan.cluster} CTAs "
+        f"x {plan.width} columns, row tiles of {plan.tile}, grid "
+        f"{plan.grid} ({plan.waves} waves at one CTA per SM); smem "
+        f"{occ['smem']} B; max active clusters {occ['max_active_clusters']}")
+    if occ["smem"] != plan.smem:
+        fail(f"{name} {dname} F={f}: the kernel takes {occ['smem']} bytes "
+             f"of shared memory, the plan {plan.smem}")
+    return dict(width=plan.width, cluster=plan.cluster, tile=plan.tile,
+                grid=list(plan.grid), waves=plan.waves, smem=plan.smem,
+                max_active_clusters=occ["max_active_clusters"])
+
+
+def products_call(torch, kind, args):
+    """The function's matrix products alone through torch.matmul, in the
+    compute dtype, at the same shapes: P VW1 then mid W2 (mid kind), or
+    mid W2 (private kind). A yardstick of the tensor work, not a call that
+    computes the function."""
+    dt = args[0].dtype
+    if kind == "private":
+        mid, w2 = args[0], args[1].to(dt)
+        return lambda: torch.matmul(mid, w2)
+    probs, vw1, w2 = args[0], args[1], args[3].to(dt)
+    return lambda: torch.matmul(torch.matmul(probs, vw1), w2)
+
+
 def check_kernels(torch, epi):
     cases = [("fused_mid_output_pool_permode", "mid", 8, 4, 1296, 256, 1792),
              ("fused_mid_output_pool", "mid", 8, 4, 1296, 256, 896),
@@ -187,9 +225,14 @@ def check_kernels(torch, epi):
             args = epilogue_inputs(torch, kind, b, m, n, a, f, dt, seed=i)
             kern = getattr(epi, name)
             plain = getattr(epi, name + "_plain")
+            launch = (epi_launch_shape(torch, epi, name, dname, b, m, n, a, f,
+                                       dt) if kind == "mid" else None)
             out = kern(*args)
+            out2 = kern(*args)
+            repeat = bool(torch.equal(out, out2))
             ref = plain(*args)
             torch.cuda.synchronize()
+            del out2
             if out.shape != (b, n, f) or out.dtype != dt:
                 fail(f"{name} {dname}: got {tuple(out.shape)} {out.dtype}")
             err = (out.float() - ref.float()).abs()
@@ -198,25 +241,33 @@ def check_kernels(torch, epi):
             tol_max, tol_mean = KERNEL_TOL[dname]
             ms = cuda_ms(torch, lambda: kern(*args), iters=5)
             plain_ms = cuda_ms(torch, lambda: plain(*args), iters=3)
+            products_ms = cuda_ms(torch, products_call(torch, kind, args),
+                                  iters=5)
             flops, nbytes = epilogue_work(kind, b, m, n, a, f, args)
             t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
             row = dict(name=name, dtype=dname, shape=[b, m, n, a, f],
                        max_abs_err=max_err, mean_abs_err=mean_err,
                        max_rel_err=rel_err,
-                       ms=ms, plain_ms=plain_ms,
+                       ms=ms, plain_ms=plain_ms, products_ms=products_ms,
                        bound_ms=max(t_ops, t_bytes) * 1e3,
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
-                       flop=flops, bytes=nbytes)
+                       flop=flops, bytes=nbytes, repeatable=repeat,
+                       launch=launch)
             results.append(row)
             log(f"[kernels] {name} {dname} B,M,N,A,F={b},{m},{n},{a},{f}: "
                 f"max_abs_err {max_err:.3e} max |err|/(1+|plain|) "
                 f"{rel_err:.3e} mean_abs_err {mean_err:.3e} (tol "
-                f"{tol_max:g}/{tol_mean:g}); kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}); library_ms null: no single PyTorch "
-                f"call computes this function")
+                f"{tol_max:g}/{tol_mean:g}), repeat "
+                f"{'bit-identical' if repeat else 'DIFFERS'}; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, products alone "
+                f"(torch.matmul) {products_ms:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']}); library_ms "
+                f"null: no single PyTorch call computes this function")
             if not (rel_err <= tol_max and mean_err <= tol_mean):
                 fail(f"{name} {dname} disagrees with its plain version")
+            if not repeat:
+                fail(f"{name} {dname}: two launches on the same inputs "
+                     f"differ")
             del args, out, ref
         torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -575,7 +626,8 @@ def profile_forward(torch, fn, label, groups):
     synchronisation (torch.profiler, CUPTI): only device-side events
     (kernels and copies) are summed, so operator rows do not count their
     kernels twice; the busy share is that sum over the forward's host wall
-    time under the profiler. groups: {name: substring of kernel names}."""
+    time under the profiler. groups: {name: substring of kernel names, or
+    a tuple of them}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -594,7 +646,10 @@ def profile_forward(torch, fn, label, groups):
     if busy <= 0:
         log("[profile] the profiler saw no device time")
         return {}
-    split = {g: sum(r[0] for r in rows if k in r[2]) for g, k in groups.items()}
+    split = {g: sum(r[0] for r in rows
+                    if any(s in r[2] for s in ((k,) if isinstance(k, str)
+                                               else k)))
+             for g, k in groups.items()}
     log(f"[profile] {label}: wall {wall_ms:.3f} ms under the "
         f"profiler, device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%); "
         + ", ".join(f"{g} {v:.3f} ms" for g, v in split.items()))
@@ -660,10 +715,10 @@ def serve(torch, np, epi, sa, mb, ckdir, logger):
             fail(f"{len(answers)} of 16 requests answered")
         log(f"[serving] launches in the served run: {json.dumps(launches)} "
             f"over {batches} forwards")
-        if (launches["fused_mid_output_pool_permode"] != 4 * batches
+        if (launches["fused_mid_output_pool_permode"] != batches
                 or launches["fused_mid_output_pool"] != 2 * batches
                 or launches["fused_private_output_pool"] != 0):
-            fail("the served forwards did not run 4 per-mode + 2 all-modes "
+            fail("the served forwards did not run 1 per-mode + 2 all-modes "
                  "epilogue launches each")
 
         batch = np.stack(images[:8])
@@ -681,7 +736,7 @@ def serve(torch, np, epi, sa, mb, ckdir, logger):
                     forward_ms_batch8=sorted(fwd_ms)[1])
         perf.update(profile_forward(
             torch, lambda: engine.forward(batch), "one batch-8 forward",
-            {"epilogue kernels": "epilogue_kernel", "copies": "Memcpy"}))
+            {"epilogue kernels": EPILOGUE_KERNELS, "copies": "Memcpy"}))
         # phase 7, a measurement: the same batch with the backbone's
         # fused-eval path (no flag of the CLI sets it)
         for blk in engine.model.backbone._blocks:
@@ -917,7 +972,7 @@ def wholevol(torch, np, epi, sa, ckdir, logger):
                 torch, lambda: (models["fused"](vol), torch.cuda.synchronize()),
                 f"one {tag} whole-volume forward",
                 {"flash forward": "fwd_kernel", "flash merge":
-                 "fwd_merge_kernel", "epilogue kernels": "epilogue_kernel",
+                 "fwd_merge_kernel", "epilogue kernels": EPILOGUE_KERNELS,
                  "group norm statistics": "RowwiseMoments",
                  "trilinear resizes": "upsample_trilinear",
                  "max pools": "max_pool3d"})
@@ -1552,7 +1607,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
                                              "GPU; no arguments runs every "
                                              "phase")
-    ap.add_argument("--only", choices=["flash", "flash_backward",
+    ap.add_argument("--only", choices=["epilogue", "flash",
+                                       "flash_backward",
                                        "training", "mbconv",
                                        "fundus_training"],
                     default=None,
@@ -1590,6 +1646,10 @@ def main(argv=None) -> int:
     logger.addHandler(logging.StreamHandler(sys.stderr))
     logger.setLevel(logging.INFO)
     ckdir = os.path.join(ROOT, "build", "chip_smoke")
+    if only == "epilogue":
+        rows = check_kernels(torch, epi)
+        print(json.dumps({"epilogue": rows, "card": card}), flush=True)
+        return 0
     if only == "flash":
         rows = check_flash(torch, sa)
         print(json.dumps({"flash": rows, "card": card}), flush=True)

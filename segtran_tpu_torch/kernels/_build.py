@@ -3,14 +3,16 @@
 Each source in ``segtran_tpu_torch/csrc`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, which is loaded
 through ``ctypes``. Libraries go to ``build/kernels/`` at the root of the
-checkout, named by a hash of their source, so an edited source is rebuilt
-and an unchanged one is reused. Nothing here runs at import time.
+checkout, named by a hash of their source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header is rebuilt and an
+unchanged one is reused. Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -20,7 +22,9 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(CSRC)]
+_INCLUDE = re.compile(r'^#include "([^"]+)"\n', re.M)
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -40,8 +44,18 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def source_text(name: str) -> str:
+    """``csrc/<name>.cu`` with its ``#include "..."`` headers inlined: one
+    text that the ablation tools edit and build elsewhere."""
+    def inline(m):
+        return (CSRC / m.group(1)).read_text().replace("#pragma once\n", "")
+    return _INCLUDE.sub(inline, (CSRC / f"{name}.cu").read_text())
 
 
 def _start(name: str) -> Optional[subprocess.Popen]:

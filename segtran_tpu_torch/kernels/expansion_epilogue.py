@@ -20,22 +20,27 @@ Per mode m (the reference's ExpandedFeatTrans tail, segtran_shared.py
     s_m   = l_m @ ws + bs
     out   = sum_m softmax_m(s) * l_m  (fp32)
 
-See the CUDA source for what bounds the kernel on an H100 and what its
+``fused_mid_output_pool`` and ``fused_mid_output_pool_permode`` compute the
+same function (JAX split the second per mode for TPU VMEM) and launch the
+same cluster kernel, once per call, at the launch shape of ``_epi_plan``.
+See the CUDA source for what bounds the kernels on an H100 and what their
 design does about it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 from . import _build
+from .squeezed_attention import _check_smem, _cluster_slices, _sm_count
 
 _SRC = "expansion_epilogue"
-# take the all-modes tier while M*F*F*itemsize of W2 is at most half the
-# H100's 50 MB L2 (the kernel re-reads W2 for every row tile); a first
-# guess, to be re-measured
+# the model takes fused_mid_output_pool while M*F*F*itemsize of W2 is at
+# most half the H100's 50 MB L2, else fused_mid_output_pool_permode (JAX's
+# split of the two tiers, kept so that the same layers call the same
+# function); on the H100 both launch the same kernel
 W2_L2_BUDGET = 25 * 1000 * 1000
 
 _vp, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -44,10 +49,10 @@ _vp, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 def _lib():
     lib = _build.load(_SRC)
     if not getattr(lib, "_typed", False):
-        lib.epi_mid_pool.argtypes = [_i] + [_vp] * 12 + [_i] * 5 + [_d, _vp]
+        lib.epi_mid_pool.argtypes = [_i] + [_vp] * 10 + [_i] * 6 + [_d, _vp]
         lib.epi_mid_pool.restype = _i
-        lib.epi_mid_mode.argtypes = [_i] + [_vp] * 12 + [_i] * 6 + [_d, _vp]
-        lib.epi_mid_mode.restype = _i
+        lib.epi_mid_pool_occupancy.argtypes = [_i] * 2 + [_vp, _vp]
+        lib.epi_mid_pool_occupancy.restype = _i
         lib.epi_private_pool.argtypes = [_i] + [_vp] * 9 + [_i] * 4 + [_d, _vp]
         lib.epi_private_pool.restype = _i
         lib._typed = True
@@ -57,6 +62,55 @@ def _lib():
 def supports_full(num_modes: int, feat_dim: int, itemsize: int) -> bool:
     """All-modes tier gate: W2 [M, F, F] within half of the L2."""
     return num_modes * feat_dim * feat_dim * itemsize <= W2_L2_BUDGET
+
+
+_EPI_RING = 2          # slots of mid_pool_kernel's streamed chunks' ring
+_EPI_WIDTH = 256       # columns of a CTA's slice of F (kW in the source)
+
+
+class EpiPlan(NamedTuple):
+    """Launch shape of ``mid_pool_kernel`` (``csrc/expansion_epilogue.cu``):
+    one cluster of ``cluster`` CTAs per (image, row tile of ``tile`` rows
+    of N); CTA c owns columns ``slices[c]`` of F."""
+    width: int                   # columns of a CTA's slice
+    cluster: int                 # CTAs per cluster
+    tile: int                    # rows of a row tile
+    slices: Tuple                # (start, stop) of each CTA's columns
+    grid: Tuple[int, int, int]   # (cluster * row tiles, B, 1)
+    smem: int                    # bytes per CTA
+    waves: int                   # rounds of clusters at one CTA per SM
+
+
+def _epi_plan(b: int, m: int, n: int, a: int, f: int, dtype,
+              sms: int) -> EpiPlan:
+    """The full tier's decomposition: W = 256 columns per CTA, C =
+    ceil(F/W) CTAs per cluster, row tiles of 32 KB / (W * itemsize) rows.
+    Raises ValueError naming the shape where C exceeds 8 or the shared
+    memory a CTA."""
+    what = f"expansion epilogue at B={b}, M={m}, N={n}, A={a}, F={f}"
+    es, width, cluster, _, _, slices = _cluster_slices(what, f, f, dtype,
+                                                       _EPI_WIDTH)
+    tile, vec, kc = 32768 // (width * es), 16 // es, 64 if es == 2 else 32
+    smem = (es * (tile * (width + vec)                       # mid slice
+                  + _EPI_RING * (tile * (kc + vec) + kc * (width + vec)))
+            + 4 * (tile * (width + 4)                        # fp32 pool
+                   + 25 * tile + 5 * width))  # row partials, stats, params
+    _check_smem(what, smem, f, f)
+    tiles = -(-n // tile)
+    return EpiPlan(width, cluster, tile, slices, (cluster * tiles, b, 1), smem,
+                   -(-b * tiles // max(1, sms // cluster)))
+
+
+def epi_occupancy(plan: EpiPlan, dtype) -> dict:
+    """The shared-memory bytes the built kernel takes (which must equal the
+    plan's) and cudaOccupancyMaxActiveClusters for the plan's cluster;
+    builds the kernels. For logging on the card."""
+    smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _lib().epi_mid_pool_occupancy(int(dtype == torch.bfloat16),
+                                       plan.cluster, ctypes.addressof(smem),
+                                       ctypes.addressof(clusters))
+    _raise_if(rc, "epi_mid_pool_occupancy")
+    return dict(smem=smem.value, max_active_clusters=clusters.value)
 
 
 # ---------------------------------------------------------------- plain ----
@@ -179,6 +233,46 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
+def _launch_mid_pool(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs,
+                     ln_eps):
+    """out [B, N, F] from mid_pool_kernel at the plan's launch shape;
+    raises on what the kernel does not take. The kernel stages P, VW1 and
+    W2 by 16-byte copies: a ragged A is padded with zeros here (P's extra
+    columns meet VW1's extra rows, adding exact zeros), F must be a whole
+    number of 16-byte vectors, and the three must start 16-byte aligned."""
+    b, m, n, a = probs.shape
+    f = vw1.shape[-1]
+    dt, dev = vw1.dtype, vw1.device
+    _check_shapes(b, m, n, a, f, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs)
+    _check_dtype(dt)
+    vec = 16 // (torch.finfo(dt).bits // 8)     # elements per 16 bytes
+    if f % vec:
+        raise ValueError(f"the kernel needs F to be a multiple of {vec} for "
+                         f"{dt}, got F={f}")
+    plan = _epi_plan(b, m, n, a, f, dt, _sm_count(dev))
+    lib = _lib()
+    p, v, b1_, w2_, b2_, sc, lb, ws_ = _prep(dt, dev, probs, vw1, b1, w2, b2,
+                                             ln_scale, ln_bias, ws)
+    if a % vec:
+        pad = vec - a % vec
+        p = torch.nn.functional.pad(p, (0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        a += pad
+    for name, t in (("probs", p), ("vw1", v), ("w2", w2_)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"the kernel needs {name} to start at a 16-byte "
+                             f"boundary, got address {t.data_ptr():#x}")
+    bs_ = bs.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.empty((b, n, f), dtype=dt, device=dev)
+    rc = lib.epi_mid_pool(
+        int(dt == torch.bfloat16), p.data_ptr(), v.data_ptr(), b1_.data_ptr(),
+        w2_.data_ptr(), b2_.data_ptr(), sc.data_ptr(), lb.data_ptr(),
+        ws_.data_ptr(), bs_.data_ptr(), out.data_ptr(), b, m, n, a, f,
+        plan.tile, ln_eps, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(rc, "mid_pool_kernel")
+    return out
+
+
 def fused_mid_output_pool(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs,
                           *, ln_eps: float = 1e-12):
     """probs [B, M, N, A], vw1 = V W1 [B, M, A, F], b1 [F], w2 [M, F, F],
@@ -187,64 +281,24 @@ def fused_mid_output_pool(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs,
     if _on_cpu(probs):
         return fused_mid_output_pool_plain(probs, vw1, b1, w2, b2, ln_scale,
                                            ln_bias, ws, bs, ln_eps=ln_eps)
-    b, m, n, a = probs.shape
-    f = vw1.shape[-1]
-    dt, dev = vw1.dtype, vw1.device
-    _check_shapes(b, m, n, a, f, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs)
-    _check_dtype(dt)
-    lib = _lib()
-    p, v, b1_, w2_, b2_, sc, lb, ws_ = _prep(dt, dev, probs, vw1, b1, w2, b2,
-                                             ln_scale, ln_bias, ws)
-    bs_ = bs.to(device=dev, dtype=torch.float32).contiguous()
-    out = torch.empty((b, n, f), dtype=dt, device=dev)
-    mid_s = torch.empty((b, n, f), dtype=dt, device=dev)
-    acc_s = torch.empty((b, n, f), dtype=torch.float32, device=dev)
-    rc = lib.epi_mid_pool(
-        int(dt == torch.bfloat16), p.data_ptr(), v.data_ptr(), b1_.data_ptr(),
-        w2_.data_ptr(), b2_.data_ptr(), sc.data_ptr(), lb.data_ptr(),
-        ws_.data_ptr(), bs_.data_ptr(), out.data_ptr(), mid_s.data_ptr(),
-        acc_s.data_ptr(), b, m, n, a, f, ln_eps,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_if(rc, "fused_mid_output_pool")
+    out = _launch_mid_pool(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs,
+                           ln_eps)
     fused_mid_output_pool.launches += 1
     return out
 
 
 def fused_mid_output_pool_permode(probs, vw1, b1, w2, b2, ln_scale, ln_bias,
                                   ws, bs, *, ln_eps: float = 1e-12):
-    """Large-F tier, same signature and result as fused_mid_output_pool: one
-    kernel launch per mode emits l_m [B, N, F] and s_m [B, N]; the mode
-    softmax pool runs in plain PyTorch. Replaces the Pallas
-    fused_mid_output_pool_permode."""
+    """The large-F tier, same signature and result as
+    fused_mid_output_pool; on the H100 the same kernel launch. Replaces the
+    Pallas fused_mid_output_pool_permode."""
     if _on_cpu(probs):
         return fused_mid_output_pool_permode_plain(
             probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs, ln_eps=ln_eps)
-    b, m, n, a = probs.shape
-    f = vw1.shape[-1]
-    dt, dev = vw1.dtype, vw1.device
-    _check_shapes(b, m, n, a, f, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs)
-    _check_dtype(dt)
-    lib = _lib()
-    p, v, b1_, w2_, b2_, sc, lb, ws_ = _prep(dt, dev, probs, vw1, b1, w2, b2,
-                                             ln_scale, ln_bias, ws)
-    bs_ = bs.to(device=dev, dtype=torch.float32).contiguous()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    mid_s = torch.empty((b, n, f), dtype=dt, device=dev)
-    ls, ss = [], []
-    for mi in range(m):
-        l_m = torch.empty((b, n, f), dtype=dt, device=dev)
-        s_m = torch.empty((b, n), dtype=torch.float32, device=dev)
-        rc = lib.epi_mid_mode(
-            int(dt == torch.bfloat16), p.data_ptr(), v.data_ptr(),
-            b1_.data_ptr(), w2_.data_ptr(), b2_.data_ptr(), sc.data_ptr(),
-            lb.data_ptr(), ws_.data_ptr(), bs_.data_ptr(), l_m.data_ptr(),
-            s_m.data_ptr(), mid_s.data_ptr(), mi, b, m, n, a, f, ln_eps,
-            stream)
-        _raise_if(rc, "fused_mid_output_pool_permode")
-        fused_mid_output_pool_permode.launches += 1
-        ls.append(l_m)
-        ss.append(s_m)
-    return _pool_modes(ls, ss, dt)
+    out = _launch_mid_pool(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs,
+                           ln_eps)
+    fused_mid_output_pool_permode.launches += 1
+    return out
 
 
 def fused_private_output_pool(mid, w2, b2, ln_scale, ln_bias, ws, bs, *,

@@ -1,84 +1,83 @@
-"""Where the expansion-epilogue kernel spends its time, by ablation.
+"""Where the full-fusion epilogue kernel (``mid_pool_kernel``) spends its
+time, by ablation.
 
     python3 -m segtran_tpu_torch.tools.ablate_epilogue
 
-Builds the CUDA source as it is and in variants with one part removed
-(the tensor-core products, the B-fragment loads, the LayerNorm/pool row
-pass, the gelu), then times one per-mode launch at F=1792 and one all-modes
-launch at F=896 (bf16, the flagship's B=8, M=4, N=1296, A=256) with CUDA
-events. A variant computes garbage; only its time is read. The difference
-to the unchanged source is that part's share. Needs a CUDA GPU and nvcc.
+Builds ``csrc/expansion_epilogue.cu`` as it is and in variants with one
+part removed or replaced (the tensor-core products; the W2 chunk loads;
+distributed shared memory for the mid pulls, the peers' slices replaced by
+this CTA's own; the cluster reductions, the peers' row partials replaced by
+this CTA's own; all distributed shared memory, with block barriers in
+place of the cluster barriers; the gelu; the block barrier of each depth
+chunk; both products' chunk loops, leaving the per-mode row phases and
+their barriers), then times one call at each of chip_smoke's full-fusion
+shapes (bf16, the flagship's B=8, M=4, N=1296, A=256; F=1792, 896, 448)
+with CUDA events. A variant computes garbage; only its time is read. The
+difference to the unchanged source is that part's share. Needs a CUDA GPU
+and nvcc.
 """
 from __future__ import annotations
 
 import ctypes
-import subprocess
-from pathlib import Path
 
 import torch
 
 from ..kernels import _build
+from ..kernels import expansion_epilogue as epi
+from .ablate_flash_bwd import _build_variants, _time_ms
 
-# text to remove -> replacement, per variant
+_PULL = "cluster.map_shared_rank(sm.mid + r * G::LDM + kc0 + c, j)"
+_SUM = ("*cluster.map_shared_rank(\n"
+        "            const_cast<float*>(part) + at + q * stride, j)")
+_ARRIVE = ('asm volatile("barrier.cluster.arrive.release.aligned;\\n" ::: '
+           '"memory");')
+_WAIT = ('asm volatile("barrier.cluster.wait.acquire.aligned;\\n" ::: '
+         '"memory");')
+_MMA = ("          mma16816(acc + mt * 32 + j * 4, a[mt], b[0], b[1]);\n"
+        "          mma16816(acc + mt * 32 + j * 4 + 4, a[mt], b[2], b[3]);\n")
+_W2 = "        stage_tile<T, KC, kW>(sm.b(t), G::LDB, w2 +"
+_SYNC = ("    __syncthreads();             // everyone's; slot t - 1 is free "
+         "again\n")
+_RUN_A = ("    run_chunks<T, false>(acc, sm, nka, [&](int t) { issue_a(m, t); "
+          "});")
+_RUN_B = "    run_chunks<T, true>(acc, sm, nkb, issue_b);"
+_NO_RUN = "    cp_async_wait<0>();\n    __syncthreads();"
+_LOCAL_PULL = [(_PULL, "(sm.mid + r * G::LDM + kc0 + c)")]
+_LOCAL_SUM = [(_SUM, "part[at + q * stride]")]
+
+# variant -> [(text to find, replacement), ...]
 VARIANTS = {
-    "as is": None,
-    "no products": ("wmma::mma_sync(acc[j], a, b, acc[j]);", ""),
-    "no B-fragment loads": (
-        "wmma::load_matrix_sync(b, sb + kk * LDB + ch * (NC / CG) + j * 16, LDB);",
-        "wmma::fill_fragment(b, __float2bfloat16(1.f));"),
-    "no row pass": ("if (r >= rows) continue;  // uniform across the warp",
-                    "if (true) continue;"),
-    "no gelu": (
-        "from_f<T>(0.5f * v * (1.f + erff(v * 0.70710678118654752f)));",
-        "from_f<T>(v);"),
+    "as is": [],
+    "no products": [(_MMA, "")],
+    "no W2 loads": [(_W2, "        if (false) stage_tile<T, KC, kW>(sm.b(t), "
+                          "G::LDB, w2 +")],
+    "own mid slice for the peers'": _LOCAL_PULL,
+    "own row partials for the peers'": _LOCAL_SUM,
+    # without cluster barriers a CTA could exit while a peer still reads
+    # its shared memory, so that variant also keeps every access local
+    "own memory and block barriers": _LOCAL_PULL + _LOCAL_SUM + [
+        (_ARRIVE, "__syncthreads();"), (_WAIT, "")],
+    "no gelu": [("g[x] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));",
+                 "g[x] = v;")],
+    "no depth-chunk block barrier": [(_SYNC, "")],
+    # what remains is the per-mode row phases (gelu, LayerNorm, score,
+    # pool), the cluster barriers and the waits for the first chunks
+    "row phases only (no chunk loops)": [(_RUN_A, _NO_RUN),
+                                         (_RUN_B, _NO_RUN)],
 }
-
-
-def _build_variants(out_dir: Path) -> dict:
-    src = (_build.CSRC / "expansion_epilogue.cu").read_text()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, edit) in enumerate(VARIANTS.items()):
-        text = src
-        if edit is not None:
-            if edit[0] not in text:
-                raise RuntimeError(f"variant '{name}': source text not found")
-            text = text.replace(edit[0], edit[1])
-        cu, so = out_dir / f"v{i}.cu", out_dir / f"v{i}.so"
-        cu.write_text(text)
-        procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant '{name}':\n{log}")
-        lib = ctypes.CDLL(str(so))
-        vp, i_, d_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.epi_mid_mode.argtypes = [i_] + [vp] * 12 + [i_] * 6 + [d_, vp]
-        lib.epi_mid_pool.argtypes = [i_] + [vp] * 12 + [i_] * 5 + [d_, vp]
-        libs[name] = lib
-    return libs
-
-
-def _time_ms(fn, iters=10):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+# (label, F): chip_smoke's full-fusion cases
+CASES = [("permode F=1792", 1792), ("all modes F=896", 896),
+         ("all modes F=448", 448)]
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("ablate_epilogue needs a CUDA GPU")
-    libs = _build_variants(_build.BUILD_DIR / "ablate")
+    libs = _build_variants(_build.BUILD_DIR / "ablate_epi", VARIANTS,
+                           "expansion_epilogue")
+    vp, i_, d_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for lib in libs.values():
+        lib.epi_mid_pool.argtypes = [i_] + [vp] * 10 + [i_] * 6 + [d_, vp]
     b, m, n, a = 8, 4, 1296, 256
     g = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -86,35 +85,27 @@ def main() -> int:
     def rn(*shape, s=1.0):
         return torch.randn(*shape, generator=g, device="cuda") * s
     stream = torch.cuda.current_stream().cuda_stream
-    print(torch.cuda.get_device_name(0))
-    for f, entry in ((1792, "epi_mid_mode"), (896, "epi_mid_pool")):
+    print(torch.cuda.get_device_name(0), flush=True)
+    for label, f in CASES:
+        plan = epi._epi_plan(b, m, n, a, f, bf, epi._sm_count("cuda"))
         p = torch.softmax(rn(b, m, n, a, s=4.0), -1).to(bf)
         t = [p, rn(b, m, a, f, s=2.0).to(bf), rn(f, s=0.1).to(bf),
              (rn(m, f, f) / f ** 0.5).to(bf), rn(m, f, s=0.1).to(bf),
              (torch.rand(f, device="cuda") + 0.5).to(bf), rn(f, s=0.1).to(bf),
              rn(f, 1, s=0.02).to(bf), rn(1)]
         out = torch.empty(b, n, f, dtype=bf, device="cuda")
-        mid = torch.empty(b, n, f, dtype=bf, device="cuda")
-        acc = torch.empty(b, n, f, device="cuda")
-        s_out = torch.empty(b, n, device="cuda")
         ptrs = [x.data_ptr() for x in t]
+        print(label, plan, flush=True)
         base = None
         for name, lib in libs.items():
-            if entry == "epi_mid_mode":
-                def call(lib=lib):
-                    return lib.epi_mid_mode(1, *ptrs, out.data_ptr(),
-                                            s_out.data_ptr(), mid.data_ptr(),
-                                            0, b, m, n, a, f, 1e-12, stream)
-            else:
-                def call(lib=lib):
-                    return lib.epi_mid_pool(1, *ptrs, out.data_ptr(),
-                                            mid.data_ptr(), acc.data_ptr(),
-                                            b, m, n, a, f, 1e-12, stream)
+            def call(lib=lib):
+                return lib.epi_mid_pool(1, *ptrs, out.data_ptr(), b, m, n, a,
+                                        f, plan.tile, 1e-12, stream)
             if call() != 0:
                 raise RuntimeError(f"variant '{name}' failed to launch")
             ms = _time_ms(call)
             base = ms if base is None else base
-            print(f"{entry} F={f} {name:20s} {ms:.4f} ms "
+            print(f"{label:16s} {name:34s} {ms:.4f} ms "
                   f"({100 * (base - ms) / base:+.1f}% of the as-is time "
                   f"removed)", flush=True)
     return 0

@@ -57,8 +57,11 @@ VARIANTS["own shared memory and block barriers"] = VARIANTS[
                                        (_WAIT, "")]
 
 
-def _build_variants(out_dir: Path, variants=None) -> dict:
-    src = (_build.CSRC / "squeezed_attention.cu").read_text()
+def _build_variants(out_dir: Path, variants=None,
+                    source: str = "squeezed_attention") -> dict:
+    """Build csrc/<source>.cu (its headers inlined) once per variant, all
+    nvcc processes at once; the loaded library of each variant by name."""
+    src = _build.source_text(source)
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, (name, edits) in enumerate((variants or VARIANTS).items()):
@@ -67,7 +70,7 @@ def _build_variants(out_dir: Path, variants=None) -> dict:
             if old not in text:
                 raise RuntimeError(f"variant '{name}': source text not found")
             text = text.replace(old, new)
-        cu, so = out_dir / f"bwd{i}.cu", out_dir / f"bwd{i}.so"
+        cu, so = out_dir / f"{source}{i}.cu", out_dir / f"{source}{i}.so"
         cu.write_text(text)
         procs[name] = (so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
@@ -77,11 +80,7 @@ def _build_variants(out_dir: Path, variants=None) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant '{name}':\n{log}")
-        lib = ctypes.CDLL(str(so))
-        vp, i_, d_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.flash_bwd.argtypes = [i_, i_] + [vp] * 10 + [i_] * 7 + [d_, d_,
-                                                                   vp]
-        libs[name] = lib
+        libs[name] = ctypes.CDLL(str(so))
     return libs
 
 
@@ -102,6 +101,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("ablate_flash_bwd needs a CUDA GPU")
     libs = _build_variants(_build.BUILD_DIR / "ablate")
+    vp, i_, d_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    for lib in libs.values():
+        lib.flash_bwd.argtypes = [i_, i_] + [vp] * 10 + [i_] * 7 + [d_, d_,
+                                                                   vp]
     g, nq, n, d, f = 1, 1024, 8640, 1024, 1024
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(0)
