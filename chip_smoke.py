@@ -10,9 +10,13 @@ Phases, each of which fails the run:
 2. kernels -- hold each expansion-epilogue kernel against its plain
    PyTorch version at the fundus flagship's shapes (P [8,4,1296,256]; F=1792
    through the per-mode tier's wrapper, F=896 and 448 through the
-   all-modes one, both one launch of the full tier's cluster kernel; mid
-   [2,4,1296,896] for the private tier) and at the BraTS whole-volume
-   private tier (mid [1,4,8640,1024]), and the flash cross-attention
+   all-modes one, both one launch of the full tier's cluster kernel) and
+   the private tier (one launch of the same kernel's private tier) at
+   every shape its paths give it: mid [1,4,8640,1024] and [1,4,18000,1024]
+   (the BraTS volumes), [2,4,1296,F] (the non-reassociated forward) and
+   [8,4,1296,F] (the --fused serving forward), F = 1792, 896, 448, each
+   timed beside the unfused module chain (private output linear,
+   LayerNorm, learned soft aggregate); and the flash cross-attention
    kernel at the BraTS in/out-squeeze shapes
    (N=8640 and 18000 tokens), a ragged shape, a clamp case and the fundus
    layer-0 in/out-squeeze (D=F=1792; D=448, F=1792), in bf16 and fp32
@@ -32,7 +36,8 @@ Phases, each of which fails the run:
    profiled (device time by kernel); the same batch through the unfused
    modules must agree.
    The same batch through an engine with --fused --fusedepi (flash
-   attention, 6 launches per forward) must agree too.
+   attention, 6 launches per forward; 3 launches of the private-tier
+   epilogue) must agree too; its forward is timed and profiled.
 4. non-reassociated forward at batch 2 -- must launch the private-output
    kernel and agree with the unfused modules.
 5. whole volume -- the BraTS recipe of cli/test3d.py at full width (I3D,
@@ -103,9 +108,25 @@ KERNEL_TOL = {"bf16": (3e-2, 4e-3), "fp32": (1e-4, 1e-5)}
 # fused vs unfused model, bf16 probabilities in [0, 1]: the two paths round
 # at different places (kernel tiles vs PyTorch ops) through three layers
 MODEL_TOL = (0.1, 5e-3)                                       # (max, mean)
-# the expansion-epilogue kernels' names in a profile: the full tier's
-# cluster kernel and the private tier's
-EPILOGUE_KERNELS = ("mid_pool_kernel", "epilogue_kernel")
+# the expansion-epilogue kernel's name in a profile (both tiers)
+EPILOGUE_KERNELS = ("mid_pool_kernel",)
+# (wrapper, kind, B, M, N, A, F): the full tier at the fundus flagship's
+# three widths (P [8,4,1296,256]); the private tier at the BraTS volumes
+# (1 launch each), the non-reassociated fundus forward at batch 2 and the
+# --fused serving forward at batch 8 (3 launches each, one per width).
+# The seed of a case's inputs is its index.
+EPILOGUE_CASES = [
+    ("fused_mid_output_pool_permode", "mid", 8, 4, 1296, 256, 1792),
+    ("fused_mid_output_pool", "mid", 8, 4, 1296, 256, 896),
+    ("fused_mid_output_pool", "mid", 8, 4, 1296, 256, 448),
+    ("fused_private_output_pool", "private", 2, 4, 1296, 0, 896),
+    ("fused_private_output_pool", "private", 1, 4, 8640, 0, 1024),
+    ("fused_private_output_pool", "private", 1, 4, 18000, 0, 1024),
+    ("fused_private_output_pool", "private", 2, 4, 1296, 0, 1792),
+    ("fused_private_output_pool", "private", 2, 4, 1296, 0, 448),
+    ("fused_private_output_pool", "private", 8, 4, 1296, 0, 1792),
+    ("fused_private_output_pool", "private", 8, 4, 1296, 0, 896),
+    ("fused_private_output_pool", "private", 8, 4, 1296, 0, 448)]
 
 
 def log(msg):
@@ -180,9 +201,9 @@ def epilogue_work(kind, b, m, n, a, f, args):
 
 
 def epi_launch_shape(torch, epi, name, dname, b, m, n, a, f, dt):
-    """Log the full tier's plan (width, cluster, row tile, grid) and
-    cudaOccupancyMaxActiveClusters; the built kernel's shared memory must
-    be the plan's."""
+    """Log the plan (width, cluster, row tile, grid, waves; A = 0: the
+    private tier) and cudaOccupancyMaxActiveClusters; the built kernel's
+    shared memory must be the plan's."""
     plan = epi._epi_plan(b, m, n, a, f, dt, epi._sm_count("cuda"))
     occ = epi.epi_occupancy(plan, dt)
     log(f"[kernels] {name} {dname} F={f}: clusters of {plan.cluster} CTAs "
@@ -210,23 +231,44 @@ def products_call(torch, kind, args):
     return lambda: torch.matmul(torch.matmul(probs, vw1), w2)
 
 
+def unfused_private_call(torch, args):
+    """The private tier's function through the model's unfused modules,
+    the path JAX takes where its VMEM gate refuses the fused tier: the
+    private output linear (MMPrivateOutput, residual dropped) with its
+    LayerNorm, then the learned soft aggregate over the modes. A yardstick,
+    several PyTorch calls."""
+    from segtran_tpu_torch.nn.attention import (LearnedSoftAggregate,
+                                                MMPrivateOutput)
+    mid, w2, b2, scale, lnb, ws, bs = args
+    m, f, dt = mid.shape[1], mid.shape[-1], mid.dtype
+    out = MMPrivateOutput(m, f, False, 1e-12, dt).to(mid.device).eval()
+    agg = LearnedSoftAggregate(f, 1, dt).to(mid.device).eval()
+    with torch.no_grad():
+        out.group_linear.weight.copy_(w2)
+        out.group_linear.bias.copy_(b2)
+        out.resout_norm_layer.weight.copy_(scale)
+        out.resout_norm_layer.bias.copy_(lnb)
+        agg.feat2score.weight.copy_(ws.t())
+        agg.feat2score.bias.copy_(bs)
+
+    def call():
+        with torch.inference_mode():
+            return agg(out(mid, None))
+    return call
+
+
 def check_kernels(torch, epi):
-    cases = [("fused_mid_output_pool_permode", "mid", 8, 4, 1296, 256, 1792),
-             ("fused_mid_output_pool", "mid", 8, 4, 1296, 256, 896),
-             ("fused_mid_output_pool", "mid", 8, 4, 1296, 256, 448),
-             ("fused_private_output_pool", "private", 2, 4, 1296, 0, 896),
-             ("fused_private_output_pool", "private", 1, 4, 8640, 0, 1024)]
     results = []
     for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         # plain fp32 references without TF32: full-precision products
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        for i, (name, kind, b, m, n, a, f) in enumerate(cases):
+        for i, (name, kind, b, m, n, a, f) in enumerate(EPILOGUE_CASES):
             args = epilogue_inputs(torch, kind, b, m, n, a, f, dt, seed=i)
             kern = getattr(epi, name)
             plain = getattr(epi, name + "_plain")
-            launch = (epi_launch_shape(torch, epi, name, dname, b, m, n, a, f,
-                                       dt) if kind == "mid" else None)
+            launch = epi_launch_shape(torch, epi, name, dname, b, m, n, a, f,
+                                      dt)
             out = kern(*args)
             out2 = kern(*args)
             repeat = bool(torch.equal(out, out2))
@@ -243,12 +285,20 @@ def check_kernels(torch, epi):
             plain_ms = cuda_ms(torch, lambda: plain(*args), iters=3)
             products_ms = cuda_ms(torch, products_call(torch, kind, args),
                                   iters=5)
+            unfused_ms = None
+            if kind == "private":
+                unfused = unfused_private_call(torch, args)
+                unfused_err = float((unfused().float() - ref.float()).abs()
+                                    .max())
+                unfused_ms = cuda_ms(torch, unfused, iters=5)
+                del unfused
             flops, nbytes = epilogue_work(kind, b, m, n, a, f, args)
             t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
             row = dict(name=name, dtype=dname, shape=[b, m, n, a, f],
                        max_abs_err=max_err, mean_abs_err=mean_err,
                        max_rel_err=rel_err,
                        ms=ms, plain_ms=plain_ms, products_ms=products_ms,
+                       unfused_ms=unfused_ms,
                        bound_ms=max(t_ops, t_bytes) * 1e3,
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
                        flop=flops, bytes=nbytes, repeatable=repeat,
@@ -260,9 +310,12 @@ def check_kernels(torch, epi):
                 f"{tol_max:g}/{tol_mean:g}), repeat "
                 f"{'bit-identical' if repeat else 'DIFFERS'}; kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, products alone "
-                f"(torch.matmul) {products_ms:.4f} ms, bound "
-                f"{row['bound_ms']:.4f} ms ({row['bound_by']}); library_ms "
-                f"null: no single PyTorch call computes this function")
+                f"(torch.matmul) {products_ms:.4f} ms, "
+                + (f"unfused module chain {unfused_ms:.4f} ms (max |chain - "
+                   f"plain| {unfused_err:.3e}), " if unfused_ms else "")
+                + f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+                f"library_ms null: no single PyTorch call computes this "
+                f"function")
             if not (rel_err <= tol_max and mean_err <= tol_mean):
                 fail(f"{name} {dname} disagrees with its plain version")
             if not repeat:
@@ -798,6 +851,17 @@ def serve(torch, np, epi, sa, mb, ckdir, logger):
         flash = flash_engine.forward(batch)
         n_flash = sa.fused_cross_attention.launches
         n_private = epi.fused_private_output_pool.launches
+        flash_ms = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            flash_engine.forward(batch)
+            flash_ms.append((time.perf_counter() - t1) * 1e3)
+        perf["fused_forward_ms_batch8"] = sorted(flash_ms)[1]
+        perf["fused_profile"] = profile_forward(
+            torch, lambda: flash_engine.forward(batch),
+            "one --fused --fusedepi batch-8 forward",
+            {"epilogue kernels": EPILOGUE_KERNELS,
+             "flash forward": ("fwd_kernel", "fwd_merge_kernel")})
     finally:
         flash_engine.close()
     del flash_engine
@@ -1710,7 +1774,8 @@ def main(argv=None) -> int:
         "flash_backward_dq": "segtran_tpu/kernels/squeezed_attention.py:234",
         "mbconv_front": "segtran_tpu/kernels/mbconv.py:146"}
     # one entry per kernel: bf16 at the first shape of each (the flash
-    # kernels: the in-squeeze at N=8640; mbconv_front: H=144 k3 32->192);
+    # kernels: the in-squeeze at N=8640; mbconv_front: H=144 k3 32->192),
+    # the private tier at the BraTS volume mid [1,4,8640,1024];
     # launches from the main path of its slice (serving for the first two,
     # the whole-volume run for the next two, the 160x192x144 train steps for
     # the backward pair, one batch-8 forward of the fused-eval eff-b4
@@ -1719,7 +1784,10 @@ def main(argv=None) -> int:
     for name in ("fused_mid_output_pool_permode", "fused_mid_output_pool",
                  "fused_private_output_pool", "fused_cross_attention",
                  "flash_backward_dkdv", "flash_backward_dq", "mbconv_front"):
-        r = next(k for k in kernels if k["name"] == name and k["dtype"] == "bf16")
+        r = next(k for k in kernels if k["name"] == name
+                 and k["dtype"] == "bf16"
+                 and (name != "fused_private_output_pool"
+                      or k["shape"] == [1, 4, 8640, 0, 1024]))
         src = ("expansion_epilogue" if "output_pool" in name
                else "mbconv" if name == "mbconv_front"
                else "squeezed_attention")

@@ -1,21 +1,21 @@
 // Fused expansion epilogue for Hopper (sm_90a): per mode m,
 //
-//     mid_m = gelu(P_m @ VW1_m + b1)        (or a given mid_m)
+//     mid_m = gelu(P_m @ VW1_m + b1)        (full tier; the private tier is
+//                                            given mid_m)
 //     z_m   = mid_m @ W2_m + b2_m           (private output linear)
 //     l_m   = LayerNorm(z_m)                (fp32 stats, var clamped at 0)
 //     s_m   = l_m @ ws + bs                 (feat2score)
 //     out   = sum_m softmax_m(s) * l_m      (fp32, rounded to T once)
 //
-// Two kernels replace the Pallas kernels of segtran_tpu/kernels/
-// expansion_epilogue.py:
-//   mid_pool_kernel  <- fused_mid_output_pool (:333, pallas_call :356,
-//                       _mid_epilogue_kernel) and fused_mid_output_pool_
-//                       permode (:226, pallas_call :251, _mode_mid_ln_kernel
-//                       and the pool of _ln_score_pool): the same math, one
-//                       launch per call for either; the per-mode split
-//                       existed for TPU VMEM, which an H100 does not have.
-//   epilogue_kernel  <- fused_private_output_pool (:289, pallas_call :311,
-//                       _epilogue_kernel), from a given mid.
+// One cluster kernel, mid_pool_kernel<T, kFromMid>, replaces the Pallas
+// kernels of segtran_tpu/kernels/expansion_epilogue.py:
+//   kFromMid = false (the full tier) <- fused_mid_output_pool (:333,
+//       pallas_call :356, body :174) and fused_mid_output_pool_permode
+//       (:226, pallas_call :251, body :204 and the pool of _ln_score_pool
+//       :125): the same math, one launch per call for either; the per-mode
+//       split existed for TPU VMEM, which an H100 does not have.
+//   kFromMid = true (the private tier) <- fused_private_output_pool (:289,
+//       pallas_call :311, body :154): from a given mid [B, M, N, F].
 //
 // Rounding follows the JAX kernels point for point: each product
 // accumulates in fp32 and is rounded to the compute type T before its bias
@@ -24,30 +24,38 @@
 // accumulates in fp32; the mode softmax and weighted sum run in fp32
 // (online over modes) and the result is rounded to T.
 //
-// What bounds mid_pool_kernel on an H100 SXM: at B=8, M=4, N=1296, A=256
-// in bf16 the work is 2 B M N F (A + F) FLOP of matrix products: 3.04e11 at
-// F=1792 (0.308 ms at 989 TFLOP/s), 8.6e10 at F=896 (0.087 ms), 2.6e10 at
-// F=448 (0.027 ms), against 40-60 MB of compulsory traffic (12-18 us at
-// 3.35 TB/s): bound by operations.
+// What bounds it on an H100 SXM, bf16: the work is 2 B M N F (A + F) FLOP
+// of matrix products (A = 0 for the private tier). Full tier at B=8, M=4,
+// N=1296, A=256: 3.04e11 at F=1792 (0.308 ms at 989 TFLOP/s), 8.6e10 at
+// F=896 (0.087 ms), 2.6e10 at F=448 (0.027 ms), against 40-60 MB of
+// compulsory traffic (12-18 us at 3.35 TB/s). Private tier at the BraTS
+// volume, mid [1, 4, 8640, 1024]: 7.2e10 FLOP (0.073 ms) against 97 MB
+// (mid, W2, out: 29 us). Bound by operations.
 //
 // The design. W2 [M, F, F] (25.7 MB at F=1792) cannot stay on chip as it
 // did in TPU VMEM, so it streams from L2, and the bytes of W2 read from L2
 // are what a design has to keep down. A thread-block cluster of C =
 // ceil(F/W) <= 8 CTAs owns a row tile of TM rows of one image (a tile
-// never straddles two images: VW1 differs per image); CTA c owns columns
-// [cW, (c+1)W) of F, with W = 256, and TM = 32 KB / (W sizeof(T)) rows (64
-// in bf16, 32 in fp32). W = 128 (128-row tiles) measured slower at F=896
-// and 448 and cannot take F=1792 (C = 14).
+// never straddles two images: VW1 and mid differ per image); CTA c owns
+// columns [cW, (c+1)W) of F, with W = 256, and TM = 32 KB / (W sizeof(T))
+// rows (64 in bf16, 32 in fp32). W = 128 (128-row tiles) measured slower
+// at F=896 and 448 and cannot take F=1792 (C = 14).
 // Per mode, inside the cluster:
-//   (a) CTA c computes its slice of mid = gelu(P_m[tile] VW1_m[:, slice c]
-//       + b1) into its own shared memory ([TM, W] in T, 32 KB); P and VW1
-//       stream through a cp.async ring. One cluster barrier.
-//   (b) z[:, slice c] = sum_j mid_j W2_m[slice j, slice c], depth chunks
-//       in order: each chunk of mid_j is pulled from rank j's shared memory
-//       (distributed shared memory) into the ring, since ldmatrix reads
-//       only local shared memory, read two chunks ahead and stored one
-//       ahead; W2 streams through the ring by cp.async. The fp32
-//       accumulator stays in registers.
+//   (a) full tier only: CTA c computes its slice of mid = gelu(P_m[tile]
+//       VW1_m[:, slice c] + b1) into its own shared memory ([TM, W] in T,
+//       32 KB); P and VW1 stream through a cp.async ring. One cluster
+//       barrier.
+//   (b) z[:, slice c] = mid_m[tile] W2_m[:, slice c], depth chunks in
+//       order, W2 streamed through the ring by cp.async, the fp32
+//       accumulator in registers. Full tier: chunk t of mid lies in rank
+//       t KC / W's shared memory and is pulled over distributed shared
+//       memory into the ring (ldmatrix reads only local shared memory),
+//       read two chunks ahead and stored one ahead. Private tier: chunk t
+//       of mid_m[tile] is staged from device memory by cp.async beside W2's
+//       (every CTA of the cluster reads the tile's rows; the peers' reads
+//       meet in L2), through a ring of three slots in the shared memory
+//       the mid slice leaves (two chunks in flight; the full tier has room
+//       for two slots).
 //   (c) z = rnd(rnd(acc) + b2) in registers; each CTA publishes its rows'
 //       partial sum and sum of squares, and after a cluster barrier every
 //       CTA sums all C partials of a row in rank order (the same sum in
@@ -56,13 +64,15 @@
 //   (d) the online mode pool in fp32, in shared memory (registers hold the
 //       accumulator): each CTA keeps the running max and denominator of
 //       every row (identical in every CTA), pool = pool alpha + e l. After
-//       the last mode out[:, slice c] = rnd_T(pool
-//       / denom) is the kernel's only store to device memory: mid, z, l
-//       and the per-mode scores never leave the chip.
-// Three cluster barriers per mode; the one mid buffer is safe because a
-// peer's last read of it (b) precedes two of them. The next mode's first
-// P / VW1 chunks load behind this mode's row phases. No atomics, and every
-// sum has a fixed order, so the kernel is bit-for-bit repeatable.
+//       the last mode out[:, slice c] = rnd_T(pool / denom) is the
+//       kernel's only store to device memory: mid (full tier), z, l and the
+//       per-mode scores never leave the chip.
+// Three cluster barriers per mode in the full tier, two in the private;
+// the one mid buffer is safe because a peer's last read of it (b) precedes
+// two of them, and each CTA's row partials are rewritten only after the
+// barrier that follows the peers' last read of them. The next mode's first
+// chunks load behind this mode's row phases. No atomics, and every sum has
+// a fixed order, so the kernel is bit-for-bit repeatable.
 //
 // W2 bytes read from L2 per call at F=1792 (bf16, 6.4 MB per mode): the
 // per-mode kernel this replaces gave each 32-row block all of W2_m, 328
@@ -70,46 +80,49 @@
 // W2_m column slice once, 168 clusters, 4.3 GB. At F=896: 2.1 -> 1.08 GB.
 // That kernel also re-read its mid rows from L2 scratch in each of 14
 // column passes, wrote z and each mode's l to device memory, and pooled
-// the modes in PyTorch; none of that remains.
+// the modes in PyTorch; none of that remains. The private tier's earlier
+// kernel (32-row blocks, 16x16x16 fragment products, 128-column passes)
+// did the same with z and an fp32 pool in [B, N, F] scratch; at the BraTS
+// volume W2 from L2 falls from 270 x 4 x 2 MB = 2.3 GB to 135 x 4 x 2 MB =
+// 1.1 GB per call, and mid is read once per CTA in place of once per
+// 128-column pass.
 //
-// What holds it back (tools/ablate_epilogue.py, H100 SXM at 700 W, bf16,
-// F=1792: 2.88 ms, ~9x the bound; mma.sync alone peaks near 600-630
-// TFLOP/s on the card (tools/mma_sync_rate.py), a 0.61 ms floor at the 105
-// SMs that 15 clusters of 7 occupy): no part dominates. The products, the
-// W2 stream, the per-mode row phases (gelu, LayerNorm, score, pool and
-// their three cluster barriers) and the block barrier of each depth chunk
-// each take about a fifth, the peers' mid reads 5%: the 8 warps run
-// loads, products and row phases one after another in lockstep, one CTA
-// per SM (255 registers, ~194 KB of shared memory). Next: warp
-// specialisation, a producer warp feeding W2 and the peers' mid slices by
-// TMA bulk copies into an mbarrier ring, so the tensor work overlaps the
-// rest.
+// What holds the full tier back (tools/ablate_epilogue.py, H100 SXM at 700
+// W, bf16, F=1792: 2.88 ms, ~9x the bound; mma.sync alone peaks near
+// 600-630 TFLOP/s on the card (tools/mma_sync_rate.py), a 0.61 ms floor at
+// the 105 SMs that 15 clusters of 7 occupy): no part dominates. The
+// products, the W2 stream, the per-mode row phases (gelu, LayerNorm,
+// score, pool and their three cluster barriers) and the block barrier of
+// each depth chunk each take about a fifth, the peers' mid reads 5%: the 8
+// warps run loads, products and row phases one after another in lockstep,
+// one CTA per SM (255 registers, ~194 KB of shared memory). The private
+// tier at the BraTS volume (0.63 ms, 8.7x the bound; 202 KB) is held back
+// by its chunk loads: without the W2 loads 34% of its time goes, without
+// the mid loads 10%, without the products 22%, without the chunk barrier
+// 16%; the row phases alone take 31%. A third ring slot took 10-12% off
+// at N = 8640 and 18000; a fourth, or 32-deep chunks, nothing more. Next,
+// for both tiers: warp specialisation, a producer warp feeding W2 and the
+// mid chunks by TMA bulk copies into an mbarrier ring, so the tensor work
+// overlaps the rest.
 //
 // mma.sync (m16n8k16, ldmatrix operands, fp32 accumulators), as in the
 // flash kernels, rather than wgmma: the row ownership of the cluster
 // reductions and the online pool want a thread's accumulator rows known
-// (r and r + 8 of each 16-row tile), and the A operand of (b) arrives from
-// peers' shared memory, copied by the threads, in no wgmma shared-memory
-// layout. Warps tile the [TM, W] slice by 32 x 64. fp32 runs the same
-// decomposition on the CUDA cores in full fp32 (no TF32), so the fp32
-// build checks the indexing, the rank-ordered reductions and the online
-// pool exactly. Ragged N, A and F are masked in the kernel (zero-filled
-// loads and zero parameters past F); A and F must be multiples of 16
-// bytes' worth of elements and the staged operands 16-byte aligned (the
-// wrapper pads A with zeros and checks the rest).
-//
-// epilogue_kernel (the private tier, from a given mid [B, M, N, F]) is
-// the earlier design: a block owns TM = 32 whole rows and loops over the
-// modes and NC-column passes of F, through WMMA 16x16x16 products with
-// both operands staged by cp.async, z and the pool accumulator in
-// L2-resident scratch.
+// (r and r + 8 of each 16-row tile), and the full tier's A operand of (b)
+// arrives from peers' shared memory, copied by the threads, in no wgmma
+// shared-memory layout. Warps tile the [TM, W] slice by 32 x 64. fp32 runs
+// the same decomposition on the CUDA cores in full fp32 (no TF32), so the
+// fp32 build checks the indexing, the rank-ordered reductions and the
+// online pool exactly. Ragged N, A and F are masked in the kernel
+// (zero-filled loads and zero parameters past F); A and F must be
+// multiples of 16 bytes' worth of elements and the staged operands 16-byte
+// aligned (the wrapper pads A with zeros and checks the rest).
 //
 // The cp.async, ldmatrix, mma.sync and cluster helpers are those of the
 // flash kernels (cluster_mma.cuh).
 
 #include <cuda_bf16.h>
 #include <math.h>
-#include <mma.h>
 
 #include <type_traits>
 
@@ -124,291 +137,12 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
   return to_f(from_f<T>(x));
 }
 
-// ------------------------------------------------------- private tier ----
-
-// Tile shape per compute type: rows per block (TM), output columns per
-// product pass (NC), depth of one staged tile (KC), and the shared-memory
-// row strides of the A stage, the B stage and the fp32 result (LDA, LDB,
-// LDS). The bf16 strides are padded off multiples of 128 bytes so that the
-// 16 rows of a WMMA fragment fall into different banks.
-template <typename T> struct Tile;
-template <> struct Tile<bf16> {
-  static constexpr int TM = 32, NC = 128, KC = 64;
-  static constexpr int LDA = KC + 8, LDB = NC + 8, LDS = NC + 4;
-};
-template <> struct Tile<float> {
-  static constexpr int TM = 32, NC = 128, KC = 32;
-  static constexpr int LDA = KC, LDB = NC, LDS = NC;
-};
-constexpr int kStages = 3;  // ring of staged tiles in flight (cp.async)
-
-template <typename T>
-constexpr size_t smem_bytes() {
-  using S = Tile<T>;
-  return sizeof(T) * kStages * (S::TM * S::LDA + S::KC * S::LDB) +
-         sizeof(float) * S::TM * S::LDS;
-}
-
-struct Params {
-  const void* mid; long long mid_sb, mid_sm;  // mid [B, M, N, F]
-  const void* w2;                             // [M, F, F] (in, out)
-  const void* b2;                             // [M, F]
-  const void* scale;                          // [F]
-  const void* lnb;                            // [F]
-  const void* ws;                             // [F]
-  const float* bs;                            // [1]
-  void* out;       // pooled [B, N, F]; holds z, then l, first
-  float* acc_g;    // [B, N, F] fp32 pool accumulator
-  int N, F, nmodes;
-  float eps;
-};
-
-// Stage the 16-byte vector at (r, c) of a row-major matrix X (rows x cols,
-// row stride ld) into dst, zero outside. Whole in-range aligned vectors go
-// by cp.async (also the all-zero ones, with a zero source size); a vector
-// that straddles the edge or is misaligned is copied element by element.
-template <typename T>
-__device__ __forceinline__ void stage_vec(T* dst, const T* X, long long ld,
-                                          int rows, int cols, int r, int c,
-                                          bool vec_ok) {
-  constexpr int VEC = 16 / sizeof(T);
-  const bool in = r < rows && c < cols;
-  if (!in || (vec_ok && c + VEC <= cols)) {
-    cp_async16(dst, in ? X + r * ld + c : X, in ? 16 : 0);
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < VEC; ++j)
-    dst[j] = c + j < cols ? X[r * ld + c + j] : from_f<T>(0.f);
-}
-
-// scr[TM][NC] (row stride LDS) = A[0:TM][0:K] @ B[0:K][c0:c0+NC] in fp32.
-// A (row stride lda, `rows` valid rows) and B (row stride ldb, Fc valid
-// columns) are in device memory; both are staged through a ring of
-// kStages shared-memory tiles (as: [TM][KC], bs: [KC][NC]) filled by
-// cp.async, so kStages - 1 tiles are in flight while one is multiplied.
-// Starts and ends with a block barrier.
-template <typename T>
-__device__ void gemm_tile(const T* A, long long lda, int rows, const T* B,
-                          long long ldb, int K, int Fc, int c0, T* as, T* bs,
-                          float* scr) {
-  using S = Tile<T>;
-  constexpr int TM = S::TM, NC = S::NC, KC = S::KC;
-  constexpr int LDA = S::LDA, LDB = S::LDB, LDS = S::LDS;
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int NA = TM * KC / VEC / kThreads;  // A vectors per thread
-  constexpr int NB = KC * NC / VEC / kThreads;  // B vectors per thread
-  constexpr int AV = KC / VEC, BV = NC / VEC;   // vectors per tile row
-  static_assert(NA >= 1 && NB >= 1, "tile too small for the block");
-  const int tid = threadIdx.x;
-  const bool a_vec = reinterpret_cast<uintptr_t>(A) % 16 == 0 && lda % VEC == 0;
-  const bool b_vec = reinterpret_cast<uintptr_t>(B) % 16 == 0 && ldb % VEC == 0;
-  const int nk = (K + KC - 1) / KC;
-
-  // issue the copies of depth tile t into ring slot t % kStages
-  auto issue = [&](int t) {
-    if (t < nk) {
-      const int k0 = t * KC;
-      T* sa = as + (t % kStages) * TM * LDA;
-      T* sb = bs + (t % kStages) * KC * LDB;
-#pragma unroll
-      for (int i = 0; i < NA; ++i) {
-        const int v = tid + i * kThreads, r = v / AV, c = (v % AV) * VEC;
-        // A's columns are the depth: valid while k < K
-        stage_vec<T>(sa + r * LDA + c, A + k0, lda, rows, K - k0, r, c, a_vec);
-      }
-#pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        const int v = tid + i * kThreads, r = v / BV, c = (v % BV) * VEC;
-        stage_vec<T>(sb + r * LDB + c, B + (long long)k0 * ldb + c0, ldb,
-                     K - k0, Fc - c0, r, c, b_vec);
-      }
-    }
-    cp_async_commit();  // an empty group past the end keeps the count
-  };
-
-  __syncthreads();  // A may have just been written by this block; the ring
-                    // may still be read by the previous call
-#pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) issue(t);
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    // warp w owns row tile w % RTL (16 rows) and column group w / RTL
-    // (NC / CG columns, FR fragments of 16)
-    constexpr int RTL = TM / 16, CG = kWarps / RTL, FR = NC / CG / 16;
-    static_assert(RTL * CG == kWarps && FR * CG * 16 == NC, "warp layout");
-    const int warp = tid >> 5, rt = warp % RTL, ch = warp / RTL;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FR];
-#pragma unroll
-    for (int j = 0; j < FR; ++j) wmma::fill_fragment(acc[j], 0.f);
-    for (int t = 0; t < nk; ++t) {
-      cp_async_wait<kStages - 2>();  // this thread's copies of tile t landed
-      __syncthreads();               // everyone's; slot t-1 is free again
-      issue(t + kStages - 1);
-      const T* sa = as + (t % kStages) * TM * LDA;
-      const T* sb = bs + (t % kStages) * KC * LDB;
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sa + rt * 16 * LDA + kk, LDA);
-#pragma unroll
-        for (int j = 0; j < FR; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, sb + kk * LDB + ch * (NC / CG) + j * 16, LDB);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-    }
-    cp_async_wait<0>();
-#pragma unroll
-    for (int j = 0; j < FR; ++j)
-      wmma::store_matrix_sync(scr + rt * 16 * LDS + ch * (NC / CG) + j * 16,
-                              acc[j], LDS, wmma::mem_row_major);
-  } else {
-    // thread t: column t % NC, rows t / NC + RS * i
-    constexpr int RS = kThreads / NC, RT = TM / RS;
-    const int col = tid % NC, r0 = tid / NC;
-    float acc[RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i) acc[i] = 0.f;
-    for (int t = 0; t < nk; ++t) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      issue(t + kStages - 1);
-      const T* sa = as + (t % kStages) * TM * LDA;
-      const T* sb = bs + (t % kStages) * KC * LDB;
-#pragma unroll 8
-      for (int kk = 0; kk < KC; ++kk) {
-        const float bv = to_f(sb[kk * LDB + col]);
-#pragma unroll
-        for (int i = 0; i < RT; ++i)
-          acc[i] = fmaf(to_f(sa[(r0 + RS * i) * LDA + kk]), bv, acc[i]);
-      }
-    }
-    cp_async_wait<0>();
-#pragma unroll
-    for (int i = 0; i < RT; ++i) scr[(r0 + RS * i) * LDS + col] = acc[i];
-  }
-  __syncthreads();
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2) epilogue_kernel(Params q) {
-  using S = Tile<T>;
-  constexpr int TM = S::TM, NC = S::NC, LDS = S::LDS;
-  constexpr int RPW = TM / kWarps;  // rows owned by each warp
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* as = reinterpret_cast<T*>(smem);
-  T* bs = as + kStages * TM * S::LDA;
-  float* scr = reinterpret_cast<float*>(bs + kStages * S::KC * S::LDB);
-
-  const int F = q.F, N = q.N;
-  const T* B2 = static_cast<const T*>(q.b2);
-  const T* SCALE = static_cast<const T*>(q.scale);
-  const T* LNB = static_cast<const T*>(q.lnb);
-  const T* WS = static_cast<const T*>(q.ws);
-
-  const int b = blockIdx.y, n0 = blockIdx.x * TM;
-  const int rows = min(TM, N - n0);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long row0 = (long long)b * N + n0;  // first [B, N] row owned
-  T* zg = static_cast<T*>(q.out) + row0 * F;      // z, then l, then the pool
-  float run_max[RPW], denom[RPW];
-  const float bs_v = *q.bs;
-
-  for (int m = 0; m < q.nmodes; ++m) {
-    const T* a2 = static_cast<const T*>(q.mid) + b * q.mid_sb + m * q.mid_sm +
-                  (long long)n0 * F;
-    // z = mid @ W2_m + b2_m, rounded to T before and after the bias
-    const T* w2 = static_cast<const T*>(q.w2) + (long long)m * F * F;
-    const T* b2 = B2 + (long long)m * F;
-    for (int c0 = 0; c0 < F; c0 += NC) {
-      gemm_tile<T>(a2, F, rows, w2, F, F, F, c0, as, bs, scr);
-      for (int i = tid; i < TM * NC; i += kThreads) {
-        const int r = i / NC, c = c0 + i % NC;
-        if (r < rows && c < F)
-          zg[(long long)r * F + c] =
-              from_f<T>(rnd<T>(scr[r * LDS + i % NC]) + to_f(b2[c]));
-      }
-    }
-    __syncthreads();
-    // LayerNorm + score + pool: each warp owns whole rows; l goes back into
-    // z's row, since the pool weight needs the row's full score
-#pragma unroll
-    for (int j = 0; j < RPW; ++j) {
-      const int r = warp + j * kWarps;
-      if (r >= rows) continue;  // uniform across the warp
-      T* zr = zg + (long long)r * F;
-      float sum = 0.f, sq = 0.f;
-      for (int c = lane; c < F; c += 32) {
-        const float v = to_f(zr[c]);
-        sum += v;
-        sq += v * v;
-      }
-      sum = warp_sum(sum);
-      sq = warp_sum(sq);
-      const float mean = sum / F;
-      const float var = fmaxf(0.f, sq / F - mean * mean);
-      const float mean_t = rnd<T>(mean);
-      const float inv_t = rnd<T>(1.f / sqrtf(var + q.eps));
-      float sc = 0.f;
-      for (int c = lane; c < F; c += 32) {
-        float t = rnd<T>(to_f(zr[c]) - mean_t);
-        t = rnd<T>(t * inv_t);
-        t = rnd<T>(t * to_f(SCALE[c]));
-        const T l = from_f<T>(t + to_f(LNB[c]));
-        zr[c] = l;
-        sc += to_f(l) * to_f(WS[c]);
-      }
-      const float s = warp_sum(sc) + bs_v;
-      float* ar = q.acc_g + (row0 + r) * F;
-      if (m == 0) {
-        run_max[j] = s;
-        denom[j] = 1.f;
-        for (int c = lane; c < F; c += 32) ar[c] = to_f(zr[c]);
-      } else {
-        const float nm = fmaxf(run_max[j], s);
-        const float alpha = expf(run_max[j] - nm), e = expf(s - nm);
-        denom[j] = denom[j] * alpha + e;
-        run_max[j] = nm;
-        for (int c = lane; c < F; c += 32)
-          ar[c] = ar[c] * alpha + e * to_f(zr[c]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < RPW; ++j) {
-    const int r = warp + j * kWarps;
-    if (r >= rows) continue;
-    const float* ar = q.acc_g + (row0 + r) * F;
-    T* o = zg + (long long)r * F;
-    for (int c = lane; c < F; c += 32) o[c] = from_f<T>(ar[c] / denom[j]);
-  }
-}
-
-template <typename T>
-cudaError_t launch_private(const Params& q, int B, cudaStream_t stream) {
-  constexpr int TM = Tile<T>::TM;
-  const size_t smem = smem_bytes<T>();
-  auto kern = epilogue_kernel<T>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  const dim3 grid((q.N + TM - 1) / TM, B);
-  kern<<<grid, kThreads, smem, stream>>>(q);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------- full tier ----
-
-constexpr int kRing = 2;   // slots of the streamed chunks' ring
 constexpr int kW = 256;    // columns of a CTA's slice of F
 
 struct MidParams {
-  const void* p;    // probs [B, M, N, A]
-  const void* vw1;  // V W1 [B, M, A, F]
-  const void* b1;   // [F]
+  const void* p;    // probs [B, M, N, A]; the private tier: mid [B, M, N, F]
+  const void* vw1;  // V W1 [B, M, A, F] (full tier)
+  const void* b1;   // [F] (full tier)
   const void* w2;   // [M, F, F] (in, out)
   const void* b2;   // [M, F]
   const void* scale;
@@ -420,7 +154,7 @@ struct MidParams {
   float eps;
 };
 
-// The geometry of mid_pool_kernel<T>: a CTA's slice of W = kW columns for
+// The geometry of mid_pool_kernel<T, *>: a CTA's slice of W = kW columns for
 // TM rows (the mid slice, [TM, W] in T, is 32 KB in either type), depth
 // chunks of KC, row strides padded by 16 bytes (the 8 rows of an ldmatrix
 // fall into different banks). bf16: 8 warps of 32 x 64, WM x WN, each
@@ -468,12 +202,16 @@ __device__ __forceinline__ int acc_col(int e) {
 }
 
 // the shared-memory carve-up (the same in every CTA, so a peer's buffer is
-// this CTA's address mapped to its rank)
-template <typename T> struct MidSmem {
+// this CTA's address mapped to its rank). Only the full tier keeps a mid
+// slice; the room it leaves the private tier holds a third ring slot (two
+// chunks in flight: 10-12% faster at the BraTS volume, H100 SXM).
+template <typename T, bool kFromMid> struct MidSmem {
   using G = MidGeom<T>;
+  static constexpr int kRing = kFromMid ? 3 : 2;  // slots of the ring
+  static constexpr int MID = kFromMid ? 0 : G::TM * G::LDM;
   static constexpr int SLOT = G::TM * G::LDA + G::KC * G::LDB;
   static constexpr size_t bytes() {
-    return sizeof(T) * (G::TM * G::LDM + kRing * SLOT) +
+    return sizeof(T) * (MID + kRing * SLOT) +
            sizeof(float) * (G::TM * G::LDP + 25 * G::TM + 5 * kW);
   }
   T* mid;       // this CTA's mid slice [TM][LDM], read by every peer
@@ -482,13 +220,13 @@ template <typename T> struct MidSmem {
   float* part;  // [3][TM] this CTA's row partials (sum z, sum z^2, score),
                 // read by every peer
   float* row;   // [6][TM] per row: mean_T, inv_T, max, denominator, alpha, e
-  float* col;   // [5][W] per column of the slice: b1, scale, lnb, ws, b2_m;
-                // zero past F
+  float* col;   // [5][W] per column of the slice: b1 (full tier), scale,
+                // lnb, ws, b2_m; zero past F
   float* pool;  // [TM][LDP] the fp32 mode pool, each element only ever
                 // touched by the thread that holds it in the accumulator
   __device__ explicit MidSmem(unsigned char* smem) {
     mid = reinterpret_cast<T*>(smem);
-    ring = mid + G::TM * G::LDM;
+    ring = mid + MID;
     pool = reinterpret_cast<float*>(ring + kRing * SLOT);
     red = pool + G::TM * G::LDP;
     part = red + 16 * G::TM;
@@ -547,7 +285,7 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[MidGeom<T>::ACC],
 // shared memory into registers (pull) and stored into the ring (put)
 template <typename T>
 __device__ __forceinline__ void pull_mid(uint4 (&v)[MidGeom<T>::PULL],
-                                         const MidSmem<T>& sm, int t) {
+                                         const MidSmem<T, false>& sm, int t) {
   using G = MidGeom<T>;
   constexpr int PER_ROW = G::KC / G::VEC;
   cg::cluster_group cluster = cg::this_cluster();
@@ -576,14 +314,15 @@ __device__ __forceinline__ void put_mid(const uint4 (&v)[MidGeom<T>::PULL],
 // acc += the product of nk depth chunks streamed through the ring. The
 // caller has issued (cp.async, one commit each) the first kRing - 1
 // chunks; issue(t) issues chunk t (an empty commit past the end). kPull:
-// the A chunks are the peers' mid slices, copied by the threads: chunk t +
-// 2 is read from the peer at step t and stored into the ring at step t + 1,
-// so a whole step hides the peer's latency. Ends with every copy landed and
-// a block barrier.
-template <typename T, bool kPull, typename Issue>
+// the A chunks are the peers' mid slices (the full tier's output product),
+// copied by the threads: chunk t + 2 is read from the peer at step t and
+// stored into the ring at step t + 1, so a whole step hides the peer's
+// latency. Ends with every copy landed and a block barrier.
+template <typename T, bool kPull, bool kFromMid, typename Issue>
 __device__ __forceinline__ void run_chunks(float (&acc)[MidGeom<T>::ACC],
-                                           const MidSmem<T>& sm, int nk,
-                                           Issue issue) {
+                                           const MidSmem<T, kFromMid>& sm,
+                                           int nk, Issue issue) {
+  constexpr int kRing = MidSmem<T, kFromMid>::kRing;
   static_assert(kRing >= 2, "a pulled chunk waits a step in registers");
   uint4 v[MidGeom<T>::PULL];
   if constexpr (kPull) {
@@ -610,8 +349,8 @@ __device__ __forceinline__ void run_chunks(float (&acc)[MidGeom<T>::ACC],
 // elements of the row, the row's threads of a warp combine by shuffles,
 // and thread r < TM adds the NG groups in order into part[q TM + r].
 // Starts after, and ends with, block barriers.
-template <typename T, int NQ, typename Fn>
-__device__ __forceinline__ void slice_row_sums(const MidSmem<T>& sm,
+template <typename T, int NQ, bool kFromMid, typename Fn>
+__device__ __forceinline__ void slice_row_sums(const MidSmem<T, kFromMid>& sm,
                                                float* part, Fn f) {
   using G = MidGeom<T>;
   constexpr int TM = G::TM;
@@ -690,13 +429,15 @@ __device__ __forceinline__ void rank_sums(float (&s)[NQ], const float* part,
 }
 
 // One cluster per (image, row tile of TM rows); CTA `rank` owns columns
-// [rank W, rank W + W) of F (the note at the top of this file).
-template <typename T>
+// [rank W, rank W + W) of F (the note at the top of this file). kFromMid:
+// the private tier, mid given in device memory in place of P and VW1.
+template <typename T, bool kFromMid>
 __global__ void __launch_bounds__(kThreads, 1) mid_pool_kernel(MidParams q) {
   using G = MidGeom<T>;
   constexpr int TM = G::TM, KC = G::KC, ACC = G::ACC;
   extern __shared__ __align__(128) unsigned char smem[];
-  const MidSmem<T> sm(smem);
+  const MidSmem<T, kFromMid> sm(smem);
+  constexpr int kRing = MidSmem<T, kFromMid>::kRing;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int C = static_cast<int>(cluster.num_blocks());
@@ -710,7 +451,8 @@ __global__ void __launch_bounds__(kThreads, 1) mid_pool_kernel(MidParams q) {
   const T* B2 = static_cast<const T*>(q.b2);
   for (int c = tid; c < kW; c += kThreads) {
     const bool in = c < wc;
-    sm.col[c] = in ? to_f(static_cast<const T*>(q.b1)[c0 + c]) : 0.f;
+    if constexpr (!kFromMid)
+      sm.col[c] = in ? to_f(static_cast<const T*>(q.b1)[c0 + c]) : 0.f;
     sm.col[kW + c] = in ? to_f(static_cast<const T*>(q.scale)[c0 + c]) : 0.f;
     sm.col[2 * kW + c] = in ? to_f(static_cast<const T*>(q.lnb)[c0 + c]) : 0.f;
     sm.col[3 * kW + c] = in ? to_f(static_cast<const T*>(q.ws)[c0 + c]) : 0.f;
@@ -726,10 +468,24 @@ __global__ void __launch_bounds__(kThreads, 1) mid_pool_kernel(MidParams q) {
   float* denom = sm.row + 3 * TM;
   float* alpha = sm.row + 4 * TM;
   float* weight = sm.row + 5 * TM;
-  const int nka = (A + KC - 1) / KC, nkb = (F + KC - 1) / KC;
-  // chunk t of mode m's P_m[tile] and VW1_m[:, slice]
+  const int nka = kFromMid ? 0 : (A + KC - 1) / KC, nkb = (F + KC - 1) / KC;
+  // chunk t of W2_m[:, slice]
+  auto stage_w2 = [&](int m, int t) {
+    const T* w2 = W2 + (long long)m * F * F + c0;
+    stage_tile<T, KC, kW>(sm.b(t), G::LDB, w2 + (long long)t * KC * F, F,
+                          F - t * KC, wc);
+  };
+  // chunk t of mode m's first product: P_m[tile] and VW1_m[:, slice] (full
+  // tier), or mid_m[tile] and W2_m[:, slice] (private tier)
   auto issue_a = [&](int m, int t) {
-    if (t < nka) {
+    if constexpr (kFromMid) {
+      if (t < nkb) {
+        const T* mg = P + (((long long)b * q.M + m) * q.N + n0) * F;
+        stage_tile<T, TM, KC>(sm.a(t), G::LDA, mg + t * KC, F, rows,
+                              F - t * KC);
+        stage_w2(m, t);
+      }
+    } else if (t < nka) {
       const T* pg = P + (((long long)b * q.M + m) * q.N + n0) * A;
       const T* vg = VW1 + ((long long)b * q.M + m) * A * F + c0;
       stage_tile<T, TM, KC>(sm.a(t), G::LDA, pg + t * KC, A, rows, A - t * KC);
@@ -742,45 +498,48 @@ __global__ void __launch_bounds__(kThreads, 1) mid_pool_kernel(MidParams q) {
   for (int t = 0; t < kRing - 1; ++t) issue_a(0, t);
 
   for (int m = 0; m < q.M; ++m) {
-    if (tid < kW)  // read after the barriers of (a)
+    if (tid < kW)  // read after the barriers of (a) or (b)
       sm.col[4 * kW + tid] = tid < wc ? to_f(B2[(long long)m * F + c0 + tid])
                                      : 0.f;
-    // (a) this CTA's mid slice: gelu(rnd(P_m VW1_m[:, slice]) + b1); its
-    // first chunks were issued before
     float acc[ACC];
 #pragma unroll
     for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
-    run_chunks<T, false>(acc, sm, nka, [&](int t) { issue_a(m, t); });
+    if constexpr (kFromMid) {
+      // (b) z[:, slice] = mid_m[tile] W2_m[:, slice], both operands from
+      // device memory; the first chunks were issued before
+      run_chunks<T, false>(acc, sm, nkb, [&](int t) { issue_a(m, t); });
+    } else {
+      // (a) this CTA's mid slice: gelu(rnd(P_m VW1_m[:, slice]) + b1); its
+      // first chunks were issued before
+      run_chunks<T, false>(acc, sm, nka, [&](int t) { issue_a(m, t); });
 #pragma unroll
-    for (int e = 0; e < ACC; e += G::PAIR) {
-      float g[G::PAIR];
+      for (int e = 0; e < ACC; e += G::PAIR) {
+        float g[G::PAIR];
 #pragma unroll
-      for (int x = 0; x < G::PAIR; ++x) {
-        const float v = rnd<T>(rnd<T>(acc[e + x]) + b1s[acc_col<T>(e + x)]);
-        g[x] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+        for (int x = 0; x < G::PAIR; ++x) {
+          const float v = rnd<T>(rnd<T>(acc[e + x]) + b1s[acc_col<T>(e + x)]);
+          g[x] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+        }
+        T* at = sm.mid + acc_row<T>(e) * G::LDM + acc_col<T>(e);
+        if constexpr (G::PAIR == 2)
+          store_pair(at, g[0], g[1]);
+        else
+          *at = from_f<T>(g[0]);
       }
-      T* at = sm.mid + acc_row<T>(e) * G::LDM + acc_col<T>(e);
-      if constexpr (G::PAIR == 2)
-        store_pair(at, g[0], g[1]);
-      else
-        *at = from_f<T>(g[0]);
+      cluster_arrive();  // the slice is visible to every peer after the wait
+      // (b) z[:, slice] = sum_j mid_j W2_m[slice j, slice], chunks in order;
+      // the first W2 chunks load while the peers finish their slices
+      auto issue_b = [&](int t) {
+        if (t < nkb) stage_w2(m, t);
+        cp_async_commit();
+      };
+#pragma unroll
+      for (int t = 0; t < kRing - 1; ++t) issue_b(t);
+#pragma unroll
+      for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
+      cluster_wait();
+      run_chunks<T, true>(acc, sm, nkb, issue_b);
     }
-    cluster_arrive();  // the slice is visible to every peer after the wait
-    // (b) z[:, slice] = sum_j mid_j W2_m[slice j, slice], chunks in order;
-    // the first W2 chunks load while the peers finish their slices
-    const T* w2 = W2 + (long long)m * F * F + c0;
-    auto issue_b = [&](int t) {
-      if (t < nkb)
-        stage_tile<T, KC, kW>(sm.b(t), G::LDB, w2 + (long long)t * KC * F,
-                              F, F - t * KC, wc);
-      cp_async_commit();
-    };
-#pragma unroll
-    for (int t = 0; t < kRing - 1; ++t) issue_b(t);
-#pragma unroll
-    for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
-    cluster_wait();
-    run_chunks<T, true>(acc, sm, nkb, issue_b);
     // the next mode's first chunks load behind this mode's row phases
     if (m + 1 < q.M)
 #pragma unroll
@@ -860,15 +619,15 @@ __global__ void __launch_bounds__(kThreads, 1) mid_pool_kernel(MidParams q) {
   cluster_wait();
 }
 
-template <typename T>
+template <typename T, bool kFromMid>
 cudaError_t launch_mid_pool(const MidParams& q, int B, int tm,
                             cudaStream_t stream) {
   using G = MidGeom<T>;
   const int C = (q.F + kW - 1) / kW;
   if (tm != G::TM || C > kMaxCluster || q.A % G::VEC || q.F % G::VEC)
     return cudaErrorInvalidValue;
-  constexpr size_t smem = MidSmem<T>::bytes();
-  auto kern = mid_pool_kernel<T>;
+  constexpr size_t smem = MidSmem<T, kFromMid>::bytes();
+  auto kern = mid_pool_kernel<T, kFromMid>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -879,6 +638,12 @@ cudaError_t launch_mid_pool(const MidParams& q, int B, int tm,
   e = cudaLaunchKernelEx(&cfg, kern, q);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <typename T, bool kFromMid>
+cudaError_t mid_pool_occupancy(int C, int* smem, int* clusters) {
+  return occupancy(mid_pool_kernel<T, kFromMid>,
+                   MidSmem<T, kFromMid>::bytes(), C, smem, clusters);
 }
 
 }  // namespace
@@ -899,41 +664,47 @@ int epi_mid_pool(int is_bf16, const void* p, const void* vw1, const void* b1,
   q.M = M; q.N = N; q.A = A; q.F = F;
   q.eps = static_cast<float>(eps);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_bf16 ? launch_mid_pool<bf16>(q, B, tm, st)
-                                  : launch_mid_pool<float>(q, B, tm, st));
-}
-
-// The shared-memory bytes of one CTA of mid_pool_kernel, and how many of
-// its clusters of `cluster` CTAs the card holds at once
-// (cudaOccupancyMaxActiveClusters).
-int epi_mid_pool_occupancy(int is_bf16, int cluster, int* smem_bytes,
-                           int* max_clusters) {
-  if (cluster < 1 || cluster > kMaxCluster)
-    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
-      is_bf16 ? occupancy(mid_pool_kernel<bf16>, MidSmem<bf16>::bytes(),
-                          cluster, smem_bytes, max_clusters)
-              : occupancy(mid_pool_kernel<float>, MidSmem<float>::bytes(),
-                          cluster, smem_bytes, max_clusters));
+      is_bf16 ? launch_mid_pool<bf16, false>(q, B, tm, st)
+              : launch_mid_pool<float, false>(q, B, tm, st));
 }
 
-// fused_private_output_pool: mid [B,M,N,F] -> out [B,N,F];
-// acc_scratch [B,N,F] fp32
+// fused_private_output_pool: mid [B,M,N,F] -> out [B,N,F] (compute type),
+// the same kernel without step (a); `tm` as above.
 int epi_private_pool(int is_bf16, const void* mid, const void* w2,
                      const void* b2, const void* scale, const void* lnb,
-                     const void* ws, const void* bs, void* out,
-                     float* acc_scratch, int B, int M, int N, int F,
-                     double eps, void* stream) {
-  Params q = {};
-  q.mid = mid; q.mid_sb = (long long)M * N * F; q.mid_sm = (long long)N * F;
-  q.w2 = w2; q.b2 = b2; q.scale = scale; q.lnb = lnb; q.ws = ws;
-  q.bs = static_cast<const float*>(bs);
-  q.out = out; q.acc_g = acc_scratch;
-  q.N = N; q.F = F; q.nmodes = M;
+                     const void* ws, const void* bs, void* out, int B, int M,
+                     int N, int F, int tm, double eps, void* stream) {
+  MidParams q = {};
+  q.p = mid; q.w2 = w2; q.b2 = b2; q.scale = scale; q.lnb = lnb; q.ws = ws;
+  q.bs = static_cast<const float*>(bs); q.out = out;
+  q.M = M; q.N = N; q.A = 0; q.F = F;
   q.eps = static_cast<float>(eps);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_bf16 ? launch_private<bf16>(q, B, st)
-                                  : launch_private<float>(q, B, st));
+  return static_cast<int>(
+      is_bf16 ? launch_mid_pool<bf16, true>(q, B, tm, st)
+              : launch_mid_pool<float, true>(q, B, tm, st));
+}
+
+// The shared-memory bytes of one CTA of mid_pool_kernel (the private tier's
+// where from_mid is set), and how many of its clusters of `cluster` CTAs
+// the card holds at once (cudaOccupancyMaxActiveClusters).
+int epi_mid_pool_occupancy(int is_bf16, int from_mid, int cluster,
+                           int* smem_bytes, int* max_clusters) {
+  if (cluster < 1 || cluster > kMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e;
+  if (is_bf16)
+    e = from_mid ? mid_pool_occupancy<bf16, true>(cluster, smem_bytes,
+                                                  max_clusters)
+                 : mid_pool_occupancy<bf16, false>(cluster, smem_bytes,
+                                                   max_clusters);
+  else
+    e = from_mid ? mid_pool_occupancy<float, true>(cluster, smem_bytes,
+                                                   max_clusters)
+                 : mid_pool_occupancy<float, false>(cluster, smem_bytes,
+                                                    max_clusters);
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

@@ -22,9 +22,11 @@ Per mode m (the reference's ExpandedFeatTrans tail, segtran_shared.py
 
 ``fused_mid_output_pool`` and ``fused_mid_output_pool_permode`` compute the
 same function (JAX split the second per mode for TPU VMEM) and launch the
-same cluster kernel, once per call, at the launch shape of ``_epi_plan``.
-See the CUDA source for what bounds the kernels on an H100 and what their
-design does about it.
+same cluster kernel, once per call, at the launch shape of ``_epi_plan``;
+``fused_private_output_pool`` launches that kernel's private tier (mid
+given, no gelu(P VW1 + b1) step), once per call, at its plan. See the CUDA
+source for what bounds the kernel on an H100 and what its design does
+about it.
 """
 from __future__ import annotations
 
@@ -51,9 +53,9 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.epi_mid_pool.argtypes = [_i] + [_vp] * 10 + [_i] * 6 + [_d, _vp]
         lib.epi_mid_pool.restype = _i
-        lib.epi_mid_pool_occupancy.argtypes = [_i] * 2 + [_vp, _vp]
+        lib.epi_mid_pool_occupancy.argtypes = [_i] * 3 + [_vp, _vp]
         lib.epi_mid_pool_occupancy.restype = _i
-        lib.epi_private_pool.argtypes = [_i] + [_vp] * 9 + [_i] * 4 + [_d, _vp]
+        lib.epi_private_pool.argtypes = [_i] + [_vp] * 8 + [_i] * 5 + [_d, _vp]
         lib.epi_private_pool.restype = _i
         lib._typed = True
     return lib
@@ -64,14 +66,17 @@ def supports_full(num_modes: int, feat_dim: int, itemsize: int) -> bool:
     return num_modes * feat_dim * feat_dim * itemsize <= W2_L2_BUDGET
 
 
-_EPI_RING = 2          # slots of mid_pool_kernel's streamed chunks' ring
+# slots of mid_pool_kernel's streamed chunks' ring: full tier, private tier
+_EPI_RING = {False: 2, True: 3}
 _EPI_WIDTH = 256       # columns of a CTA's slice of F (kW in the source)
 
 
 class EpiPlan(NamedTuple):
     """Launch shape of ``mid_pool_kernel`` (``csrc/expansion_epilogue.cu``):
     one cluster of ``cluster`` CTAs per (image, row tile of ``tile`` rows
-    of N); CTA c owns columns ``slices[c]`` of F."""
+    of N); CTA c owns columns ``slices[c]`` of F. ``from_mid``: the private
+    tier (mid given), which keeps no mid slice in shared memory and takes a
+    third ring slot in its place."""
     width: int                   # columns of a CTA's slice
     cluster: int                 # CTAs per cluster
     tile: int                    # rows of a row tile
@@ -79,26 +84,32 @@ class EpiPlan(NamedTuple):
     grid: Tuple[int, int, int]   # (cluster * row tiles, B, 1)
     smem: int                    # bytes per CTA
     waves: int                   # rounds of clusters at one CTA per SM
+    from_mid: bool               # the private tier
 
 
 def _epi_plan(b: int, m: int, n: int, a: int, f: int, dtype,
               sms: int) -> EpiPlan:
-    """The full tier's decomposition: W = 256 columns per CTA, C =
-    ceil(F/W) CTAs per cluster, row tiles of 32 KB / (W * itemsize) rows.
+    """The kernel's decomposition: W = 256 columns per CTA, C = ceil(F/W)
+    CTAs per cluster, row tiles of 32 KB / (W * itemsize) rows. A = 0
+    plans the private tier (mid [B, M, N, F] given; no P, no mid slice).
     Raises ValueError naming the shape where C exceeds 8 or the shared
     memory a CTA."""
-    what = f"expansion epilogue at B={b}, M={m}, N={n}, A={a}, F={f}"
+    from_mid = a == 0
+    what = (f"private expansion epilogue at B={b}, M={m}, N={n}, F={f}"
+            if from_mid else
+            f"expansion epilogue at B={b}, M={m}, N={n}, A={a}, F={f}")
     es, width, cluster, _, _, slices = _cluster_slices(what, f, f, dtype,
                                                        _EPI_WIDTH)
     tile, vec, kc = 32768 // (width * es), 16 // es, 64 if es == 2 else 32
-    smem = (es * (tile * (width + vec)                       # mid slice
-                  + _EPI_RING * (tile * (kc + vec) + kc * (width + vec)))
+    smem = (es * (0 if from_mid else tile * (width + vec))   # mid slice
+            + es * _EPI_RING[from_mid] * (tile * (kc + vec)
+                                          + kc * (width + vec))
             + 4 * (tile * (width + 4)                        # fp32 pool
                    + 25 * tile + 5 * width))  # row partials, stats, params
     _check_smem(what, smem, f, f)
     tiles = -(-n // tile)
     return EpiPlan(width, cluster, tile, slices, (cluster * tiles, b, 1), smem,
-                   -(-b * tiles // max(1, sms // cluster)))
+                   -(-b * tiles // max(1, sms // cluster)), from_mid)
 
 
 def epi_occupancy(plan: EpiPlan, dtype) -> dict:
@@ -107,7 +118,8 @@ def epi_occupancy(plan: EpiPlan, dtype) -> dict:
     builds the kernels. For logging on the card."""
     smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
     rc = _lib().epi_mid_pool_occupancy(int(dtype == torch.bfloat16),
-                                       plan.cluster, ctypes.addressof(smem),
+                                       int(plan.from_mid), plan.cluster,
+                                       ctypes.addressof(smem),
                                        ctypes.addressof(clusters))
     _raise_if(rc, "epi_mid_pool_occupancy")
     return dict(smem=smem.value, max_active_clusters=clusters.value)
@@ -188,10 +200,9 @@ def fused_mid_output_pool_permode_plain(probs, vw1, b1, w2, b2, ln_scale,
 
 def _prep(dt, device, *tensors):
     """Cast to the compute dtype, make contiguous, and check the device.
-    These copies and the kernels' scratch tensors may be freed once the
-    wrapper returns, before the kernel runs: PyTorch's allocator reuses
-    them only for later work on the same stream, which the kernel
-    precedes."""
+    These copies may be freed once the wrapper returns, before the kernel
+    runs: PyTorch's allocator reuses them only for later work on the same
+    stream, which the kernel precedes."""
     out = []
     for t in tensors:
         if t.device != device:
@@ -233,6 +244,32 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
+def _vec(dt) -> int:
+    """Elements of dt in 16 bytes, the kernel's copy unit."""
+    return 16 // (torch.finfo(dt).bits // 8)
+
+
+def _kernel_plan(b, m, n, a, f, dt, dev) -> EpiPlan:
+    """The plan of a launch (A = 0: the private tier), after checking that
+    F is a whole number of 16-byte vectors; raises ValueError naming the
+    shape otherwise, or where the plan refuses it."""
+    _check_dtype(dt)
+    if f % _vec(dt):
+        raise ValueError(f"the kernel needs F to be a multiple of "
+                         f"{_vec(dt)} for {dt}, got B={b}, M={m}, N={n}, "
+                         f"F={f}")
+    return _epi_plan(b, m, n, a, f, dt, _sm_count(dev))
+
+
+def _check_aligned(**operands):
+    """The kernel stages these by 16-byte copies from their first byte."""
+    for name, t in operands.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"the kernel needs {name} to start at a 16-byte "
+                             f"boundary, got address {t.data_ptr():#x} "
+                             f"({name} {tuple(t.shape)})")
+
+
 def _launch_mid_pool(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs,
                      ln_eps):
     """out [B, N, F] from mid_pool_kernel at the plan's launch shape;
@@ -244,24 +281,17 @@ def _launch_mid_pool(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs,
     f = vw1.shape[-1]
     dt, dev = vw1.dtype, vw1.device
     _check_shapes(b, m, n, a, f, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs)
-    _check_dtype(dt)
-    vec = 16 // (torch.finfo(dt).bits // 8)     # elements per 16 bytes
-    if f % vec:
-        raise ValueError(f"the kernel needs F to be a multiple of {vec} for "
-                         f"{dt}, got F={f}")
-    plan = _epi_plan(b, m, n, a, f, dt, _sm_count(dev))
+    plan = _kernel_plan(b, m, n, a, f, dt, dev)
     lib = _lib()
     p, v, b1_, w2_, b2_, sc, lb, ws_ = _prep(dt, dev, probs, vw1, b1, w2, b2,
                                              ln_scale, ln_bias, ws)
+    vec = _vec(dt)
     if a % vec:
         pad = vec - a % vec
         p = torch.nn.functional.pad(p, (0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, pad))
         a += pad
-    for name, t in (("probs", p), ("vw1", v), ("w2", w2_)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"the kernel needs {name} to start at a 16-byte "
-                             f"boundary, got address {t.data_ptr():#x}")
+    _check_aligned(probs=p, vw1=v, w2=w2_)
     bs_ = bs.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty((b, n, f), dtype=dt, device=dev)
     rc = lib.epi_mid_pool(
@@ -304,7 +334,11 @@ def fused_mid_output_pool_permode(probs, vw1, b1, w2, b2, ln_scale, ln_bias,
 def fused_private_output_pool(mid, w2, b2, ln_scale, ln_bias, ws, bs, *,
                               ln_eps: float = 1e-12):
     """mid [B, M, N, F] -> pooled [B, N, F] in mid.dtype. Replaces the Pallas
-    fused_private_output_pool."""
+    fused_private_output_pool. On CUDA: one launch of mid_pool_kernel's
+    private tier, which stages mid and W2 by 16-byte copies: F must be a
+    whole number of 16-byte vectors and at most 2048 (8 CTAs of 256
+    columns), and mid and W2 must start 16-byte aligned; ValueError
+    otherwise."""
     if _on_cpu(mid):
         return fused_private_output_pool_plain(mid, w2, b2, ln_scale, ln_bias,
                                                ws, bs, ln_eps=ln_eps)
@@ -312,19 +346,19 @@ def fused_private_output_pool(mid, w2, b2, ln_scale, ln_bias, ws, bs, *,
     dt, dev = mid.dtype, mid.device
     _check_shapes(b, m, n, 0, f, None, None, w2, b2, ln_scale, ln_bias, ws,
                   bs)
-    _check_dtype(dt)
     lib = _lib()
+    plan = _kernel_plan(b, m, n, 0, f, dt, dev)
     mid_, w2_, b2_, sc, lb, ws_ = _prep(dt, dev, mid, w2, b2, ln_scale,
                                         ln_bias, ws)
+    _check_aligned(mid=mid_, w2=w2_)
     bs_ = bs.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty((b, n, f), dtype=dt, device=dev)
-    acc_s = torch.empty((b, n, f), dtype=torch.float32, device=dev)
     rc = lib.epi_private_pool(
         int(dt == torch.bfloat16), mid_.data_ptr(), w2_.data_ptr(),
         b2_.data_ptr(), sc.data_ptr(), lb.data_ptr(), ws_.data_ptr(),
-        bs_.data_ptr(), out.data_ptr(), acc_s.data_ptr(), b, m, n, f, ln_eps,
+        bs_.data_ptr(), out.data_ptr(), b, m, n, f, plan.tile, ln_eps,
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_if(rc, "fused_private_output_pool")
+    _raise_if(rc, "mid_pool_kernel (private tier)")
     fused_private_output_pool.launches += 1
     return out
 

@@ -10,10 +10,11 @@ chip_smoke makes for it (taken from this checkout's ``chip_smoke.py``):
 
 - ``flash``: ``fused_cross_attention`` at ``chip_smoke.FLASH_CASES`` and
   ``FLASH_FUNDUS_CASES``;
-- ``epilogue``: the full-fusion cases of ``chip_smoke.check_kernels``
+- ``epilogue``: ``chip_smoke.EPILOGUE_CASES``, the full-fusion cases
   (``fused_mid_output_pool_permode`` at F=1792, ``fused_mid_output_pool``
-  at F=896 and 448; B=8, M=4, N=1296, A=256), the whole call, whatever
-  launches it makes.
+  at F=896 and 448; B=8, M=4, N=1296, A=256) and the private tier's
+  (``fused_private_output_pool`` at every mid shape of its paths), the
+  whole call, whatever launches it makes.
 
 Prints one JSON line: the card, DIR, the kernel and the ms of each case.
 Run it once per checkout, in turns (A, B, B, A), inside one command to
@@ -31,10 +32,6 @@ import torch
 
 HERE = Path(__file__).resolve().parents[2]
 MODULES = {"flash": "squeezed_attention", "epilogue": "expansion_epilogue"}
-# chip_smoke.check_kernels's full-fusion cases, with their seeds there
-EPILOGUE_CASES = [("fused_mid_output_pool_permode", 1792, 0),
-                  ("fused_mid_output_pool", 896, 1),
-                  ("fused_mid_output_pool", 448, 2)]
 
 
 def _flash_calls(cs, sa):
@@ -49,11 +46,13 @@ def _flash_calls(cs, sa):
 
 
 def _epilogue_calls(cs, epi):
-    for name, f, seed in EPILOGUE_CASES:
+    for seed, (name, kind, b, m, n, a, f) in enumerate(cs.EPILOGUE_CASES):
         fn = getattr(epi, name)
-        inputs = cs.epilogue_inputs(torch, "mid", 8, 4, 1296, 256, f,
+        inputs = cs.epilogue_inputs(torch, kind, b, m, n, a, f,
                                     torch.bfloat16, seed=seed)
-        yield f"{name} F={f}", lambda: fn(*inputs)
+        label = (f"{name} F={f}" if kind == "mid"
+                 else f"{name} [{b},{m},{n},{f}]")
+        yield label, lambda: fn(*inputs)
 
 
 def main(argv=None) -> int:

@@ -177,23 +177,20 @@ def test_cuda_wrapper_pads_a_ragged_a_with_zeros(monkeypatch):
     assert (v[:, :, :42] == 1).all() and (v[:, :, 42:] == 0).all()
 
 
-def emulate_kernel(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs, plan,
-                   ln_eps=1e-12):
-    """mid_pool_kernel's decomposition in plain PyTorch: per image and row
-    tile of the plan, per mode, the mid slice of each CTA (gelu of the
-    product rounded to T plus b1, rounded once), z of each slice as the sum
-    over the slices j in order of mid_j W2[slice j, slice c], rounded with
-    b2; the LayerNorm sums and the score partials of the slices summed in
-    rank order; l in T; the online softmax pool over the modes in mode
-    order; out = pool / denominator rounded to T."""
-    dt = vw1.dtype
-    bsz, m, n, _ = probs.shape
-    f = vw1.shape[-1]
-
+def emulate_steps(mid_tile, chunks, w2, b2, ln_scale, ln_bias, ws, bs,
+                  plan, bsz, n, dt, ln_eps=1e-12):
+    """Steps (b)-(d) of mid_pool_kernel in plain PyTorch, which both tiers
+    share: per image and row tile of the plan, per mode, z of each column
+    slice as the sum over the depth chunks in order of mid[:, chunk]
+    W2[chunk, slice], rounded with b2; the LayerNorm sums and the score
+    partials of the slices summed in rank order; l in T; the online softmax
+    pool over the modes in mode order; out = pool / denominator rounded to
+    T. mid_tile(b, mode, rows) gives the tile's mid [rows, F] (fp32 holding
+    T values); chunks are (start, stop) depth ranges covering F."""
     def rnd(x):
         return x.to(dt).float()
-    w2, b2 = rnd(w2), rnd(b2)
-    b1, scale, lnb = rnd(b1), rnd(ln_scale), rnd(ln_bias)
+    m, f = w2.shape[0], w2.shape[-1]
+    w2, b2, scale, lnb = rnd(w2), rnd(b2), rnd(ln_scale), rnd(ln_bias)
     wsv, bsv = rnd(ws)[:, 0], bs.float().reshape(())
     sl = plan.slices
     out = torch.empty(bsz, n, f, dtype=dt)
@@ -203,15 +200,12 @@ def emulate_kernel(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs, plan,
             run_max = denom = None
             pool = [None] * len(sl)
             for mode in range(m):
-                p = rnd(probs[b, mode, rows])
-                v = rnd(vw1[b, mode])
-                mid = [epi._gelu_erf((rnd(p @ v[:, lo:hi]) + b1[lo:hi])
-                                     .to(dt)).float() for lo, hi in sl]
+                mid = mid_tile(b, mode, rows)
                 z = []
                 for lo, hi in sl:
-                    acc = torch.zeros(p.shape[0], hi - lo)
-                    for (jlo, jhi), mid_j in zip(sl, mid):
-                        acc = acc + mid_j @ w2[mode, jlo:jhi, lo:hi]
+                    acc = torch.zeros(mid.shape[0], hi - lo)
+                    for klo, khi in chunks:
+                        acc = acc + mid[:, klo:khi] @ w2[mode, klo:khi, lo:hi]
                     z.append(rnd(rnd(acc) + b2[mode, lo:hi]))
                 tot = sq = 0.0
                 for zc in z:                       # rank order
@@ -238,6 +232,29 @@ def emulate_kernel(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs, plan,
                             for pc, lc in zip(pool, ls)]
             out[b, rows] = (torch.cat(pool, -1) / denom[:, None]).to(dt)
     return out
+
+
+def emulate_kernel(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs, plan,
+                   ln_eps=1e-12):
+    """mid_pool_kernel's full tier in plain PyTorch: the mid slice of each
+    CTA (gelu of the product rounded to T plus b1, rounded once), then
+    steps (b)-(d) with the output product summed over the slices j in
+    order (mid_j W2[slice j, slice c])."""
+    dt = vw1.dtype
+    bsz, _, n, _ = probs.shape
+
+    def rnd(x):
+        return x.to(dt).float()
+    b1 = rnd(b1)
+
+    def mid_tile(b, mode, rows):
+        p = rnd(probs[b, mode, rows])
+        v = rnd(vw1[b, mode])
+        return torch.cat([epi._gelu_erf((rnd(p @ v[:, lo:hi]) + b1[lo:hi])
+                                        .to(dt)).float()
+                          for lo, hi in plan.slices], -1)
+    return emulate_steps(mid_tile, plan.slices, w2, b2, ln_scale, ln_bias,
+                         ws, bs, plan, bsz, n, dt, ln_eps)
 
 
 def _inputs(b, m, n, a, f, seed):
