@@ -63,9 +63,13 @@ Phases, each of which fails the run:
 7. mbconv -- the fused MBConv front-half kernel against its plain version
    at the five eff-b4 288^2 shapes the fused-eval gate admits, a stride-2
    and an expand_ratio-1 block, at batch 8 in bf16 and fp32 (TF32 off),
-   timed beside its plain version and the unfused module chain; the eff-b4
-   backbone at stem stride 1, 288^2, bf16, with fused_eval on and off at
-   batch 8 and 32 (17 launches per forward, endpoints agree); phase 3's
+   timed beside its plain version and the unfused module chain, each with
+   its launch plan, which must match the built kernel's shared memory
+   (blocks per SM beside it), and the kernel's ptxas report (registers,
+   spills); the eff-b4 backbone at stem stride 1, 288^2, bf16, with
+   fused_eval on and off at batch 8 and 32 (17 launches per forward,
+   endpoints agree), each forward also profiled (device busy, device
+   operations, mbconv_front's share); phase 3's
    batch through the served model with its backbone's fused_eval set (a
    measurement); the fundus Segtran2d train step at full width through
    make_train_step (bs 6 with remat_blocks, bs 24 without: ms per step,
@@ -703,12 +707,15 @@ def profile_forward(torch, fn, label, groups):
                     if any(s in r[2] for s in ((k,) if isinstance(k, str)
                                                else k)))
              for g, k in groups.items()}
+    ops = sum(r[1] for r in rows)
     log(f"[profile] {label}: wall {wall_ms:.3f} ms under the "
-        f"profiler, device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%); "
+        f"profiler, device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
+        f"{ops} device operations; "
         + ", ".join(f"{g} {v:.3f} ms" for g, v in split.items()))
     for ms, count, key in rows[:15]:
         log(f"[profile]   {ms:9.3f} ms  x{count:<4d} {key[:110]}")
     return dict(profile_wall_ms=wall_ms, profile_device_busy_ms=busy,
+                profile_device_ops=ops,
                 **{f"profile_{g.replace(' ', '_')}_ms": v
                    for g, v in split.items()})
 
@@ -1284,6 +1291,8 @@ MBCONV_BATCH = 8
 BACKBONE_ERR_RATIO = 1.5
 # eff-b4 288^2 at stem stride 1: blocks the fused-eval gate admits
 MBCONV_PER_FORWARD = 17
+# mbconv_front's kernels in a profile (the block kernel, the SE mean pass)
+MBCONV_KERNELS = ("mbconv_kernel", "se_mean_kernel")
 
 
 def mbconv_inputs(torch, spec, h, dt, seed):
@@ -1304,7 +1313,9 @@ def mbconv_inputs(torch, spec, h, dt, seed):
     s1, b1 = aff()
     w_exp = (rn(cin, cexp, s=1 / math.sqrt(cin)).to(dt)
              if spec.expand_ratio != 1 else None)
-    w_dw = rn(k, k, cexp, s=1 / k).to(dt)
+    # fp32 holding compute-dtype values, the kernel's type (as the model
+    # passes it)
+    w_dw = rn(k, k, cexp, s=1 / k).to(dt).float()
     if w_exp is None:
         s0 = b0 = None
     return [x, w_exp, s0, b0, w_dw, s1, b1]
@@ -1323,16 +1334,36 @@ def mbconv_unfused(torch, F, args, spec):
         e = F.silu(e * s0.to(dt).view(-1, 1, 1) + b0.to(dt).view(-1, 1, 1))
     (pt, pb), (pl, pr) = spec.pad
     e = F.conv2d(F.pad(e, (pl, pr, pt, pb)),
-                 w_dw.permute(2, 0, 1).unsqueeze(1), stride=spec.stride,
+                 w_dw.to(dt).permute(2, 0, 1).unsqueeze(1), stride=spec.stride,
                  groups=cexp)
     e = F.silu(e * s1.to(dt).view(-1, 1, 1) + b1.to(dt).view(-1, 1, 1))
     return e, e.mean((2, 3))
 
 
+def mbconv_plan(torch, mb, spec, h, dt):
+    """The plan of a case and the built kernel's shared memory and blocks
+    per SM, which must agree with it."""
+    cin, k, st = spec.in_filters, spec.kernel, spec.stride
+    expand = spec.expand_ratio != 1
+    plan = mb._mb_plan(MBCONV_BATCH, h, h, cin, cin * spec.expand_ratio, k,
+                       st, spec.pad, dt, torch.cuda.get_device_properties(
+                           0).multi_processor_count, expand)
+    wo = mb._out_size(h, h, k, st, spec.pad)[1]
+    occ = mb.mb_occupancy(plan, dt, k, st, h, cin, spec.pad[1][0], wo, expand)
+    if occ["smem"] != plan.smem or occ["blocks_per_sm"] < plan.blocks_per_sm:
+        fail(f"mbconv_front kernel at H={h} k={k}: built shared memory "
+             f"{occ}, plan {plan}")
+    return dict(rows=plan.rows, grid=list(plan.grid), run=plan.nr,
+                ring=plan.ring, smem=plan.smem, waves=plan.waves,
+                plan_blocks_per_sm=plan.blocks_per_sm,
+                blocks_per_sm=occ["blocks_per_sm"])
+
+
 def check_mbconv(torch, mb):
     """The kernel against its plain version at every case, bf16 and fp32
     (TF32 off), with CUDA-event times of the kernel, the plain version and
-    the unfused module chain."""
+    the unfused module chain, each case's plan and the built kernel's
+    shared memory and blocks per SM."""
     import torch.nn.functional as F
     from segtran_tpu_torch.nn.backbones.efficientnet import build_block_specs
     blocks = build_block_specs("eff-b4", 1)[0]
@@ -1374,8 +1405,10 @@ def check_mbconv(torch, mb):
                          for t in args if t is not None)
             nbytes += out.numel() * out.element_size() + se.numel() * 4
             t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
+            plan = mbconv_plan(torch, mb, spec, h, dt)
             row = dict(name="mbconv_front", case=label, dtype=dname,
                        shape=[b, hh, ww, cin, cexp, spec.kernel, spec.stride],
+                       plan=plan,
                        max_abs_err=max_err, mean_abs_err=mean_err,
                        max_rel_err=rel_err, se_max_rel_err=se_err,
                        ms=ms, plain_ms=plain_ms, unfused_chain_ms=unfused_ms,
@@ -1388,7 +1421,8 @@ def check_mbconv(torch, mb):
                 f"{mean_err:.3e}, SE mean {se_err:.3e} (tol {tol_max:g}/"
                 f"{tol_mean:g}); repeatable {repeat}; kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, unfused chain {unfused_ms:.4f} ms, "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); plan "
+                f"{plan}")
             if not (rel_err <= tol_max and mean_err <= tol_mean
                     and se_err <= tol_max and repeat):
                 fail(f"mbconv_front {label} {dname} disagrees with its plain "
@@ -1396,6 +1430,12 @@ def check_mbconv(torch, mb):
             del args, out, ref, again
         torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True
+    from segtran_tpu_torch.kernels import _build
+    report = [ln.strip()
+              for ln in _build.BUILD_LOG.get("mbconv", "").splitlines()
+              if "registers" in ln or "spill" in ln or "Compiling" in ln]
+    for ln in report or ["(built before this process: no ptxas report)"]:
+        log(f"[mbconv] ptxas: {ln}")
     return results
 
 
@@ -1464,6 +1504,11 @@ def backbone_fused(torch, mb):
             del got, truth, unfused
             ms_f = cuda_ms(torch, lambda: fused(x), iters=5)
             ms_u = cuda_ms(torch, lambda: plain(x), iters=5)
+            prof = {name: profile_forward(
+                torch, lambda m=m: (m(x), torch.cuda.synchronize()),
+                f"eff-b4 288^2 backbone B={b} bf16 {name}",
+                {"mbconv_front": MBCONV_KERNELS})
+                for name, m in (("fused", fused), ("unfused", plain))}
         log(f"[mbconv] eff-b4 288^2 backbone B={b} bf16: {launches[b]} "
             f"mbconv_front launches per forward (want "
             f"{MBCONV_PER_FORWARD}); endpoints against the fp32 backbone "
@@ -1483,7 +1528,7 @@ def backbone_fused(torch, mb):
             fail("the fused backbone disagrees with the unfused one")
         perf[f"bs{b}"] = dict(fused_ms=ms_f, unfused_ms=ms_u,
                               fused_err_vs_fp32=e_f, unfused_err_vs_fp32=e_u,
-                              fused_vs_unfused=e_fu)
+                              fused_vs_unfused=e_fu, profile=prof)
         del x
     torch.backends.cudnn.allow_tf32 = True
     del fused, plain, exact

@@ -1,9 +1,10 @@
 // Device helpers shared by the cluster kernels of squeezed_attention.cu and
-// expansion_epilogue.cu: 256-thread blocks, cp.async staging, ldmatrix and
-// mma.sync m16n8k16 (bf16 operands, fp32 accumulators), cluster barriers,
-// and the launch configuration and occupancy query of a thread-block
-// cluster. Each .cu builds into its own library; this header is included by
-// both and hashed into their build keys (kernels/_build.py).
+// expansion_epilogue.cu, and by mbconv.cu: 256-thread blocks, cp.async
+// staging, ldmatrix and mma.sync m16n8k16 (bf16 operands, fp32
+// accumulators), cluster barriers, and the launch configuration and
+// occupancy query of a thread-block cluster. Each .cu builds into its own
+// library; this header is included by all three and hashed into their
+// build keys (kernels/_build.py).
 
 #pragma once
 

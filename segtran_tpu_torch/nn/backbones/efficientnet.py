@@ -218,6 +218,8 @@ class MBConvBlock(nn.Module):
             self._se_expand = _Conv(nsq, expanded, 1, bias=True)
         self._project_conv = _Conv(expanded, s.out_filters, 1)
         self._bn2 = FoldedBatchNorm(s.out_filters)
+        # the fused eval's kernel operands: (sources, their state, operands)
+        self._front_cache = None
 
     def forward(self, x):                        # NCHW, compute dtype
         s, dt = self.spec, self.dtype
@@ -244,20 +246,46 @@ class MBConvBlock(nn.Module):
         se = F.silu(self._se_reduce.run(mean, dt))
         return torch.sigmoid(self._se_expand.run(se, dt)) * x
 
+    def _front_operands(self):
+        """``mbconv_front``'s operands in the kernel's types, contiguous:
+        w_exp [Cin, Cexp] in the compute dtype, the folded BatchNorms in
+        fp32, w_dw [k, k, Cexp] fp32 holding compute-dtype values (as the
+        unfused path rounds it). Built once and kept while every source
+        tensor is the same object with the same version, dtype and device,
+        so load_state_dict, an in-place edit, .to() and .cuda() rebuild it
+        (the cache holds the sources, so a replaced one cannot pass for
+        them); not kept while a source is an inference tensor (it has no
+        version)."""
+        s, dt = self.spec, self.dtype
+        src = [self._expand_conv.weight, self._depthwise_conv.weight]
+        for bn in (self._bn0, self._bn1):
+            src += [bn.weight, bn.bias, bn.running_mean, bn.running_var]
+        keep = not any(t.is_inference() for t in src)
+        state = ([(t._version, t.dtype, t.device) for t in src] if keep
+                 else None)
+        cache = self._front_cache
+        if keep and cache is not None and cache[1] == state \
+                and all(a is t for a, t in zip(cache[0], src)):
+            return cache[2]
+        expanded = s.in_filters * s.expand_ratio
+        with torch.inference_mode(False), torch.no_grad():
+            w_exp = self._expand_conv.weight.reshape(expanded, s.in_filters)
+            w_dw = self._depthwise_conv.weight.reshape(
+                expanded, s.kernel, s.kernel).permute(1, 2, 0)
+            ops = (w_exp.t().to(dt).contiguous(), *self._bn0.folded(),
+                   w_dw.to(dt).float().contiguous(), *self._bn1.folded())
+        if keep:
+            self._front_cache = (src, state, ops)
+        return ops
+
     def _fused_eval(self, x):
         """The eval forward through ``mbconv_front`` (JAX
         ``_fused_eval_call``): the kernel reads the channels-last input
         through an NHWC view and gives the depthwise output and the SE
         mean; SE scaling, project, BN2 and the residual stay in PyTorch."""
         s, dt = self.spec, self.dtype
-        expanded = s.in_filters * s.expand_ratio
-        w_exp = self._expand_conv.weight.reshape(expanded, s.in_filters).t()
-        s0, b0 = self._bn0.folded()
-        w_dw = self._depthwise_conv.weight.reshape(
-            expanded, s.kernel, s.kernel).permute(1, 2, 0)
-        s1, b1 = self._bn1.folded()
         dw, se_mean = mbconv_front(
-            x.permute(0, 2, 3, 1), w_exp.to(dt), s0, b0, w_dw.to(dt), s1, b1,
+            x.permute(0, 2, 3, 1), *self._front_operands(),
             kernel=s.kernel, stride=s.stride, pad=s.pad)
         dw = dw.permute(0, 3, 1, 2)
         if self.has_se:
