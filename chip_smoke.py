@@ -14,9 +14,13 @@ Phases, each of which fails the run:
    the private tier (one launch of the same kernel's private tier) at
    every shape its paths give it: mid [1,4,8640,1024] and [1,4,18000,1024]
    (the BraTS volumes), [2,4,1296,F] (the non-reassociated forward) and
-   [8,4,1296,F] (the --fused serving forward), F = 1792, 896, 448, each
-   timed beside the unfused module chain (private output linear,
-   LayerNorm, learned soft aggregate); and the flash cross-attention
+   [8,4,1296,F] (the --fused serving forward), F = 1792, 896, 448, and
+   the full tier at the BraTS volume without --fused (P [1,4,8640,1024]),
+   each timed beside the unfused module chain (for the full tier the
+   shared mid first; then private output linear, LayerNorm, learned soft
+   aggregate) with the function epilogue_route picks for the shape: the
+   fp32 rows are the numbers its fp32 routes rest on; and the flash
+   cross-attention
    kernel at the BraTS in/out-squeeze shapes
    (N=8640 and 18000 tokens), a ragged shape, a clamp case and the fundus
    layer-0 in/out-squeeze (D=F=1792; D=448, F=1792), in bf16 and fp32
@@ -76,6 +80,20 @@ Phases, each of which fails the run:
    peak memory, one profiled step) and one fp32 step with remat_blocks on
    against off (loss, gradients, running statistics updated once).
 
+8. fundus CLI -- cli/train2d's train() at the flagship's full width (eff-b4,
+   3 translayers 1792->1792->896->448, 4 modes, 256 attractors, bf16, bs 6,
+   the default augmentation, remat_blocks by resolve_remat_blocks) on 24
+   synthetic 576^2 REFUGE-like frames held in memory, 6 steps to
+   iter_6.pt; the CLI step's ms per step, peak memory and the label map +
+   augmentation + resize share of its device time beside make_train_step
+   alone (and phase 7's bs-6 step); step.augment on the card against the
+   same draws on CPU tensors; then cli/test2d's evaluate_checkpoint on
+   iter_6.pt over 8 frames at --bs 8 --vcdr with --fusedepi (1 per-mode +
+   2 all-modes launches per batch forward), with the unfused modules, and
+   with --fused --fusedepi (6 flash + 3 private-tier launches); per-class
+   Dice, vCDR error and seconds per frame of each; probabilities within
+   MODEL_TOL and per-class Dice within 0.01 of the unfused modules.
+
 Before the last line it prints a JSON object with the fundus train step's
 and the fused backbone's numbers, one with the per-kernel numbers, and the
 card's ``name, power.limit``; the last line is
@@ -130,7 +148,10 @@ EPILOGUE_CASES = [
     ("fused_private_output_pool", "private", 2, 4, 1296, 0, 448),
     ("fused_private_output_pool", "private", 8, 4, 1296, 0, 1792),
     ("fused_private_output_pool", "private", 8, 4, 1296, 0, 896),
-    ("fused_private_output_pool", "private", 8, 4, 1296, 0, 448)]
+    ("fused_private_output_pool", "private", 8, 4, 1296, 0, 448),
+    # the full tier at the BraTS whole volume without --fused (P
+    # [1,4,8640,1024]), the route's per-mode tier in bf16 and fp32
+    ("fused_mid_output_pool_permode", "mid", 1, 4, 8640, 1024, 1024)]
 
 
 def log(msg):
@@ -235,18 +256,24 @@ def products_call(torch, kind, args):
     return lambda: torch.matmul(torch.matmul(probs, vw1), w2)
 
 
-def unfused_private_call(torch, args):
-    """The private tier's function through the model's unfused modules,
-    the path JAX takes where its VMEM gate refuses the fused tier: the
+def unfused_call(torch, kind, args):
+    """The function through the model's unfused modules, the path
+    ``epilogue_route`` takes as "unfused": for the full tier the shared
+    mid (P VW1 + b1, gelu: MMSharedMid's "post" stage) first; then the
     private output linear (MMPrivateOutput, residual dropped) with its
-    LayerNorm, then the learned soft aggregate over the modes. A yardstick,
+    LayerNorm and the learned soft aggregate over the modes. A yardstick,
     several PyTorch calls."""
     from segtran_tpu_torch.nn.attention import (LearnedSoftAggregate,
-                                                MMPrivateOutput)
-    mid, w2, b2, scale, lnb, ws, bs = args
-    m, f, dt = mid.shape[1], mid.shape[-1], mid.dtype
-    out = MMPrivateOutput(m, f, False, 1e-12, dt).to(mid.device).eval()
-    agg = LearnedSoftAggregate(f, 1, dt).to(mid.device).eval()
+                                                MMPrivateOutput, MMSharedMid)
+    if kind == "private":
+        act, (w2, b2, scale, lnb, ws, bs) = args[0], args[1:]
+    else:
+        act, (b1, w2, b2, scale, lnb, ws, bs) = args[:2], args[2:]
+    m, f, dt = w2.shape[0], w2.shape[-1], args[0].dtype
+    dev = w2.device
+    out = MMPrivateOutput(m, f, False, 1e-12, dt).to(dev).eval()
+    agg = LearnedSoftAggregate(f, 1, dt).to(dev).eval()
+    shared = MMSharedMid(f, dt).to(dev).eval()
     with torch.no_grad():
         out.group_linear.weight.copy_(w2)
         out.group_linear.bias.copy_(b2)
@@ -254,9 +281,13 @@ def unfused_private_call(torch, args):
         out.resout_norm_layer.bias.copy_(lnb)
         agg.feat2score.weight.copy_(ws.t())
         agg.feat2score.bias.copy_(bs)
+        if kind != "private":
+            shared.shared_linear.bias.copy_(b1)
 
     def call():
         with torch.inference_mode():
+            mid = act if kind == "private" else shared(
+                torch.matmul(act[0], act[1]), stage="post")
             return agg(out(mid, None))
     return call
 
@@ -289,20 +320,18 @@ def check_kernels(torch, epi):
             plain_ms = cuda_ms(torch, lambda: plain(*args), iters=3)
             products_ms = cuda_ms(torch, products_call(torch, kind, args),
                                   iters=5)
-            unfused_ms = None
-            if kind == "private":
-                unfused = unfused_private_call(torch, args)
-                unfused_err = float((unfused().float() - ref.float()).abs()
-                                    .max())
-                unfused_ms = cuda_ms(torch, unfused, iters=5)
-                del unfused
+            unfused = unfused_call(torch, kind, args)
+            unfused_err = float((unfused().float() - ref.float()).abs().max())
+            unfused_ms = cuda_ms(torch, unfused, iters=5)
+            del unfused
+            route = epi.epilogue_route(kind, m, a, f, dt)
             flops, nbytes = epilogue_work(kind, b, m, n, a, f, args)
             t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
             row = dict(name=name, dtype=dname, shape=[b, m, n, a, f],
                        max_abs_err=max_err, mean_abs_err=mean_err,
                        max_rel_err=rel_err,
                        ms=ms, plain_ms=plain_ms, products_ms=products_ms,
-                       unfused_ms=unfused_ms,
+                       unfused_ms=unfused_ms, route=route,
                        bound_ms=max(t_ops, t_bytes) * 1e3,
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
                        flop=flops, bytes=nbytes, repeatable=repeat,
@@ -315,8 +344,8 @@ def check_kernels(torch, epi):
                 f"{'bit-identical' if repeat else 'DIFFERS'}; kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, products alone "
                 f"(torch.matmul) {products_ms:.4f} ms, "
-                + (f"unfused module chain {unfused_ms:.4f} ms (max |chain - "
-                   f"plain| {unfused_err:.3e}), " if unfused_ms else "")
+                + f"unfused module chain {unfused_ms:.4f} ms (max |chain - "
+                f"plain| {unfused_err:.3e}; epilogue_route: {route}), "
                 + f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
                 f"library_ms null: no single PyTorch call computes this "
                 f"function")
@@ -1711,6 +1740,263 @@ def fundus_training(torch):
     return perf
 
 
+# ------------------------------------------------------------ phase 8 ----
+
+FUNDUS_CLI_ARGV = ["--task", "fundus", "--bb", "eff-b4", "--translayers", "3",
+                   "--layercompress", "1,1,2,2", "--attractors", "256",
+                   "--bf16", "--device", "cuda"]
+CLI_TRAIN_FRAMES, CLI_EVAL_FRAMES, CLI_STEPS, CLI_BS = 24, 8, 6, 6
+# the augmentation on the card against the same draws on the CPU: images
+# in fp32 (bilinear resizes and mean reductions sum in other orders),
+# masks exactly (index gathers)
+AUG_TOL = 1e-5
+DICE_TOL = 0.01
+
+
+def synthetic_fundus(np, n, seed, size=576):
+    """n REFUGE-like frames held in memory: a dark fundus with a bright
+    optic disc and a brighter cup as nested ellipses; raw masks 255
+    background, 128 disc, 0 cup (the card's machine has no Pillow to read
+    PNG files). Samples follow data/datasets2d.py's schema."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:size, :size].astype(np.float32)
+    frames = []
+    for i in range(n):
+        cy, cx = rng.uniform(0.35, 0.65, 2) * size
+        ry, rx = rng.uniform(0.12, 0.22, 2) * size
+        r = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2
+        cup = rng.uniform(0.15, 0.45)
+        mask = np.full((size, size), 255, np.uint8)
+        mask[r < 1] = 128
+        mask[r < cup] = 0
+        base = rng.uniform(0.2, 0.5, 3).astype(np.float32)
+        image = (base + 0.3 * (r < 1)[..., None] + 0.2 * (r < cup)[..., None]
+                 + 0.05 * rng.randn(size, size, 3)).clip(0, 1)
+        frames.append({
+            "image": image.astype(np.float32), "mask": mask[..., None],
+            "index": i, "crop_pos": np.array([0, 0]),
+            "unscaled_size": np.array([size, size]),
+            "uncropped_size": np.asarray((2056, 2124))})
+
+    class Frames(list):
+        image_list = [f"synthetic{i:03d}.png" for i in range(n)]
+    return Frames(frames)
+
+
+def cli_augment_check(torch, train2d, step, args, task, frames):
+    """step.augment on the card against the same draws on CPU tensors."""
+    import numpy as np
+    from segtran_tpu_torch.data.augment import draw_2d
+    batch = {k: torch.from_numpy(np.stack([f[k] for f in frames[:CLI_BS]]))
+             for k in ("image", "mask")}
+    stand_in = torch.nn.Linear(1, 1)      # augment touches no model
+    cpu_step = train2d.make_step(stand_in, torch.optim.SGD(
+        stand_in.parameters(), lr=0.0), args, task, torch.device("cpu"))
+    mean, std = train2d.load_stats(args, "train")
+    cfg = train2d.aug_config(args, mean, std)
+    draws = draw_2d(CLI_BS, cfg, torch.Generator(device="cuda").manual_seed(7))
+    on_card = step.augment({k: v.cuda() for k, v in batch.items()}, draws)
+    on_cpu = cpu_step.augment(batch, {k: v.cpu() for k, v in draws.items()})
+    img_err = float((on_card["image"].cpu() - on_cpu["image"]).abs().max())
+    mask_same = bool(torch.equal(on_card["mask"].cpu(), on_cpu["mask"]))
+    turned = int((draws["rot_k"] > 0).sum())
+    log(f"[fundus_cli] step.augment on the card vs the CPU, same draws "
+        f"({turned} of {CLI_BS} turned, {int(draws['crop_pad'].sum())} "
+        f"zoomed): images max |err| {img_err:.3e} (tol {AUG_TOL:g}), masks "
+        f"{'equal' if mask_same else 'DIFFER'}")
+    if img_err > AUG_TOL or not mask_same:
+        fail("the augmentation on the card disagrees with the CPU")
+    return dict(aug_card_vs_cpu_max_abs=img_err)
+
+
+def cli_step_perf(torch, train2d, model, args, task, frames):
+    """The CLI step (label map, augmentation, resize, train step) at bs 6
+    on a fixed batch: ms per step on the host clock (3 steps after a warm
+    one, ending in a synchronise), peak memory; profiled device time of
+    one step and of its augmentation alone (their ratio: the augmentation
+    share); make_train_step alone on the augmented batch, on the same
+    model and optimizer, timed the same way. Returns (numbers, step)."""
+    import numpy as np
+    from segtran_tpu_torch.train.trainer import (build_optimizer,
+                                                 make_loss_fn,
+                                                 make_train_step)
+    dev = torch.device("cuda")
+    opt = build_optimizer(model, lr=2e-4, decay=1e-4, t_total=100,
+                          warmup_ratio=0.05)
+    step = train2d.make_step(model, opt, args, task, dev)
+    batch = {k: torch.from_numpy(np.stack([f[k] for f in frames[:CLI_BS]]))
+             .to(dev) for k in ("image", "mask")}
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [fn() for _ in range(3)]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 3 * 1e3, out
+
+    torch.cuda.reset_peak_memory_stats()
+    ms, outs = timed(lambda: step(batch))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    finite = all(bool(torch.isfinite(m["loss"])) for m in outs)
+    aug_ms, _ = timed(lambda: step.augment(batch))
+    base = make_train_step(model, opt, make_loss_fn(
+        3, task["bce_weight"], dice_w=args.max_dice_w), grad_clip=0.1)
+    augmented = step.augment(batch)
+    base_ms, _ = timed(lambda: base(augmented))
+    prof_step = profile_forward(
+        torch, lambda: (step(batch), torch.cuda.synchronize()),
+        "one train2d CLI step bs6", {"index gathers": "index",
+                                     "resizes": "upsample_bilinear"})
+    prof_aug = profile_forward(
+        torch, lambda: (step.augment(batch), torch.cuda.synchronize()),
+        "its label map + augmentation + resize alone",
+        {"index gathers": "index"})
+    share = (prof_aug.get("profile_device_busy_ms", 0.0)
+             / max(prof_step.get("profile_device_busy_ms", 0.0), 1e-9))
+    log(f"[fundus_cli] train2d step bs{CLI_BS}: {ms:.2f} ms per step, "
+        f"peak {peak:.2f} GB, losses {[float(m['loss']) for m in outs]}; "
+        f"label map + augmentation + resize {aug_ms:.2f} ms alone on the "
+        f"host clock, {100 * share:.1f}% of the step's device time; "
+        f"make_train_step alone on the augmented batch {base_ms:.2f} ms")
+    if not finite:
+        fail("a train2d step's loss is not finite")
+    return dict(ms_per_step=ms, peak_mem_gb=peak, augment_ms=aug_ms,
+                augment_device_share=share, make_train_step_ms=base_ms,
+                step_profile=prof_step, augment_profile=prof_aug), step
+
+
+def cli_eval(torch, test2d, ckpt, frames, extra, epi, sa, logger):
+    """test2d.evaluate_checkpoint at the flagship on iter_6.pt with the
+    given flags: (per-class Dice + vCDR error, probabilities, launches,
+    seconds per frame of a second call)."""
+    import numpy as np
+    from segtran_tpu_torch.infer.sliding import sliding_window_2d
+    from segtran_tpu_torch.train.checkpoint import load_checkpoint
+    from segtran_tpu_torch.cli import train2d
+    args = test2d.build_argparser().parse_args(
+        FUNDUS_CLI_ARGV + ["--cpdir", ckpt, "--iters", str(CLI_STEPS),
+                           "--bs", str(CLI_EVAL_FRAMES), "--vcdr"] + extra)
+    task = train2d.task_settings(args)
+    model, cfg = test2d.build_model(args, task)
+    model.load_state_dict(load_checkpoint(os.path.join(
+        ckpt, f"iter_{CLI_STEPS}"), cfg), strict=True)
+    model = model.cuda().eval()
+    mean, std = train2d.load_stats(args, "train")
+    dev = torch.device("cuda")
+    epi.reset_launches()
+    sa.reset_launches()
+    result = test2d.evaluate_checkpoint(model, frames, task, args, logger,
+                                        mean, std, dev)
+    launches = {fn.__name__: fn.launches for fn in (
+        epi.fused_mid_output_pool_permode, epi.fused_mid_output_pool,
+        epi.fused_private_output_pool, sa.fused_cross_attention)}
+    t0 = time.perf_counter()
+    test2d.evaluate_checkpoint(model, frames, task, args, logger, mean, std,
+                               dev)
+    s_per_frame = (time.perf_counter() - t0) / len(frames)
+    fn = test2d.make_model_fn(model, mean, std, args.gray_alpha, dev)
+    x = torch.from_numpy(np.stack([f["image"] for f in frames])).to(dev)
+    with torch.inference_mode():
+        probs = sliding_window_2d(fn, x, tuple(task["orig_input_size"]),
+                                  tuple(task["patch_size"]),
+                                  num_classes=3).cpu().numpy()
+    del model
+    torch.cuda.empty_cache()
+    return result, probs, launches, s_per_frame
+
+
+def fundus_cli(torch, np, epi, sa, ckdir, logger, make_train_step_ms=None):
+    """Phase 8: train2d.train() at the flagship's full width on synthetic
+    in-memory frames (bs 6, 6 steps, iter_6.pt), the CLI step's cost, the
+    augmentation on the card against the CPU, then test2d's
+    evaluate_checkpoint on the checkpoint with --fusedepi, with the
+    unfused modules and with --fused --fusedepi."""
+    from segtran_tpu_torch.cli import test2d, train2d
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    dev = torch.device("cuda")
+    frames = synthetic_fundus(np, CLI_TRAIN_FRAMES, seed=0)
+    args = train2d.build_argparser().parse_args(
+        FUNDUS_CLI_ARGV + ["--seed", "0", "--bs", str(CLI_BS),
+                           "--maxiter", str(CLI_STEPS),
+                           "--saveiter", str(CLI_STEPS), "--logiter", "1",
+                           "--ckptdir", ckdir])
+    task = train2d.task_settings(args)
+    model, cfg = train2d.build_model_and_config(args, task)
+    if (cfg.translayer_dims != (1792, 1792, 896, 448) or cfg.num_modes != 4
+            or cfg.num_attractors != 256 or cfg.dtype != torch.bfloat16
+            or not cfg.remat_blocks or cfg.pos_code_type != "lsinu"):
+        fail(f"unexpected train2d flagship config {cfg}")
+    init_with_reference_schemes(model, cfg, seed=0)
+    model = model.to(dev)
+    epi.reset_launches()
+    sa.reset_launches()
+    t0 = time.perf_counter()
+    ckpt = train2d.train(model, frames, args, task, dev, cfg,
+                         os.path.join(ckdir, "fundus_cli"), logger)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trained = os.path.join(ckpt, f"iter_{CLI_STEPS}.pt")
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    log(f"[fundus_cli] train2d.train(): {CLI_STEPS} steps at bs {CLI_BS} in "
+        f"{wall:.2f} s (first step included); wrote {trained}: "
+        f"{os.path.isfile(trained)}; parameters finite {finite}")
+    if not os.path.isfile(trained) or not finite:
+        fail("train2d.train() did not write a finite iter_6 checkpoint")
+    perf = dict(train_wall_s=wall)
+    step_perf, step = cli_step_perf(torch, train2d, model, args, task,
+                                    frames)
+    perf.update(step_perf)
+    perf["phase7_make_train_step_bs6_ms"] = make_train_step_ms
+    log(f"[fundus_cli] phase 7's make_train_step bs6 (remat_blocks on, "
+        f"synthetic one-hot masks at 288^2): "
+        + (f"{make_train_step_ms:.2f} ms" if make_train_step_ms
+           else "not run in this call"))
+    perf.update(cli_augment_check(torch, train2d, step, args, task, frames))
+    del model, step
+    torch.cuda.empty_cache()
+
+    eval_frames = synthetic_fundus(np, CLI_EVAL_FRAMES, seed=1)
+    runs = {}
+    for label, extra in (("fusedepi", ["--fusedepi"]), ("unfused", []),
+                         ("fused", ["--fused", "--fusedepi"])):
+        runs[label] = cli_eval(torch, test2d, ckpt, eval_frames, extra, epi,
+                               sa, logger)
+        res, _, launches, spf = runs[label]
+        log(f"[fundus_cli] test2d {label}: per-class Dice "
+            f"{[round(float(d), 4) for d in res[:2]]}, vCDR error "
+            f"{float(res[2]):.4f}; {spf:.4f} s per 576^2 frame; launches "
+            f"{json.dumps(launches)}")
+        perf[f"eval_{label}_s_per_frame"] = spf
+        perf[f"eval_{label}_dice"] = [float(d) for d in res[:2]]
+        perf[f"eval_{label}_vcdr_err"] = float(res[2])
+        perf[f"eval_{label}_launches"] = launches
+    want = {"fusedepi": (1, 2, 0, 0), "unfused": (0, 0, 0, 0),
+            "fused": (0, 0, 3, 6)}
+    for label, counts in want.items():
+        got = tuple(runs[label][2].values())
+        if got != counts:
+            fail(f"test2d {label}: launches (per-mode, all-modes, private, "
+                 f"flash) {got}, want {counts} for one batch forward")
+    ref_res, ref_probs = runs["unfused"][0], runs["unfused"][1]
+    for label in ("fusedepi", "fused"):
+        res, probs = runs[label][0], runs[label][1]
+        mx, mean = compare(probs, ref_probs)
+        ddice = float(np.abs(res[:2] - ref_res[:2]).max())
+        perf[f"eval_{label}_vs_unfused"] = dict(max_abs=mx, mean_abs=mean,
+                                                dice=ddice)
+        log(f"[fundus_cli] test2d {label} vs unfused: probabilities max "
+            f"{mx:.3e} mean {mean:.3e} (tol {MODEL_TOL[0]:g}/"
+            f"{MODEL_TOL[1]:g}); per-class Dice max |diff| {ddice:.4f} "
+            f"(tol {DICE_TOL:g})")
+        if not (mx <= MODEL_TOL[0] and mean <= MODEL_TOL[1]
+                and ddice <= DICE_TOL):
+            fail(f"test2d {label} disagrees with the unfused modules")
+        if not np.isfinite(res).all():
+            fail(f"test2d {label}: Dice or vCDR not finite")
+    return perf
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
@@ -1719,7 +2005,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["epilogue", "flash",
                                        "flash_backward",
                                        "training", "mbconv",
-                                       "fundus_training"],
+                                       "fundus_training", "fundus_cli"],
                     default=None,
                     help="build and run only this check, print no result")
     only = ap.parse_args(argv).only
@@ -1777,6 +2063,13 @@ def main(argv=None) -> int:
         perf = fundus_training(torch)
         print(json.dumps({"fundus_train": perf, "card": card}), flush=True)
         return 0
+    if only == "fundus_cli":
+        try:
+            perf = fundus_cli(torch, np, epi, sa, ckdir, logger)
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        print(json.dumps({"fundus_cli": perf, "card": card}), flush=True)
+        return 0
     if only == "training":
         try:
             train_perf, _ = training(torch, np, sa, ckdir, logger)
@@ -1807,6 +2100,13 @@ def main(argv=None) -> int:
     bb_perf, launches["mbconv_front"] = backbone_fused(torch, mb)
     log(f"[mbconv] {json.dumps(bb_perf)} on {card}")
     fundus_perf = fundus_training(torch)
+    bs6 = fundus_perf.get(f"bs{FUNDUS_TRAIN_CASES[0][0]} remat_blocks on", {})
+    try:
+        cli_perf = fundus_cli(torch, np, epi, sa, ckdir, logger,
+                              bs6.get("ms_per_step"))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"[fundus_cli] {json.dumps(cli_perf)} on {card}")
 
     replaces = {
         "fused_mid_output_pool": "segtran_tpu/kernels/expansion_epilogue.py:333",

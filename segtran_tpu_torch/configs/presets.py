@@ -1,6 +1,7 @@
 """Per-task and per-net defaults (reference train2d.py:245-385 and
 train3d.py:218-255; the fundus, polyp and brats entries and ``--net
-segtran``)."""
+segtran``) and the CLI-override rule ``get_default`` (reference
+common_util.py:6-13)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -18,6 +19,22 @@ TASK_SETTINGS: Dict[str, Dict[str, Any]] = {
         "bce_weight": (0.0, 1.0, 2.0),
         "ds_class": "SegCrop",
         "ds_names": ("train",),
+        # frame size before the disc crop; -1: sizes vary
+        # (reference train2d.py:299-311)
+        "uncropped_size": {"train": (2056, 2124), "test": (1634, 1634),
+                           "valid": (1634, 1634), "valid2": (1940, 1940),
+                           "test2": -1, "drishti": (2050, 1750),
+                           "rim": (2144, 1424),
+                           "train-cyclegan": (2056, 2124),
+                           "rim-cyclegan": (2144, 1424),
+                           "gamma-train": -1, "gamma-valid": -1,
+                           "gamma-test": -1},
+        "has_mask": {"train": True, "test": True, "valid": True,
+                     "valid2": False, "test2": False, "drishti": True,
+                     "rim": True, "train-cyclegan": True,
+                     "rim-cyclegan": True, "gamma-train": True,
+                     "gamma-valid": False, "gamma-test": False},
+        "ds_weight": {},             # all 1.0 in the reference
         "orig_input_size": (576, 576),
         "patch_size": (288, 288),
         "binarize": False,
@@ -42,3 +59,12 @@ TASK_SETTINGS: Dict[str, Dict[str, Any]] = {
         "binarize": False,
     },
 }
+
+
+def get_default(args: Dict[str, Any], key: str, preset: Dict[str, Any],
+                unset_value=None):
+    """Keep the user's value of ``key`` unless it equals ``unset_value``;
+    otherwise take the preset's (reference common_util.py:6-13)."""
+    if args.get(key, unset_value) == unset_value and key in preset:
+        args[key] = preset[key]
+    return args.get(key)

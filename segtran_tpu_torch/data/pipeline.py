@@ -3,7 +3,8 @@ device prefetcher (counterpart of ``segtran_tpu/data/pipeline.py``; the
 reference's DataLoader(num_workers=4) + DistributedSampler).
 
 ``epoch_indices`` gives the JAX package's permutation for the same seed
-and epoch. ``DevicePrefetcher`` copies each batch into page-locked host
+and epoch; evaluation walks the dataset in order (``shuffle=False``) and
+keeps the last partial batch (``drop_last=False``). ``DevicePrefetcher`` copies each batch into page-locked host
 memory on a loader thread and uploads it on a side CUDA stream one batch
 ahead of the step that uses it.
 """
@@ -18,9 +19,12 @@ import numpy as np
 import torch
 
 
-def epoch_indices(n: int, epoch: int, seed: int = 0) -> np.ndarray:
+def epoch_indices(n: int, epoch: int, seed: int = 0,
+                  shuffle: bool = True) -> np.ndarray:
     """DistributedSampler.set_epoch: a deterministic permutation per
-    epoch."""
+    epoch; in order without ``shuffle``."""
+    if not shuffle:
+        return np.arange(n)
     rng = np.random.RandomState((seed * 1_000_003 + epoch) % (2 ** 31))
     return rng.permutation(n)
 
@@ -34,18 +38,23 @@ def _stack(samples: Sequence[dict], keys: Optional[Sequence[str]] = None
 
 
 def batch_iterator(dataset, batch_size: int, epoch: int, seed: int = 0,
+                   shuffle: bool = True, drop_last: bool = True,
                    keys: Optional[Sequence[str]] = None
                    ) -> Iterator[Dict[str, np.ndarray]]:
-    """Stacked numpy batches of one epoch in epoch_indices order, the last
-    partial batch dropped; samples load on 4 threads."""
+    """Stacked numpy batches of one epoch in epoch_indices order (the
+    dataset's own order without ``shuffle``); the last partial batch is
+    dropped with ``drop_last``, else yielded short. Samples load on 4
+    threads."""
     if hasattr(dataset, "set_epoch"):
         dataset.set_epoch(epoch)
-    idx = epoch_indices(len(dataset), epoch, seed)
-    n = (len(idx) // batch_size) * batch_size
-    if n == 0:
-        raise ValueError(
-            f"dataset has {len(idx)} samples, fewer than the batch size "
-            f"{batch_size}: lower --bs or add data")
+    idx = epoch_indices(len(dataset), epoch, seed, shuffle)
+    n = len(idx)
+    if drop_last:
+        n = (n // batch_size) * batch_size
+        if n == 0:
+            raise ValueError(
+                f"dataset has {len(idx)} samples, fewer than the batch size "
+                f"{batch_size}: lower --bs or add data")
     with ThreadPoolExecutor(max_workers=4) as pool:
         for s in range(0, n, batch_size):
             yield _stack(list(pool.map(dataset.__getitem__,

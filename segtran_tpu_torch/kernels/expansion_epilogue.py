@@ -39,11 +39,11 @@ from . import _build
 from .squeezed_attention import _check_smem, _cluster_slices, _sm_count
 
 _SRC = "expansion_epilogue"
-# the model takes fused_mid_output_pool while M*F*F*itemsize of W2 is at
-# most half the H100's 50 MB L2, else fused_mid_output_pool_permode (JAX's
-# split of the two tiers, kept so that the same layers call the same
-# function); on the H100 both launch the same kernel
-W2_L2_BUDGET = 25 * 1000 * 1000
+
+# JAX's residency budget for W2 (+ V W1) in TPU VMEM
+# (segtran_tpu/kernels/expansion_epilogue.py:46); epilogue_route keeps its
+# arithmetic, so the port calls the function JAX calls at every shape
+W2_VMEM_BUDGET = 9 * 1024 * 1024
 
 _vp, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
@@ -61,9 +61,73 @@ def _lib():
     return lib
 
 
-def supports_full(num_modes: int, feat_dim: int, itemsize: int) -> bool:
-    """All-modes tier gate: W2 [M, F, F] within half of the L2."""
-    return num_modes * feat_dim * feat_dim * itemsize <= W2_L2_BUDGET
+def _pad128(n: int) -> int:
+    return ((n + 127) // 128) * 128
+
+
+def supports(num_modes: int, feat_dim: int, itemsize: int) -> bool:
+    """JAX's private-tier gate: W2 [M, F, F] within the budget."""
+    return num_modes * feat_dim * feat_dim * itemsize <= W2_VMEM_BUDGET
+
+
+def supports_full(num_modes: int, num_keys: int, feat_dim: int,
+                  itemsize: int) -> bool:
+    """JAX's all-modes gate: W2 [M, F, F] plus V W1 [M, pad128(A), F]."""
+    resident = (num_modes * feat_dim * feat_dim
+                + num_modes * _pad128(num_keys) * feat_dim) * itemsize
+    return resident <= W2_VMEM_BUDGET
+
+
+def supports_permode(num_keys: int, feat_dim: int, itemsize: int) -> bool:
+    """JAX's per-mode gate: one mode's W2 [F, F] plus [pad128(A), F]."""
+    resident = (feat_dim * feat_dim + _pad128(num_keys) * feat_dim) * itemsize
+    return resident <= W2_VMEM_BUDGET
+
+
+# The largest private-tier W2 (M * F * F) measured on the card in bf16:
+# [4, 1792, 1792] (chip_smoke.py's kernels phase; H100 80GB HBM3, 700 W):
+# kernel 2.240 ms against the unfused modules' 2.85 at mid
+# [8,4,1296,1792], 0.596 against 0.83 at [2,4,1296,1792] (PERF.md §6)
+_BF16_PRIVATE_MEASURED = 4 * 1792 * 1792
+
+
+def epilogue_route(tier: str, num_modes: int, num_keys: int, feat_dim: int,
+                   dtype) -> str:
+    """Which function computes an expansion epilogue: ``"all_modes"``
+    (fused_mid_output_pool), ``"per_mode"``
+    (fused_mid_output_pool_permode), ``"private"``
+    (fused_private_output_pool) or ``"unfused"`` (the model's modules).
+    ``tier`` is ``"mid"`` (the attractor-out side, from P and V W1, with
+    ``num_keys`` attractors) or ``"private"`` (mid given).
+
+    JAX's VMEM arithmetic decides (segtran_tpu/nn/attention.py:409-441):
+    the all-modes tier, else the per-mode tier, else the mid through the
+    modules and then the private tier where ``supports`` admits it, else
+    the modules. On the H100 the all-modes and per-mode functions launch
+    the same kernel, so following JAX's split costs nothing. The one
+    exception is taken where the card measured the kernel faster than the
+    modules JAX would run: the private tier in bf16 up to the largest W2
+    measured (``_BF16_PRIVATE_MEASURED``). In fp32 the card agrees with
+    JAX's refusals: the private kernel loses to the modules at F >= 896
+    (3.84 against 2.62 ms at the BraTS mid [1,4,8640,1024], 15.79 against
+    8.08 at [8,4,1296,1792]), and so does the full tier where JAX refuses
+    it (F=1792, 256 attractors: 18.27 against 9.41 ms at P
+    [8,4,1296,256]); chip_smoke.py's kernels phase times each beside the
+    modules (PERF.md §6)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    if tier == "mid":
+        if supports_full(num_modes, num_keys, feat_dim, itemsize):
+            return "all_modes"
+        if supports_permode(num_keys, feat_dim, itemsize):
+            return "per_mode"
+    elif tier != "private":
+        raise ValueError(f"tier must be 'mid' or 'private', got {tier!r}")
+    if supports(num_modes, feat_dim, itemsize):
+        return "private"
+    if (dtype == torch.bfloat16
+            and num_modes * feat_dim * feat_dim <= _BF16_PRIVATE_MEASURED):
+        return "private"
+    return "unfused"
 
 
 # slots of mid_pool_kernel's streamed chunks' ring: full tier, private tier

@@ -300,14 +300,20 @@ class ExpandedFeatTrans(nn.Module):
                 o.resout_norm_layer.weight, o.resout_norm_layer.bias,
                 agg.weight.t(), agg.bias)
 
-    def _fused_epilogue_ok(self) -> bool:
+    def _epilogue_route(self, tier: str, num_keys: int = 0) -> str:
+        """``epi.epilogue_route`` where the fused epilogue may run (eval,
+        ``use_fused_epilogue``, FFN, residual dropped, softmax pool), else
+        ``"unfused"``."""
         s = self.spec
-        return (s.use_fused_epilogue and not self.training and s.has_FFN
+        if not (s.use_fused_epilogue and not self.training and s.has_FFN
                 and not s.fix_private_output_residual
-                and s.pool_modes_feat == "softmax")
+                and s.pool_modes_feat == "softmax"):
+            return "unfused"
+        return epi.epilogue_route(tier, s.num_modes, num_keys, s.feat_dim,
+                                  s.dtype)
 
     def _output_and_pool(self, mid, shortcut):
-        if self._fused_epilogue_ok():
+        if self._epilogue_route("private") == "private":
             return epi.fused_private_output_pool(
                 mid, *self._epilogue_args(), ln_eps=self.spec.ln_eps)
         return self._pool_modes(self.output(mid, shortcut))
@@ -328,10 +334,9 @@ class ExpandedFeatTrans(nn.Module):
               and not s.fix_private_output_residual):
             # attractor-out side: gelu((P V) W1 + b1) == gelu(P (V W1) + b1)
             v = self.compute_v(input_feat)
-            if self._fused_epilogue_ok():
-                itemsize = torch.finfo(s.dtype).bits // 8
-                fn = (epi.fused_mid_output_pool
-                      if epi.supports_full(s.num_modes, s.feat_dim, itemsize)
+            route = self._epilogue_route("mid", u2)
+            if route in ("all_modes", "per_mode"):
+                fn = (epi.fused_mid_output_pool if route == "all_modes"
                       else epi.fused_mid_output_pool_permode)
                 vw1 = self.intermediate(v, stage="premul")
                 return fn(attention_probs, vw1,

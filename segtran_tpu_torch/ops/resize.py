@@ -38,6 +38,12 @@ def resize_linear(x: torch.Tensor, spatial_size: Sequence[int]) -> torch.Tensor:
     return _channels_last(y)
 
 
+def resize_to(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``resize_linear`` of x to the spatial size of ``like`` (both
+    channels-last)."""
+    return resize_linear(x, like.shape[1:-1])
+
+
 def avg_pool_nhwc(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
     """Non-overlapping average pool (stride == window) of [B, *spatial, C]."""
     window = tuple(int(w) for w in window)

@@ -102,6 +102,8 @@ def test_permode_equals_full_plain():
 
 def test_tier_gate_reproduces_the_flagship_split():
     """bf16 flagship: F=1792 layer 0 per mode, F=896 and 448 all modes."""
-    from segtran_tpu_torch.kernels.expansion_epilogue import supports_full
-    assert not supports_full(4, 1792, 2)
-    assert supports_full(4, 896, 2) and supports_full(4, 448, 2)
+    from segtran_tpu_torch.kernels.expansion_epilogue import (
+        supports_full, supports_permode)
+    assert not supports_full(4, 256, 1792, 2)
+    assert supports_permode(256, 1792, 2)
+    assert supports_full(4, 256, 896, 2) and supports_full(4, 256, 448, 2)

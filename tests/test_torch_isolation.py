@@ -14,7 +14,8 @@ import importlib, pkgutil, sys
 import segtran_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for want in ("kernels.mbconv", "nn.remat", "nn.backbones.efficientnet",
-             "train.trainer"):
+             "train.trainer", "cli.train2d", "cli.test2d", "data.datasets2d",
+             "data.augment"):
     assert "segtran_tpu_torch." + want in names, want
 for n in names:
     importlib.import_module(n)
@@ -32,6 +33,29 @@ def test_no_jax_and_no_jax_package_imported():
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
     assert n_modules >= 20
+
+
+_SMOKE_PROBE = r"""
+import importlib, pkgutil, sys
+import chip_smoke
+import segtran_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+bad = sorted(k for k in sys.modules if k.split(".")[0] in
+             ("jax", "jaxlib", "flax", "orbax", "segtran_tpu", "PIL"))
+print(bad)
+assert not bad, bad
+"""
+
+
+def test_chip_smoke_and_the_port_import_no_jax_and_no_pillow():
+    """chip_smoke.py and every module it reaches import neither JAX, nor
+    the JAX package, nor Pillow, which the GPU machine lacks: reading
+    image files imports it at use."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", _SMOKE_PROBE], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked(tmp_path, monkeypatch):

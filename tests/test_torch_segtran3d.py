@@ -58,8 +58,11 @@ def test_segtran3d_logits_match_jax(kw):
 
 def test_fused_branch_runs_the_flash_wrapper(monkeypatch):
     """The fused config reaches fused_cross_attention twice per translayer
-    (in-squeeze, out-squeeze) and the private epilogue once; the unfused one
-    never does."""
+    (in-squeeze, out-squeeze) and, where epilogue_route takes it, the
+    private epilogue once: in bf16 (the BraTS recipe; the translayer alone,
+    since PyTorch's CPU avg_pool3d takes no bf16) at F=1024; in fp32 the
+    route takes the modules, as JAX's VMEM gate does. The unfused config
+    never reaches either."""
     from segtran_tpu_torch.kernels import expansion_epilogue as epi
     from segtran_tpu_torch.models.segtran3d import Segtran3d, init_segtran3d
     from segtran_tpu_torch.nn import attention
@@ -84,7 +87,13 @@ def test_fused_branch_runs_the_flash_wrapper(monkeypatch):
             model(x)
         if not fused:
             assert calls == [] and private == []
-    # N = (16/8) * (32/8) * (32/8) = 32 tokens, A = 8, C = 1024, 4 modes
-    assert calls == [((1, 8, 1024), (1, 32, 1024), (1, 32, 1024)),
-                     ((4, 32, 256), (4, 8, 256), (4, 8, 1024))]
+    assert private == []
+    layer = init_segtran3d(Segtran3d(dataclasses.replace(
+        tcfg, dtype=torch.bfloat16)), seed=0).eval().voxel_fusion.translayers[0]
+    with torch.inference_mode():
+        layer(torch.randn(1, 32, 1024, dtype=torch.bfloat16))
+    # N = (16/8) * (32/8) * (32/8) = 32 tokens, A = 8, C = 1024, 4 modes;
+    # the fp32 forward, then the bf16 translayer
+    assert calls == 2 * [((1, 8, 1024), (1, 32, 1024), (1, 32, 1024)),
+                         ((4, 32, 256), (4, 8, 256), (4, 8, 1024))]
     assert private == [1]
