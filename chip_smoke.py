@@ -93,6 +93,24 @@ Phases, each of which fails the run:
    with --fused --fusedepi (6 flash + 3 private-tier launches); per-class
    Dice, vCDR error and seconds per frame of each; probabilities within
    MODEL_TOL and per-class Dice within 0.01 of the unfused modules.
+9. fundus options -- the flash forward at the new shapes of this phase's
+   paths (the non-squeezed encoder's self-attention, G=32, Q=N=1296, in
+   its three layers; the oct frame's squeezed layer 0, N=2304) and the
+   private tier at mid [8,4,1296,F] against their plain versions (bf16),
+   timed beside SDPA and their bounds; then, at the flagship's width
+   (eff-b4, 3 translayers 1792->1792->896->448, 4 modes, 256 attractors,
+   bf16, seeded weights, a padded batch of 8 288^2 frames) built through
+   test2d's factory, each option with --fused --fusedepi against its
+   unfused forward (probabilities within MODEL_TOL) with its launches
+   checked: (a) --nosqueeze (3 flash forwards at Q = N, 3 private-tier
+   launches), (b) --nosqueeze --pos bias (0 flash: JAX's gate), (c)
+   --pos rand, --pos sinu, --multihead, --inbn, --gbias, --outfpn 34 (the
+   transposed head) and the shared FFN output; (d) test2d's
+   evaluate_checkpoint on --task oct over 8 synthetic 288x512 frames
+   (--fused --fusedepi against unfused); (e) two train2d.train() steps at
+   bs 6 with --nosqueeze --pos bias --inbn on synthetic 576^2 frames (ms
+   per step, peak memory); (f) prep_fundus.center_from_model on two
+   synthetic 1024^2 frames at --detsize 640 through build_model_fn.
 
 Before the last line it prints a JSON object with the fundus train step's
 and the fused backbone's numbers, one with the per-kernel numbers, and the
@@ -292,13 +310,19 @@ def unfused_call(torch, kind, args):
     return call
 
 
-def check_kernels(torch, epi):
+def check_kernels(torch, epi, only=None, dtypes=("bf16", "fp32")):
+    """Each EPILOGUE_CASES entry (those whose index is in ``only``, where
+    given) in each of ``dtypes`` against its plain version, timed."""
     results = []
     for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        if dname not in dtypes:
+            continue
         # plain fp32 references without TF32: full-precision products
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         for i, (name, kind, b, m, n, a, f) in enumerate(EPILOGUE_CASES):
+            if only is not None and i not in only:
+                continue
             args = epilogue_inputs(torch, kind, b, m, n, a, f, dt, seed=i)
             kern = getattr(epi, name)
             plain = getattr(epi, name + "_plain")
@@ -376,6 +400,15 @@ FLASH_CASES = [("in-squeeze N=8640", 1, 1024, 8640, 1024, 1024, 1.0),
 # tokens, D=F=1792) and the out-squeeze (4 modes of D=448, V W1 F=1792)
 FLASH_FUNDUS_CASES = [("fundus in-squeeze", 8, 256, 1296, 1792, 1792, 1.0),
                       ("fundus out-squeeze", 32, 1296, 256, 448, 1792, 1.0)]
+# the flash calls of phase 9's new paths at batch 8: the non-squeezed
+# encoder's self-attention (Q = N = 1296 tokens, 4 modes) in its three
+# layers, and the oct frame's squeezed layer 0 (N = 2304 tokens)
+FLASH_OPTION_CASES = [
+    ("nosqueeze layer 0", 32, 1296, 1296, 448, 1792, 1.0),
+    ("nosqueeze layer 1", 32, 1296, 1296, 448, 896, 1.0),
+    ("nosqueeze layer 2", 32, 1296, 1296, 224, 448, 1.0),
+    ("oct in-squeeze", 8, 256, 2304, 1792, 1792, 1.0),
+    ("oct out-squeeze", 32, 2304, 256, 448, 1792, 1.0)]
 
 
 def sdpa_call(torch, q, k, v, scale):
@@ -421,16 +454,19 @@ def fwd_launch_shape(torch, sa, label, dname, g, nq, n, d, f, dt):
                 max_active_clusters=occ["max_active_clusters"])
 
 
-def check_flash(torch, sa):
+def check_flash(torch, sa, cases=None, dtypes=("bf16", "fp32")):
     """The forward kernel against its plain version (out, lse), bit-for-bit
     repeatability, the launch shape, and times: kernel, plain, SDPA,
     bound, and the kernel at the other slice width (128 <-> 256, where its
-    cluster fits), which must agree too."""
+    cluster fits), which must agree too. ``cases``: FLASH_CASES and
+    FLASH_FUNDUS_CASES unless given."""
     results = []
+    cases = FLASH_CASES + FLASH_FUNDUS_CASES if cases is None else cases
     torch.backends.cuda.matmul.allow_tf32 = False
     for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        for i, (label, g, nq, n, d, f, qk) in enumerate(FLASH_CASES
-                                                        + FLASH_FUNDUS_CASES):
+        if dname not in dtypes:
+            continue
+        for i, (label, g, nq, n, d, f, qk) in enumerate(cases):
             launch = fwd_launch_shape(torch, sa, label, dname, g, nq, n, d,
                                       f, dt)
             gen = torch.Generator(device="cuda").manual_seed(100 + i)
@@ -1997,6 +2033,311 @@ def fundus_cli(torch, np, epi, sa, ckdir, logger, make_train_step_ms=None):
     return perf
 
 
+# ------------------------------------------------------------ phase 9 ----
+
+# the private tier's shapes on the non-squeezed --fused --fusedepi path (mid
+# [8,4,1296,F], F = 1792, 896, 448): indices into EPILOGUE_CASES
+PRIVATE_NOSQUEEZE_CASES = (8, 9, 10)
+OPTIONS_ARGV = ["--task", "fundus", "--bb", "eff-b4", "--translayers", "3",
+                "--layercompress", "1,1,2,2", "--attractors", "256",
+                "--bf16", "--device", "cuda"]
+# (label, flags, launches (flash forward, private tier, full tier) of one
+# batch-8 forward with --fused --fusedepi): the gate keeps the flash kernel
+# off the position biases and --multihead, the route the epilogue off the
+# shared output, --multihead and the global bias (no encoder)
+OPTION_CASES = [
+    ("nosqueeze", ["--nosqueeze"], (3, 3, 0)),
+    ("nosqueeze pos bias", ["--nosqueeze", "--pos", "bias"], (0, 3, 0)),
+    ("pos rand", ["--pos", "rand"], (6, 3, 0)),
+    ("pos sinu", ["--pos", "sinu"], (6, 3, 0)),
+    ("multihead", ["--multihead"], (0, 0, 0)),
+    ("inbn", ["--inbn"], (6, 3, 0)),
+    ("gbias", ["--gbias"], (0, 0, 0)),
+    ("no out-FPN", ["--outfpn", "34"], (6, 3, 0)),
+    ("shared output", [], (6, 0, 0))]
+OPTION_BS, OCT_FRAMES, OPTION_TRAIN_BS, PREP_FRAMES = 8, 8, 6, 2
+
+
+def option_launches(epi, sa):
+    return (sa.fused_cross_attention.launches,
+            epi.fused_private_output_pool.launches,
+            epi.fused_mid_output_pool.launches
+            + epi.fused_mid_output_pool_permode.launches)
+
+
+def option_models(torch, test2d, train2d, flags, shared_output, seed):
+    """(fused model, unfused model) with the same seeded weights, built by
+    test2d's factory with --fused --fusedepi and without."""
+    import dataclasses
+    from segtran_tpu_torch.models.segtran2d import Segtran2d
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    models = []
+    for fused in (True, False):
+        args = test2d.build_argparser().parse_args(
+            OPTIONS_ARGV + flags + ["--cpdir", "unused"]
+            + (["--fused", "--fusedepi"] if fused else []))
+        task = train2d.task_settings(args)
+        model, cfg = test2d.build_model(args, task)
+        if shared_output:
+            # trans_output_type has no flag (the JAX CLIs set none either)
+            cfg = dataclasses.replace(cfg, trans_output_type="shared")
+            model = Segtran2d(cfg, patch_size=task["patch_size"])
+        if fused:
+            init_with_reference_schemes(model, cfg, seed)
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state, strict=True)
+        models.append(model.cuda().eval())
+    return models
+
+
+def fundus_option_forwards(torch, np, epi, sa):
+    """(a)-(c): each option at the flagship's width, a padded batch of 8
+    288^2 frames, --fused --fusedepi against the unfused modules."""
+    from segtran_tpu_torch.cli import test2d, train2d
+    x = fundus_batch(torch, OPTION_BS, seed=9)["image"]
+    perf = {}
+    for i, (label, flags, want) in enumerate(OPTION_CASES):
+        fused, unfused = option_models(torch, test2d, train2d, flags,
+                                       label == "shared output", seed=i)
+        epi.reset_launches()
+        sa.reset_launches()
+        with torch.inference_mode():
+            got = fused(x)
+            torch.cuda.synchronize()
+            launches = option_launches(epi, sa)
+            ref = unfused(x)
+            probs = torch.sigmoid(got.float()).cpu().numpy()
+            ref_probs = torch.sigmoid(ref.float()).cpu().numpy()
+            ms = cuda_ms(torch, lambda: fused(x), iters=3)
+            unfused_ms = cuda_ms(torch, lambda: unfused(x), iters=3)
+        mx, mean = compare(probs, ref_probs)
+        finite = bool(np.isfinite(probs).all())
+        log(f"[fundus_options] {label}: launches (flash, private, full "
+            f"tier) {launches} (want {want}); probabilities vs the unfused "
+            f"modules max {mx:.3e} mean {mean:.3e} (tol {MODEL_TOL[0]:g}/"
+            f"{MODEL_TOL[1]:g}); batch-{OPTION_BS} forward {ms:.2f} ms, "
+            f"unfused {unfused_ms:.2f} ms")
+        perf[label] = dict(launches=list(launches), max_abs=mx,
+                           mean_abs=mean, ms=ms, unfused_ms=unfused_ms)
+        if launches != want:
+            fail(f"fundus option {label}: launches {launches}, want {want}")
+        if not (finite and mx <= MODEL_TOL[0] and mean <= MODEL_TOL[1]):
+            fail(f"fundus option {label} disagrees with its unfused forward")
+        del fused, unfused
+        torch.cuda.empty_cache()
+    return perf
+
+
+def synthetic_oct(np, n, seed, h=288, w=512):
+    """n OCT-like B-scans held in memory: 10 wavy horizontal layers, each
+    its own intensity, and their index masks (0..9); samples follow
+    data/datasets2d.py's schema."""
+    rng = np.random.RandomState(seed)
+    xx = np.arange(w, dtype=np.float32)
+    frames = []
+    for i in range(n):
+        bounds = np.sort(rng.uniform(0.1, 0.9, 9)) * h
+        wave = 6 * np.sin(xx / rng.uniform(30, 80) + rng.uniform(0, 6))
+        rows = np.arange(h, dtype=np.float32)[:, None]
+        mask = sum((rows > b + wave[None]).astype(np.uint8)
+                   for b in bounds)
+        level = rng.uniform(0.1, 0.9, 10).astype(np.float32)
+        image = (level[mask][..., None].repeat(3, -1)
+                 + 0.05 * rng.randn(h, w, 3)).clip(0, 1)
+        frames.append({
+            "image": image.astype(np.float32),
+            "mask": mask.astype(np.uint8)[..., None], "index": i,
+            "crop_pos": np.array([0, 0]), "unscaled_size": np.array([h, w]),
+            "uncropped_size": np.array([-1, -1])})
+
+    class Frames(list):
+        image_list = [f"oct{i:03d}.png" for i in range(n)]
+    return Frames(frames)
+
+
+def oct_eval(torch, np, epi, sa, ckdir, logger):
+    """(d): test2d.evaluate_checkpoint on --task oct (288x512 frames, one
+    window each) from a seeded checkpoint, with --fused --fusedepi (6
+    flash + 3 private-tier launches per batch forward) and with the
+    unfused modules: probabilities within MODEL_TOL, Dice within
+    DICE_TOL."""
+    from segtran_tpu_torch.cli import test2d, train2d
+    from segtran_tpu_torch.infer.sliding import sliding_window_2d
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    from segtran_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    base = ["--task", "oct", "--bb", "eff-b4", "--translayers", "3",
+            "--layercompress", "1,1,2,2", "--attractors", "256", "--bf16",
+            "--device", "cuda", "--cpdir", os.path.join(ckdir, "oct"),
+            "--iters", "1", "--bs", str(OCT_FRAMES)]
+    frames = synthetic_oct(np, OCT_FRAMES, seed=3)
+    dev = torch.device("cuda")
+    runs, perf = {}, {}
+    for label, extra in (("fused", ["--fused", "--fusedepi"]),
+                         ("unfused", [])):
+        args = test2d.build_argparser().parse_args(base + extra)
+        task = train2d.task_settings(args)
+        model, cfg = test2d.build_model(args, task)
+        if label == "fused":
+            if cfg.num_classes != 10 or tuple(task["patch_size"]) != (288,
+                                                                      512):
+                fail(f"unexpected oct config {cfg} / {task}")
+            init_with_reference_schemes(model, cfg, seed=5)
+            save_checkpoint(args.cpdir, 1, model.state_dict(), cfg)
+        model.load_state_dict(load_checkpoint(
+            os.path.join(args.cpdir, "iter_1"), cfg), strict=True)
+        model = model.to(dev).eval()
+        mean, std = train2d.load_stats(args, "duke")
+        epi.reset_launches()
+        sa.reset_launches()
+        dice = test2d.evaluate_checkpoint(model, frames, task, args, logger,
+                                          mean, std, dev)
+        launches = option_launches(epi, sa)
+        t0 = time.perf_counter()
+        test2d.evaluate_checkpoint(model, frames, task, args, logger, mean,
+                                   std, dev)
+        s_per_frame = (time.perf_counter() - t0) / len(frames)
+        fn = test2d.make_model_fn(model, mean, std, args.gray_alpha, dev)
+        x = torch.from_numpy(np.stack([f["image"] for f in frames])).to(dev)
+        with torch.inference_mode():
+            probs = sliding_window_2d(fn, x, (288, 512), (288, 512),
+                                      num_classes=10).cpu().numpy()
+        runs[label] = (dice, probs)
+        log(f"[fundus_options] oct test2d {label}: per-class Dice "
+            f"{[round(float(d), 4) for d in dice]}; {s_per_frame:.4f} s per "
+            f"288x512 frame; launches (flash, private, full tier) "
+            f"{launches}")
+        perf[f"oct_{label}"] = dict(dice=[float(d) for d in dice],
+                                    s_per_frame=s_per_frame,
+                                    launches=list(launches))
+        if label == "fused" and launches != (6, 3, 0):
+            fail(f"oct test2d --fused --fusedepi: launches {launches}, "
+                 f"want (6, 3, 0)")
+        del model
+        torch.cuda.empty_cache()
+    mx, mean = compare(runs["fused"][1], runs["unfused"][1])
+    ddice = float(np.abs(runs["fused"][0] - runs["unfused"][0]).max())
+    perf["oct_fused_vs_unfused"] = dict(max_abs=mx, mean_abs=mean, dice=ddice)
+    log(f"[fundus_options] oct fused vs unfused: probabilities max {mx:.3e} "
+        f"mean {mean:.3e}; per-class Dice max |diff| {ddice:.4f}")
+    if not (mx <= MODEL_TOL[0] and mean <= MODEL_TOL[1]
+            and ddice <= DICE_TOL and np.isfinite(runs["fused"][0]).all()):
+        fail("oct test2d --fused --fusedepi disagrees with the unfused "
+             "modules")
+    return perf
+
+
+def option_training(torch, np, ckdir, logger):
+    """(e): two train2d.train() steps at bs 6 with --nosqueeze --pos bias
+    --inbn on synthetic 576^2 frames; then the CLI step's ms per step (two
+    more, host clock, ending in a synchronise) and peak memory."""
+    from segtran_tpu_torch.cli import train2d
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    dev = torch.device("cuda")
+    frames = synthetic_fundus(np, 2 * OPTION_TRAIN_BS, seed=4)
+    args = train2d.build_argparser().parse_args(
+        OPTIONS_ARGV + ["--nosqueeze", "--pos", "bias", "--inbn", "--seed",
+                        "0", "--bs", str(OPTION_TRAIN_BS), "--maxiter", "2",
+                        "--saveiter", "2", "--logiter", "1", "--ckptdir",
+                        ckdir])
+    task = train2d.task_settings(args)
+    model, cfg = train2d.build_model_and_config(args, task)
+    if (cfg.use_squeezed_transformer or cfg.pos_code_type != "bias"
+            or not cfg.in_fpn_use_bn):
+        fail(f"unexpected option training config {cfg}")
+    init_with_reference_schemes(model, cfg, seed=0)
+    model = model.to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ckpt = train2d.train(model, frames, args, task, dev, cfg,
+                         os.path.join(ckdir, "options"), logger)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    from segtran_tpu_torch.train.trainer import build_optimizer
+    opt = build_optimizer(model, lr=2e-4, decay=1e-4, t_total=100,
+                          warmup_ratio=0.05)
+    step = train2d.make_step(model, opt, args, task, dev)
+    batch = {k: torch.from_numpy(np.stack([f[k] for f in frames[
+        :OPTION_TRAIN_BS]])).to(dev) for k in ("image", "mask")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(step(batch)["loss"]) for _ in range(2)]
+    ms = (time.perf_counter() - t0) / 2 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    biases = model.voxel_fusion.pos_code_layer.pos_coder.biases
+    moved = float(biases.detach().abs().max())
+    wrote = os.path.isfile(os.path.join(ckpt, "iter_2.pt"))
+    log(f"[fundus_options] train2d.train() --nosqueeze --pos bias --inbn: 2 "
+        f"steps at bs {OPTION_TRAIN_BS} in {wall:.2f} s (first step "
+        f"included), iter_2.pt written {wrote}; the CLI step {ms:.1f} ms "
+        f"per step on the host clock (losses {losses}), peak {peak:.2f} GB; "
+        f"the position biases moved off zero by {moved:.3e}")
+    if not (wrote and all(math.isfinite(v) for v in losses) and moved > 0):
+        fail("the --nosqueeze --pos bias --inbn train steps did not train")
+    del model, step, opt
+    torch.cuda.empty_cache()
+    return dict(train_wall_s=wall, ms_per_step=ms, peak_mem_gb=peak,
+                losses=losses)
+
+
+def prep_fundus_model(torch, np, ckdir):
+    """(f): prep_fundus.center_from_model on two synthetic 1024^2 frames at
+    --detsize 640 (an 80x80 token grid) through build_model_fn, from a
+    seeded flagship checkpoint."""
+    from segtran_tpu_torch.cli import prep_fundus, test2d, train2d
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    from segtran_tpu_torch.train.checkpoint import save_checkpoint
+    dev = torch.device("cuda")
+    cpdir = os.path.join(ckdir, "prep")
+    args = prep_fundus.build_argparser().parse_args(
+        ["--images", "unused", "--out", "unused", "--cpdir", cpdir,
+         "--iter", "1", "--bb", "eff-b4", "--layercompress", "1,1,2,2",
+         "--bf16", "--device", "cuda"])
+    targs = test2d.build_argparser().parse_args(OPTIONS_ARGV
+                                                + ["--cpdir", cpdir])
+    model, cfg = test2d.build_model(targs, train2d.task_settings(targs))
+    init_with_reference_schemes(model, cfg, seed=2)
+    save_checkpoint(cpdir, 1, model.state_dict(), cfg)
+    del model
+    model_fn = prep_fundus.build_model_fn(args, dev)
+    frames = synthetic_fundus(np, PREP_FRAMES, seed=6, size=1024)
+    perf = {}
+    for i, f in enumerate(frames):
+        img = (f["image"] * 255).round().astype(np.uint8)
+        small = prep_fundus.resize_uint8(img, 640, device=dev)
+        probs = model_fn(small.astype(np.float32) / 255.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cx, cy = prep_fundus.center_from_model(model_fn, img, 640, dev)
+        s = time.perf_counter() - t0
+        ok = (probs.shape == (640, 640, 3) and np.isfinite(probs).all()
+              and 0 <= cx < 1024 and 0 <= cy < 1024)
+        log(f"[fundus_options] prep_fundus center_from_model frame {i}: "
+            f"centre ({cx}, {cy}) in {s:.3f} s; disc probability max "
+            f"{float(probs[..., 1].max()):.3f}")
+        perf[f"prep_frame{i}"] = dict(center=[cx, cy], s=s)
+        if not ok:
+            fail("prep_fundus model mode gave no finite centre in the frame")
+    torch.cuda.empty_cache()
+    return perf
+
+
+def fundus_options(torch, np, epi, sa, ckdir, logger):
+    """Phase 9: the remaining Segtran2d options at the flagship's width."""
+    t0 = time.perf_counter()
+    perf = {"flash": check_flash(torch, sa, FLASH_OPTION_CASES, ("bf16",)),
+            "private": check_kernels(torch, epi, PRIVATE_NOSQUEEZE_CASES,
+                                     ("bf16",))}
+    perf["forwards"] = fundus_option_forwards(torch, np, epi, sa)
+    perf.update(oct_eval(torch, np, epi, sa, ckdir, logger))
+    perf["train"] = option_training(torch, np, ckdir, logger)
+    perf.update(prep_fundus_model(torch, np, ckdir))
+    perf["phase_s"] = time.perf_counter() - t0
+    log(f"[fundus_options] phase in {perf['phase_s']:.1f} s")
+    return perf
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
@@ -2005,7 +2346,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["epilogue", "flash",
                                        "flash_backward",
                                        "training", "mbconv",
-                                       "fundus_training", "fundus_cli"],
+                                       "fundus_training", "fundus_cli",
+                                       "fundus_options"],
                     default=None,
                     help="build and run only this check, print no result")
     only = ap.parse_args(argv).only
@@ -2070,6 +2412,13 @@ def main(argv=None) -> int:
             shutil.rmtree(ckdir, ignore_errors=True)
         print(json.dumps({"fundus_cli": perf, "card": card}), flush=True)
         return 0
+    if only == "fundus_options":
+        try:
+            perf = fundus_options(torch, np, epi, sa, ckdir, logger)
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        print(json.dumps({"fundus_options": perf, "card": card}), flush=True)
+        return 0
     if only == "training":
         try:
             train_perf, _ = training(torch, np, sa, ckdir, logger)
@@ -2107,6 +2456,11 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     log(f"[fundus_cli] {json.dumps(cli_perf)} on {card}")
+    try:
+        options_perf = fundus_options(torch, np, epi, sa, ckdir, logger)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"[fundus_options] {json.dumps(options_perf)} on {card}")
 
     replaces = {
         "fused_mid_output_pool": "segtran_tpu/kernels/expansion_epilogue.py:333",

@@ -40,6 +40,7 @@ from ..data.stats import load_dataset_stats
 from ..infer.sliding import sliding_window_2d
 from ..models.segtran2d import Segtran2d
 from ..train.checkpoint import load_checkpoint
+from .train2d import _DA, _ZOO
 
 
 def build_argparser():
@@ -94,14 +95,9 @@ def build_argparser():
 
 def _refuse_later_slices(args) -> None:
     later = [
-        (args.net != "segtran", f"--net {args.net}", "the model zoo"),
-        (args.use_mince_transformer, "--mince", "the 2.5D/mince slice"),
-        (args.polyformer_mode is not None, "--polyformer",
-         "the DA/Polyformer slice"),
-        (args.pos_code_type not in ("lsinu", "none"),
-         f"--pos {args.pos_code_type}", "the position-code ablations"),
-        (not args.use_squeezed_transformer, "--nosqueeze",
-         "the non-squeezed encoder"),
+        (args.net != "segtran", f"--net {args.net}", _ZOO),
+        (args.use_mince_transformer, "--mince", _DA),
+        (args.polyformer_mode is not None, "--polyformer", _DA),
     ]
     for bad, flag, where in later:
         if bad:
@@ -132,7 +128,7 @@ def build_model_and_config(args, task):
         out_fpn_layers=tuple(int(c) for c in args.out_fpn_layers),
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
     ).derive(translayer_compress_ratios=compress)
-    return Segtran2d(cfg), cfg
+    return Segtran2d(cfg, patch_size=task["patch_size"]), cfg
 
 
 def task_settings(args):

@@ -60,7 +60,7 @@ def build_argparser():
     p = argparse.ArgumentParser(
         description="segtran_tpu_torch 2D evaluation (Segtran2d)")
     p.add_argument("--task", dest="task_name", default="fundus",
-                   choices=["fundus", "polyp"])
+                   choices=["fundus", "polyp", "oct"])
     p.add_argument("--ds", dest="ds_name", default="valid")
     p.add_argument("--split", default="all")
     p.add_argument("--dataroot", default="../data")
@@ -205,6 +205,7 @@ def _save_masks(hard, batch, dataset, args, saved, probs):
     --outdir."""
     from PIL import Image
     os.makedirs(args.outdir, exist_ok=True)
+    # the non-fundus tasks' encoding (JAX test2d.py:317-318)
     inv = (fundus_inv_map_mask if args.task_name == "fundus"
            else polyp_inv_map_mask)
     raw = inv(hard).cpu().numpy()

@@ -108,6 +108,11 @@ def build_argparser():
     return p
 
 
+# the encoder runs both in 3-D; Segtran3d is not yet held to JAX under them
+_ITEM4_3D = ("ROADMAP Queue 1 item 4: --pos / --nosqueeze in 3-D, which "
+             "need a Segtran3d parity test")
+
+
 def _refuse_later_slices(args) -> None:
     later = [
         (args.task_name != "brats", f"--task {args.task_name}",
@@ -119,9 +124,8 @@ def _refuse_later_slices(args) -> None:
         (args.test_interp is not None, "--testinterp",
          "the evaluation tools"),
         (args.pos_code_type not in ("lsinu", "none"),
-         f"--pos {args.pos_code_type}", "the position-code ablations"),
-        (not args.use_squeezed_transformer, "--nosqueeze",
-         "the non-squeezed encoder"),
+         f"--pos {args.pos_code_type}", _ITEM4_3D),
+        (not args.use_squeezed_transformer, "--nosqueeze", _ITEM4_3D),
         (args.ablate_multihead, "--multihead", "the ablations"),
     ]
     for bad, flag, where in later:

@@ -1,4 +1,4 @@
-"""2-D training of Segtran2d on a CUDA GPU (REFUGE fundus, polyp).
+"""2-D training of Segtran2d on a CUDA GPU (REFUGE fundus, polyp, OCT).
 
 Counterpart of ``segtran_tpu/cli/train2d.py`` for ``--net segtran``,
 supervised. Per step (``make_step``) on the device: the task's label map
@@ -11,8 +11,12 @@ bilinear resize to the patch size; then the forward in training mode,
 ``--focus``), the global-norm clip and BertAdam with warmup-linear over
 the reference's parameter groups, with ``--gradaccum`` microbatches.
 ``--fused`` runs the CUDA flash attention in the squeezed layers when
-``--dropout 0``. Checkpoints ``iter_N.pt`` with their sidecar every
-``--saveiter`` iterations and at the end; ``--cp`` starts from one.
+``--dropout 0``. The model options of the paper's ablations build as JAX
+builds them: ``--nosqueeze``, ``--pos rand|sinu|bias`` (``--posr``,
+``--posw``), ``--multihead``, ``--inbn``, ``--gbias``, and ``--outfpn``
+equal to ``--infpn`` (no output FPN). Checkpoints ``iter_N.pt`` with
+their sidecar every ``--saveiter`` iterations and at the end; ``--cp``
+starts from one.
 Flags whose modules belong to a later slice of the port raise
 NotImplementedError naming the ROADMAP item that will port them.
 
@@ -56,7 +60,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="segtran_tpu_torch 2D training (Segtran2d)")
     p.add_argument("--task", dest="task_name", default="fundus",
-                   choices=["fundus", "polyp"])
+                   choices=["fundus", "polyp", "oct"])
     p.add_argument("--ds", dest="ds_names", default=None,
                    help="comma-separated dataset names")
     p.add_argument("--split", default="train", choices=["train", "all"])
@@ -207,7 +211,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 _DA = "ROADMAP Queue 1 item 5: 2.5D, DA and Polyformer"
-_OPTIONS = "ROADMAP Queue 1 item 3: the remaining 2-D model options"
 _ZOO = "ROADMAP Queue 1 item 6: the zoo, parallel/ and tools"
 
 
@@ -230,12 +233,6 @@ def _refuse_later_slices(args) -> None:
          or args.ndevices > 1, "--tp/--ep/--ndevices above 1", _ZOO),
         (args.net != "segtran", f"--net {args.net}", _ZOO),
         (args.use_mince_transformer, "--mince", _DA),
-        (args.pos_code_type not in ("lsinu", "none"),
-         f"--pos {args.pos_code_type}", _OPTIONS),
-        (args.ablate_multihead, "--multihead", _OPTIONS),
-        (not args.use_squeezed_transformer, "--nosqueeze", _OPTIONS),
-        (args.in_fpn_use_bn, "--inbn", _OPTIONS),
-        (args.use_global_bias, "--gbias", _OPTIONS),
         (args.profile, "--profile", _ZOO),
     ]
     for bad, flag, where in later:
@@ -296,10 +293,14 @@ def build_model_and_config(args, task):
         num_modes=num_modes,
         qk_have_bias=args.qk_have_bias,
         use_squeezed_transformer=args.use_squeezed_transformer,
+        ablate_multihead=args.ablate_multihead,
         attn_clip=args.attn_clip,
+        use_global_bias=args.use_global_bias,
+        in_fpn_use_bn=args.in_fpn_use_bn,
         out_fpn_do_dropout=args.out_fpn_do_dropout,
         bb_feat_upsize=args.bb_feat_upsize,
         pos_code_weight=args.pos_code_weight,
+        pos_bias_radius=args.pos_bias_radius,
         has_FFN_in_squeeze=args.has_FFN_in_squeeze,
         use_fused_attention=args.use_fused_attention,
         use_fused_epilogue=args.use_fused_epilogue,
@@ -316,7 +317,7 @@ def build_model_and_config(args, task):
         logger.warning("--fused is inert during training with attention "
                        "dropout %.2f; pass --dropout 0 to engage the flash "
                        "kernels", dropout)
-    return Segtran2d(cfg), cfg
+    return Segtran2d(cfg, patch_size=task["patch_size"]), cfg
 
 
 def optimizer_settings(args):

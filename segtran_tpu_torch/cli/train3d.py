@@ -42,7 +42,7 @@ from ..ops.resize import resize_linear
 from ..train.checkpoint import load_checkpoint, save_checkpoint
 from ..train.trainer import build_optimizer, make_train_step
 from ..utils.meters import AverageMeters
-from .test3d import segtran3d_config, task_settings
+from .test3d import _ITEM4_3D, segtran3d_config, task_settings
 
 
 def build_argparser():
@@ -149,8 +149,9 @@ def _refuse_later_slices(args) -> None:
         (args.use_attn_consist_loss, "--attnconsist", "the DA slice"),
         (args.tensor_parallel > 1 or args.ndevices > 1,
          "--tp/--ndevices above 1", "the multi-GPU slice"),
-        (not args.use_squeezed_transformer, "--nosqueeze",
-         "the non-squeezed encoder"),
+        (args.pos_code_type not in ("lsinu", "none"),
+         f"--pos {args.pos_code_type}", _ITEM4_3D),
+        (not args.use_squeezed_transformer, "--nosqueeze", _ITEM4_3D),
         (args.ablate_multihead, "--multihead", "the ablations"),
     ]
     for bad, flag, where in later:

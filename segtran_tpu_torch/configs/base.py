@@ -59,8 +59,9 @@ class TransformerConfig:
     has_FFN: bool = True
     has_FFN_in_squeeze: bool = False
 
-    pos_code_type: str = "lsinu"           # lsinu | none (this slice)
+    pos_code_type: str = "lsinu"           # lsinu | rand | sinu | none | bias
     pos_code_weight: float = 1.0
+    pos_bias_radius: int = 7
     pos_dim: int = 2
 
     qk_have_bias: bool = True
@@ -74,6 +75,8 @@ class TransformerConfig:
     attention_probs_dropout_prob: float = 0.1
     # dropout on the out-FPN features in training (the unfactored tail)
     out_fpn_do_dropout: bool = False
+    # standard multi-head attention output in place of the expansion block
+    ablate_multihead: bool = False
     # the reference init passes (nn/init.py)
     base_initializer_range: float = 0.02
     query_idbias_scale: float = 10.0
@@ -119,8 +122,15 @@ class Segtran2dConfig(TransformerConfig):
     out_fpn_layers: Tuple[int, ...] = (1, 2, 3, 4)
     in_fpn_scheme: str = "AN"              # AN: add then norm; NA: norm then add
     out_fpn_scheme: str = "AN"
+    # BatchNorm (momentum 0.9, eps 1e-5) in place of the FPNs' GroupNorm
+    in_fpn_use_bn: bool = False
+    out_fpn_use_bn: bool = False
     G: int = 8                             # groups in GroupNorm
     num_classes: int = 2
+    # > 0: inputs [B, H, W, C, MOD], modalities max-fused after the in-FPN
+    num_modalities: int = 0
+    # a learned global bias in place of the fusion transformer
+    use_global_bias: bool = False
     translayer_compress_ratios: Tuple[float, ...] = (1.0, 1.0)
 
     @property

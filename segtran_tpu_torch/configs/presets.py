@@ -1,5 +1,5 @@
 """Per-task and per-net defaults (reference train2d.py:245-385 and
-train3d.py:218-255; the fundus, polyp and brats entries and ``--net
+train3d.py:218-255; the fundus, polyp, oct and brats entries and ``--net
 segtran``) and the CLI-override rule ``get_default`` (reference
 common_util.py:6-13)."""
 from __future__ import annotations
@@ -47,6 +47,15 @@ TASK_SETTINGS: Dict[str, Dict[str, Any]] = {
         "orig_input_size": (320, 320),
         "patch_size": (320, 320),
         "binarize": True,
+    },
+    "oct": {
+        "num_classes": 10,
+        "bce_weight": (0.0,) + (1.0,) * 9,
+        "ds_class": "SegWhole",
+        "ds_names": ("duke",),
+        "orig_input_size": (288, 512),
+        "patch_size": (288, 512),
+        "binarize": False,
     },
     # 3D (reference train3d.py:218-255)
     "brats": {

@@ -7,9 +7,15 @@ The reverse of the JAX package's torch importer (rules of
 * Dense ``kernel [in, out]``              -> Linear ``weight [out, in]``
 * conv ``kernel [kh, kw, I, O]``          -> ``weight [O, I, kh, kw]``
   (depthwise ``[kh, kw, 1, C]`` -> ``[C, 1, kh, kw]``)
+* the transposed ``out_conv`` (``nn.ConvTranspose``, a 2x2 kernel
+  ``[kh, kw, I, O]``)                     -> ``ConvTranspose2d`` weight
+  ``kernel[::-1, ::-1]`` as ``[I, O, kh, kw]``: flax applies the kernel
+  unflipped, torch's transposed conv flipped
 * 3-D conv ``kernel [kd, kh, kw, I, O]``  -> ``weight [O, I, kd, kh, kw]``
 * MMPrivateLinear ``kernel [M, F, F]``    -> ``weight [M, F, F]`` as is
 * ``scale`` / ``bias``                    -> ``weight`` / ``bias``
+* ``attractors``, ``pos_embed``, ``biases`` (the sliding position
+  biases), ``vfeat_bias``                  -> as they are
 * ``batch_stats`` ``mean`` / ``var``      -> ``running_mean`` / ``running_var``
 * tied Q/K: the JAX tree holds one ``query`` set, and so does the port.
 
@@ -42,8 +48,15 @@ def _module_key(path: tuple) -> str:
     return ".".join(parts)
 
 
-def _param(leaf: str, arr: np.ndarray, where: str) -> Tuple[str, np.ndarray]:
+_AS_IS = ("bias", "attractors", "pos_embed", "biases", "vfeat_bias")
+
+
+def _param(path: tuple, arr: np.ndarray, where: str) -> Tuple[str, np.ndarray]:
+    leaf = path[-1]
     if leaf == "kernel":
+        if (arr.ndim == 4 and path[-2:-1] == ("out_conv",)
+                and arr.shape[:2] != (1, 1)):
+            return "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
         if arr.ndim == 2:
             return "weight", arr.T
         if arr.ndim == 3:
@@ -54,7 +67,7 @@ def _param(leaf: str, arr: np.ndarray, where: str) -> Tuple[str, np.ndarray]:
             return "weight", arr.transpose(4, 3, 0, 1, 2)
     elif leaf == "scale":
         return "weight", arr
-    elif leaf in ("bias", "attractors"):
+    elif leaf in _AS_IS:
         return leaf, arr
     raise ValueError(f"no conversion rule for JAX leaf {where} "
                      f"{arr.shape}")
@@ -68,7 +81,7 @@ def state_dict_from_jax(params: Dict[str, Any],
     sd: Dict[str, torch.Tensor] = {}
     for path, arr in _leaves(params):
         where = "params/" + "/".join(path)
-        name, val = _param(path[-1], np.asarray(arr), where)
+        name, val = _param(path, np.asarray(arr), where)
         sd[_module_key(path[:-1] + (name,))] = torch.from_numpy(
             np.array(val, dtype=np.float32))
     for path, arr in _leaves(batch_stats or {}):

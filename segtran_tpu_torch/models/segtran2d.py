@@ -1,5 +1,13 @@
-"""Segtran2d: EfficientNet backbone -> input FPN -> squeezed fusion
-transformer -> factored output-FPN tail -> bilinear resize.
+"""Segtran2d: EfficientNet backbone -> input FPN -> fusion transformer ->
+factored output-FPN tail (or, with ``out_fpn_layers == in_fpn_layers``,
+a 1x1 head or a 2x2 stride-2 transposed-conv head on the fused grid) ->
+bilinear resize. The FPNs normalise with GroupNorm or, with
+``in_fpn_use_bn`` / ``out_fpn_use_bn``, BatchNorm (momentum 0.9, eps
+1e-5; ``in_bn{l}b`` / ``out_bn{l}b``). ``num_modalities > 0`` takes
+[B, H, W, C, MOD] inputs: the modality folds into the batch, and is
+max-fused after the in-FPN and over the pyramid. ``use_global_bias``
+replaces the fusion transformer with a learned, LayerNormed
+``vfeat_bias``.
 
 ``model.train()`` gives the training forward (JAX ``train=True``): the
 backbone's BatchNorm on batch statistics and its drop-connect, dropout at
@@ -18,6 +26,7 @@ state_dict keys are the reference's.
 from __future__ import annotations
 
 import math
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +39,7 @@ from ..nn.encoder import SegtranFusionEncoder
 from ..nn.heads import Conv1x1Params, apply_pointwise, compose_1x1
 from ..nn.poscode import gen_all_indices
 from ..nn.remat import remat
+from ..ops.norm import LayerNorm, batch_norm_train
 from ..ops.resize import avg_pool_nhwc, resize_linear
 
 
@@ -44,6 +54,31 @@ class _GroupNorm(nn.GroupNorm):
         return y.movedim(1, -1).to(dtype)
 
 
+class _BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype)`` on
+    channels-last tensors (JAX segtran2d.py:35-38): statistics and the
+    normalize in fp32, result in the compute dtype; in training the batch's
+    statistics (``ops/norm.batch_norm_train``, which moves the running ones
+    with the biased variance), in eval the running ones."""
+
+    def __init__(self, feats: int, eps: float = 1e-5, momentum: float = 0.9):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(feats))
+        self.bias = nn.Parameter(torch.zeros(feats))
+        self.register_buffer("running_mean", torch.zeros(feats))
+        self.register_buffer("running_var", torch.ones(feats))
+        self.eps, self.momentum = eps, momentum
+
+    def run(self, x, dtype):
+        if self.training:
+            return batch_norm_train(x.movedim(-1, 1), self, self.momentum,
+                                    dtype).movedim(1, -1)
+        mul = torch.rsqrt(self.running_var.float() + self.eps) \
+            * self.weight.float()
+        return ((x.float() - self.running_mean.float()) * mul
+                + self.bias.float()).to(dtype)
+
+
 def _conv1x1(x, conv: nn.Module, dtype):
     """1x1 (1x1x1) conv with bias on channels-last x as a pointwise
     product, in dtype."""
@@ -52,60 +87,104 @@ def _conv1x1(x, conv: nn.Module, dtype):
 
 
 class Segtran2d(nn.Module):
-    def __init__(self, cfg: Segtran2dConfig):
+    """``patch_size`` (H, W) of the model's input: needed only by the
+    ``rand`` position code, whose table has one row per token."""
+
+    def __init__(self, cfg: Segtran2dConfig,
+                 patch_size: Optional[Sequence[int]] = None):
         super().__init__()
         self.cfg = cfg
         if not cfg.backbone_type.startswith("eff-"):
             raise NotImplementedError(
                 f"backbone {cfg.backbone_type} belongs to a later slice of "
                 f"the port (this slice has the EfficientNet backbones)")
-        if cfg.out_fpn_layers == cfg.in_fpn_layers:
-            raise NotImplementedError(
-                "the no-out-FPN head belongs to a later slice of the port")
         dims = cfg.bb_feat_dims
         self.backbone = EfficientNetFeatures(
             cfg.backbone_type, stem_stride=1 if cfg.bb_feat_upsize else 2,
             remat_blocks=cfg.remat_blocks, dtype=cfg.dtype)
         for layer in cfg.in_fpn_layers[:-1]:
-            setattr(self, f"in_fpn{layer}{layer + 1}_conv",
-                    nn.Conv2d(dims[layer], dims[layer + 1], 1))
-            setattr(self, f"in_gn{layer + 1}b",
-                    _GroupNorm(cfg.G, dims[layer + 1], eps=1e-5))
+            self._add_fpn_level("in", layer)
         if dims[cfg.in_fpn_layers[-1]] != cfg.trans_in_dim:
             self.in_fpn_bridgeconv = nn.Conv2d(dims[cfg.in_fpn_layers[-1]],
                                                cfg.trans_in_dim, 1)
-        self.voxel_fusion = SegtranFusionEncoder(cfg)
-        self.extra_layers = cfg.out_fpn_layers[:-len(cfg.in_fpn_layers)]
+        if cfg.use_global_bias:
+            # learned global bias ablation (reference segtran2d.py:79-85)
+            self.vfeat_bias = nn.Parameter(
+                torch.empty(1, 1, cfg.trans_out_dim))
+            self.vfeat_bias_norm_layer = LayerNorm(cfg.trans_out_dim, 1e-5)
+        else:
+            grid = None
+            if cfg.pos_code_type == "rand":
+                if patch_size is None:
+                    raise ValueError("the rand position code needs the "
+                                     "model's patch_size")
+                stride = self._grid_stride()
+                grid = tuple(int(s) // stride for s in patch_size)
+            self.voxel_fusion = SegtranFusionEncoder(cfg, token_grid=grid)
+        self.do_out_fpn = cfg.out_fpn_layers != cfg.in_fpn_layers
+        self.extra_layers = (cfg.out_fpn_layers[:-len(cfg.in_fpn_layers)]
+                             if self.do_out_fpn else ())
         for layer in self.extra_layers:
-            setattr(self, f"out_fpn{layer}{layer + 1}_conv",
-                    nn.Conv2d(dims[layer], dims[layer + 1], 1))
-            setattr(self, f"out_gn{layer + 1}b",
-                    _GroupNorm(cfg.G, dims[layer + 1], eps=1e-5))
-        last_out_layer = cfg.out_fpn_layers[-len(cfg.in_fpn_layers)]
-        if dims[last_out_layer] != cfg.trans_out_dim:
-            self.out_fpn_bridgeconv = Conv1x1Params(dims[last_out_layer],
-                                                    cfg.trans_out_dim)
-        self.out_conv = Conv1x1Params(cfg.trans_out_dim, cfg.num_classes)
+            self._add_fpn_level("out", layer)
+        if self.do_out_fpn:
+            last_out_layer = cfg.out_fpn_layers[-len(cfg.in_fpn_layers)]
+            if dims[last_out_layer] != cfg.trans_out_dim:
+                self.out_fpn_bridgeconv = Conv1x1Params(dims[last_out_layer],
+                                                        cfg.trans_out_dim)
+            self.out_conv = Conv1x1Params(cfg.trans_out_dim, cfg.num_classes)
+        elif 2 in cfg.in_fpn_layers:
+            self.out_conv = nn.Conv2d(cfg.trans_out_dim, cfg.num_classes, 1)
+        else:
+            # 1/8-resolution features: a learned 2x upsampling head
+            # (reference segtran2d.py:205-208)
+            self.out_conv = nn.ConvTranspose2d(cfg.trans_out_dim,
+                                               cfg.num_classes, 2, stride=2)
         self.out_fpn_dropout = Dropout(cfg.hidden_dropout_prob)
+
+    def _norm_name(self, prefix: str, layer: int) -> str:
+        use_bn = (self.cfg.in_fpn_use_bn if prefix == "in"
+                  else self.cfg.out_fpn_use_bn)
+        return f"{prefix}_{'bn' if use_bn else 'gn'}{layer + 1}b"
+
+    def _add_fpn_level(self, prefix: str, layer: int) -> None:
+        """The 1x1 conv from level ``layer`` to ``layer + 1`` and its norm
+        (reference segtran2d.py:103-106, 166-169)."""
+        dims = self.cfg.bb_feat_dims
+        setattr(self, f"{prefix}_fpn{layer}{layer + 1}_conv",
+                nn.Conv2d(dims[layer], dims[layer + 1], 1))
+        name = self._norm_name(prefix, layer)
+        setattr(self, name, _BatchNorm(dims[layer + 1]) if "_bn" in name
+                else _GroupNorm(self.cfg.G, dims[layer + 1], eps=1e-5))
+
+    def _grid_stride(self) -> int:
+        """Input pixels per token along each axis (the in-FPN's lowest
+        layer, as the nonzero mask pools)."""
+        stride = 2 ** min(self.cfg.in_fpn_layers)
+        return stride if self.cfg.bb_feat_upsize else 2 * stride
 
     def _fpn_step(self, prefix, layer, curr, feats, scheme, dt):
         upconv = _conv1x1(curr, getattr(self, f"{prefix}_fpn{layer}{layer + 1}_conv"), dt)
         higher = resize_linear(feats[layer + 1], upconv.shape[1:-1])
-        norm = getattr(self, f"{prefix}_gn{layer + 1}b")
+        norm = getattr(self, self._norm_name(prefix, layer))
         if scheme == "AN":
             return norm.run(upconv + higher, dt)
         return norm.run(upconv, dt) + higher
 
     def forward(self, batch: torch.Tensor) -> torch.Tensor:
-        """batch [B, H, W, C] -> logits [B, H, W, num_classes] (fp32)."""
+        """batch [B, H, W, C] (or [B, H, W, C, MOD] with num_modalities) ->
+        logits [B, H, W, num_classes] (fp32)."""
         cfg = self.cfg
         dt = cfg.dtype
+        if cfg.num_modalities > 0:
+            # modality folded into the batch (reference segtran2d.py:321-328)
+            b0, h, w, c, mod = batch.shape
+            batch = batch.permute(0, 4, 1, 2, 3).reshape(b0 * mod, h, w, c)
+        else:
+            b0, mod = batch.shape[0], 0
         b, h, w, _ = batch.shape
 
         # nonzero mask: AvgPool(|x|) summed over channels > 0
-        pool_stride = 2 ** min(cfg.in_fpn_layers)
-        if not cfg.bb_feat_upsize:
-            pool_stride *= 2
+        pool_stride = self._grid_stride()
         pooled = avg_pool_nhwc(batch.abs(), (pool_stride, pool_stride))
         nonzero_mask = pooled.sum(-1) > 0                    # [B, H2, W2]
 
@@ -121,6 +200,10 @@ class Segtran2d(nn.Module):
         h2, w2 = curr.shape[1], curr.shape[2]
         vfeat_fpn = curr.reshape(b, h2 * w2, cfg.trans_in_dim)
         vmask = nonzero_mask.reshape(b, h2 * w2)
+        if mod:
+            # max-fuse the modalities after the in-FPN (segtran2d.py:361-368)
+            vfeat_fpn = vfeat_fpn.reshape(b0, mod, h2 * w2, -1).amax(1)
+            vmask = vmask.reshape(b0, mod, h2 * w2)[:, 0]
 
         # positional coordinates (segtran2d.py:372-392)
         scale_h, scale_w = h // h2, w // w2
@@ -129,12 +212,31 @@ class Segtran2d(nn.Module):
         xy = gen_all_indices((h2, w2), device=batch.device).reshape(-1, 2).float()
         xy = xy * torch.tensor([[scale_h, scale_w]], dtype=torch.float32,
                                device=batch.device)
-        voxels_pos = xy[None].expand(b, h2 * w2, 2)
+        voxels_pos = xy[None].expand(b0, h2 * w2, 2)
 
-        enc_args = (vfeat_fpn, voxels_pos, vmask[..., None].to(dt), (h2, w2))
-        vfeat_fused = (remat(self.voxel_fusion, *enc_args) if rematted
-                       else self.voxel_fusion(*enc_args))
-        vfeat_fused = vfeat_fused.reshape(b, h2, w2, cfg.trans_out_dim)
+        if cfg.use_global_bias:
+            vfeat_fused = self.vfeat_bias_norm_layer(self.vfeat_bias).to(
+                dt).expand(b0, h2 * w2, -1)
+        else:
+            enc_args = (vfeat_fpn, voxels_pos, vmask[..., None].to(dt),
+                        (h2, w2))
+            vfeat_fused = (remat(self.voxel_fusion, *enc_args) if rematted
+                           else self.voxel_fusion(*enc_args))
+        vfeat_fused = vfeat_fused.reshape(b0, h2, w2, cfg.trans_out_dim)
+
+        if mod:
+            # the pyramid max-fused over the modalities too (JAX
+            # segtran2d.py:151-158)
+            feats = tuple(f.reshape((b0, mod) + f.shape[1:]).amax(1)
+                          for f in feats)
+        if not self.do_out_fpn:
+            if isinstance(self.out_conv, nn.ConvTranspose2d):
+                scores = F.conv_transpose2d(
+                    vfeat_fused.movedim(-1, 1), self.out_conv.weight.to(dt),
+                    self.out_conv.bias.to(dt), stride=2).movedim(1, -1)
+            else:
+                scores = _conv1x1(vfeat_fused, self.out_conv, dt)
+            return resize_linear(scores.float(), (h, w))
 
         curr = feats[cfg.out_fpn_layers[0]]
         for layer in self.extra_layers:
@@ -165,20 +267,27 @@ class Segtran2d(nn.Module):
 def init_segtran2d(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init with the JAX package's initializer families:
     normal(0.02) for linear and private weights, normal(1) for attractors,
-    lecun-normal for 2-D and 3-D convs, ones/zeros for norm scales and
-    biases. Segtran3d uses it too (``init_segtran3d``)."""
+    the rand position table and the global bias, zeros for the sliding
+    position biases, lecun-normal for 2-D and 3-D convs, ones/zeros for norm
+    scales and biases. Segtran3d uses it too (``init_segtran3d``)."""
     gen = torch.Generator().manual_seed(seed)
+    transposed = {id(m.weight) for m in model.modules()
+                  if isinstance(m, nn.ConvTranspose2d)}
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "attractors":
+            if leaf in ("attractors", "pos_embed", "vfeat_bias"):
                 p.normal_(0.0, 1.0, generator=gen)
-            elif leaf == "bias":
+            elif leaf in ("bias", "biases"):
                 p.zero_()
             elif p.dim() == 1:
                 p.fill_(1.0)
             elif p.dim() >= 4:
-                p.normal_(0.0, 1.0 / math.sqrt(p[0].numel()), generator=gen)
+                # fan-in: in-channels x kernel ([I, O, kh, kw] when
+                # transposed, else [O, I, kh, kw])
+                fan_in = (p.shape[0] * p[0, 0].numel() if id(p) in transposed
+                          else p[0].numel())
+                p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
             else:
                 p.normal_(0.0, 0.02, generator=gen)
     return model

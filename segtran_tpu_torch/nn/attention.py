@@ -3,7 +3,8 @@
 Counterpart of ``segtran_tpu/nn/attention.py``; reference
 segtran_shared.py:200-325 (MM mid/output pieces, LearnedSoftAggregate),
 :329-476 (ExpandedFeatTrans), :478-610 (CrossAttFeatTrans), :787-816
-(SqueezedAttFeatTrans). Numerics follow the JAX modules, including their
+(SqueezedAttFeatTrans); segtran_ablation.py:182-253 (MultiHeadFeatTrans,
+``ablate_multihead``). Numerics follow the JAX modules, including their
 exact reassociations, so bf16 rounds at the same places:
 
 * scores scaled by 1/sqrt(in_feat_dim / num_modes) and clamped to
@@ -15,11 +16,13 @@ exact reassociations, so bf16 rounds at the same places:
 * V channel m*F+f belongs to mode m; tied Q/K ("shared") is one parameter
   set applied twice.
 
-With ``use_fused_attention`` the squeezed layers' two cross-attentions go
-through the CUDA flash kernels (``kernels/squeezed_attention.py``), which
-always clamp: in eval, and in training when attention dropout is 0 (the
-JAX gate), then through the differentiable
-``fused_cross_attention_trainable``.
+With ``use_fused_attention`` a cross-attention goes through the CUDA flash
+kernels (``kernels/squeezed_attention.py``), which always clamp, where JAX's
+gate lets it: no position biases, no kept scores, no ``ablate_multihead``,
+and eval or no attention dropout (then through the differentiable
+``fused_cross_attention_trainable``). Position biases are added after the
+clamp, ``scores + pos_code_weight * pos_biases``; ``keep_attn_scores`` keeps
+those scores on the module (``attention_scores``) for the caller.
 
 Parameters are stored fp32 in torch layouts (Linear ``weight [out, in]``;
 the private group linear ``weight [M, F_in, F_out]``) and cast to the
@@ -100,8 +103,10 @@ class TransLayerSpec:
     attn_clip: float = 500.0
     has_FFN: bool = True
     mid_type: str = "shared"               # shared | private | none
-    trans_output_type: str = "private"
+    trans_output_type: str = "private"     # shared | private
     pool_modes_feat: str = "softmax"       # softmax | max | mean | none
+    pos_code_weight: float = 1.0           # on pos_biases ('bias' codes)
+    ablate_multihead: bool = False
     fix_private_output_residual: bool = False
     reassociate: bool = True
     attention_probs_dropout_prob: float = 0.1
@@ -213,6 +218,23 @@ class MMPrivateMid(nn.Module):
         return self.dropout(_gelu_exact(self.group_linear(x)))
 
 
+class MMSharedOutput(nn.Module):
+    """Shared FFN output: Linear + residual + dropout + LayerNorm
+    (segtran_shared.py:279-308)."""
+
+    def __init__(self, feat_dim: int, ln_eps: float, dtype=torch.float32,
+                 hidden_dropout_prob: float = 0.0):
+        super().__init__()
+        self.shared_linear = nn.Linear(feat_dim, feat_dim)
+        self.resout_norm_layer = LayerNorm(feat_dim, ln_eps, dtype=dtype)
+        self.dropout = Dropout(hidden_dropout_prob)
+        self.dtype = dtype
+
+    def forward(self, x, shortcut):
+        y = dense(x, self.shared_linear, self.dtype) + shortcut
+        return self.resout_norm_layer(self.dropout(y))
+
+
 class MMPrivateOutput(nn.Module):
     """Private FFN output (segtran_shared.py:255-275): the reference
     computes ``x + shortcut`` but normalizes ``x`` -- the residual is
@@ -234,6 +256,25 @@ class MMPrivateOutput(nn.Module):
         return self.resout_norm_layer(self.dropout(y))
 
 
+def _ffn_blocks(spec: TransLayerSpec, num_modes: int):
+    """(intermediate, output) of ``spec.mid_type`` / ``trans_output_type``
+    with ``num_modes`` modes; intermediate None for ``mid_type='none'``."""
+    s, m = spec, num_modes
+    if s.mid_type == "shared":
+        mid = MMSharedMid(s.feat_dim, s.dtype, s.hidden_dropout_prob)
+    elif s.mid_type == "private":
+        mid = MMPrivateMid(m, s.feat_dim, s.dtype, s.hidden_dropout_prob)
+    else:
+        mid = None
+    if s.trans_output_type == "shared":
+        out = MMSharedOutput(s.feat_dim, s.ln_eps, s.dtype,
+                             s.hidden_dropout_prob)
+    else:
+        out = MMPrivateOutput(m, s.feat_dim, s.fix_private_output_residual,
+                              s.ln_eps, s.dtype, s.hidden_dropout_prob)
+    return mid, out
+
+
 class ExpandedFeatTrans(nn.Module):
     """The expansion block: multi-mode V projection, attention-fused values,
     FFN, mode pooling (segtran_shared.py:329-476)."""
@@ -251,22 +292,7 @@ class ExpandedFeatTrans(nn.Module):
             self.feat_softaggr = LearnedSoftAggregate(s.feat_dim, 1,
                                                       dtype=s.dtype)
         if s.has_FFN:
-            if s.mid_type == "shared":
-                self.intermediate = MMSharedMid(s.feat_dim, s.dtype,
-                                                s.hidden_dropout_prob)
-            elif s.mid_type == "private":
-                self.intermediate = MMPrivateMid(s.num_modes, s.feat_dim,
-                                                 s.dtype,
-                                                 s.hidden_dropout_prob)
-            else:
-                self.intermediate = None
-            if s.trans_output_type != "private":
-                raise NotImplementedError(
-                    "trans_output_type='shared' belongs to a later slice of "
-                    "the port (the model zoo)")
-            self.output = MMPrivateOutput(
-                s.num_modes, s.feat_dim, s.fix_private_output_residual,
-                s.ln_eps, s.dtype, s.hidden_dropout_prob)
+            self.intermediate, self.output = _ffn_blocks(s, s.num_modes)
 
     def compute_v(self, input_feat):
         """[B, U2, in] -> [B, M, U2, F]; channel m*F+f is (mode m, f)."""
@@ -280,7 +306,7 @@ class ExpandedFeatTrans(nn.Module):
         (gelu((P V) W1 + b1) == gelu(P (V W1) + b1))."""
         s = self.spec
         return (s.reassociate and not s.v_has_bias and s.has_FFN
-                and s.mid_type == "shared"
+                and s.mid_type == "shared" and s.trans_output_type == "private"
                 and not s.fix_private_output_residual)
 
     def apply_mid_premul(self, in_key):
@@ -302,10 +328,11 @@ class ExpandedFeatTrans(nn.Module):
 
     def _epilogue_route(self, tier: str, num_keys: int = 0) -> str:
         """``epi.epilogue_route`` where the fused epilogue may run (eval,
-        ``use_fused_epilogue``, FFN, residual dropped, softmax pool), else
-        ``"unfused"``."""
+        ``use_fused_epilogue``, FFN, private output with its residual
+        dropped, softmax pool), else ``"unfused"``."""
         s = self.spec
         if not (s.use_fused_epilogue and not self.training and s.has_FFN
+                and s.trans_output_type == "private"
                 and not s.fix_private_output_residual
                 and s.pool_modes_feat == "softmax"):
             return "unfused"
@@ -329,9 +356,7 @@ class ExpandedFeatTrans(nn.Module):
             # squeeze-in side: P (X Wv) == (P X) Wv
             px = torch.matmul(attention_probs, input_feat.to(s.dtype)[:, None])
             fused = self.first_linear(px, stage="grouped")
-        elif (s.reassociate and not s.v_has_bias and u2 < u1
-              and s.has_FFN and s.mid_type == "shared"
-              and not s.fix_private_output_residual):
+        elif u2 < u1 and self.supports_mid_premul():
             # attractor-out side: gelu((P V) W1 + b1) == gelu(P (V W1) + b1)
             v = self.compute_v(input_feat)
             route = self._epilogue_route("mid", u2)
@@ -375,26 +400,61 @@ class _QKDense(nn.Linear):
         return dense(x, self, dtype)
 
 
-class CrossAttFeatTrans(nn.Module):
-    """Multi-mode QK cross-attention feeding an ExpandedFeatTrans
-    (segtran_shared.py:478-610); the non-fused path with the q/k folds."""
+class MultiHeadFeatTrans(nn.Module):
+    """Ablation: standard multi-head attention output in place of the
+    expansion block (reference segtran_ablation.py:182-253): V projected to
+    feat_dim (with a bias) split over num_modes heads of feat_dim // M,
+    fused per head, heads concatenated in (head, dim) order, then one-mode
+    mid and output blocks of ``mid_type`` / ``trans_output_type`` (the
+    private output drops its residual, as MMPrivateOutput does)."""
 
     def __init__(self, spec: TransLayerSpec):
         super().__init__()
         s = self.spec = spec
+        self.head_dim = s.feat_dim // s.num_modes
+        self.first_linear = nn.Linear(s.in_feat_dim,
+                                      self.head_dim * s.num_modes)
+        self.intermediate, self.output = _ffn_blocks(s, 1)
+
+    def forward(self, input_feat, attention_probs):
+        s = self.spec
+        b, u2, _ = input_feat.shape
+        m = s.num_modes
+        v = dense(input_feat, self.first_linear, s.dtype)
+        v = v.reshape(b, u2, m, self.head_dim).permute(0, 2, 1, 3)
+        fused = torch.matmul(attention_probs, v)             # [B,M,U1,hd]
+        u1 = fused.shape[2]
+        fused = fused.permute(0, 2, 1, 3).reshape(b, 1, u1, s.feat_dim)
+        mid = (self.intermediate(fused) if self.intermediate is not None
+               else _gelu_exact(fused))
+        return self.output(mid, fused)[:, 0]
+
+
+class CrossAttFeatTrans(nn.Module):
+    """Multi-mode QK cross-attention feeding an ExpandedFeatTrans, or a
+    MultiHeadFeatTrans with ``ablate_multihead`` (segtran_shared.py:478-610);
+    the non-fused path with the q/k folds. ``keep_attn_scores`` keeps each
+    call's clamped, biased scores in ``attention_scores``."""
+
+    def __init__(self, spec: TransLayerSpec, keep_attn_scores: bool = False):
+        super().__init__()
+        s = self.spec = spec
+        self.keep_attn_scores = keep_attn_scores
+        self.attention_scores = None
         self.query = _QKDense(s.in_feat_dim, s.att_size_allmode,
                               bias=s.qk_have_bias)
         if s.tie_qk_scheme != "shared":
             self.key = _QKDense(s.in_feat_dim, s.att_size_allmode,
                                 bias=s.qk_have_bias)
-        self.out_trans = ExpandedFeatTrans(s)
+        self.out_trans = (MultiHeadFeatTrans(s) if s.ablate_multihead
+                          else ExpandedFeatTrans(s))
         self.attn_dropout = Dropout(s.attention_probs_dropout_prob)
 
     def _key(self) -> _QKDense:
         # tied Q/K: one parameter set applied twice (segtran_shared.py:528-531)
         return self.query if self.spec.tie_qk_scheme == "shared" else self.key
 
-    def forward(self, in_query, in_key=None):
+    def forward(self, in_query, in_key=None, pos_biases=None):
         s = self.spec
         dt = s.dtype
         in_key = in_query if in_key is None else in_key
@@ -409,9 +469,11 @@ class CrossAttFeatTrans(nn.Module):
         def proj_k():
             return key(in_key, dt).reshape(b, u2, m, amd).permute(0, 2, 1, 3)
 
-        # JAX gate (nn/attention.py:597-600): eval, or no attention dropout
-        if s.use_fused_attention and (not self.training
-                                      or s.attention_probs_dropout_prob == 0):
+        # JAX's gate (nn/attention.py:597-600)
+        if (s.use_fused_attention and pos_biases is None
+                and not self.keep_attn_scores and not s.ablate_multihead
+                and (not self.training
+                     or s.attention_probs_dropout_prob == 0)):
             return self._flash(proj_q(), proj_k(), in_key)
 
         # exact QK reassociation through the small side (nn/attention.py
@@ -438,6 +500,10 @@ class CrossAttFeatTrans(nn.Module):
         else:
             scores = torch.matmul(proj_q(), proj_k().transpose(-1, -2))
         scores = _clamp_if_exceeds(scores / math.sqrt(amd), s.attn_clip)
+        if pos_biases is not None:
+            scores = scores + s.pos_code_weight * pos_biases.to(dt)
+        if self.keep_attn_scores:
+            self.attention_scores = scores
         probs = torch.softmax(scores.float(), dim=-1).to(dt)
         return self.out_trans(in_key, self.attn_dropout(probs))
 
@@ -479,9 +545,9 @@ class SqueezedAttFeatTrans(nn.Module):
         self.in_ator_trans = CrossAttFeatTrans(in_spec)
         self.ator_out_trans = CrossAttFeatTrans(spec)
 
-    def forward(self, in_feat):
+    def forward(self, in_feat, pos_biases=None):
         b = in_feat.shape[0]
         attractors = self.attractors.to(self.spec.dtype).expand(
             b, -1, -1)
-        new_attractors = self.in_ator_trans(attractors, in_feat)
-        return self.ator_out_trans(in_feat, new_attractors)
+        new_attractors = self.in_ator_trans(attractors, in_feat, pos_biases)
+        return self.ator_out_trans(in_feat, new_attractors, pos_biases)

@@ -1,10 +1,13 @@
-"""SegtranFusionEncoder, squeezed branch (reference
-segtran_shared.py:819-975; counterpart of ``segtran_tpu/nn/encoder.py``).
+"""SegtranFusionEncoder (reference segtran_shared.py:819-975; counterpart
+of ``segtran_tpu/nn/encoder.py``).
 
 Per layer i: vfeat -> affine LayerNorm -> (+ poscode[..., :dim_i]) ->
 non-affine LayerNorm -> dropout (layer 0 only) -> * mask ->
-SqueezedAttFeatTrans. The code is computed once at trans_in_dim and sliced
-per layer.
+SqueezedAttFeatTrans, or with ``use_squeezed_transformer=False`` one
+CrossAttFeatTrans attending the N tokens to themselves. The code is
+computed once at trans_in_dim and sliced per layer; a ``bias`` code is
+not added to the features but passed to every layer, whose scores it
+biases (non-squeezed layers only, as in the reference).
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ from torch import nn
 
 from ..configs.base import TransformerConfig
 from ..ops.norm import LayerNorm
-from .attention import Dropout, SqueezedAttFeatTrans, TransLayerSpec
+from .attention import (CrossAttFeatTrans, Dropout, SqueezedAttFeatTrans,
+                        TransLayerSpec)
 from .poscode import SegtranPosEncoder
 
 
@@ -36,6 +40,9 @@ def layer_spec_from_config(cfg: TransformerConfig, layer_i: int) -> TransLayerSp
         pool_modes_feat=cfg.pool_modes_feat,
         attention_probs_dropout_prob=cfg.attention_probs_dropout_prob,
         hidden_dropout_prob=cfg.hidden_dropout_prob,
+        pos_code_weight=(cfg.pos_code_weight if cfg.pos_code_type == "bias"
+                         else 1.0),
+        ablate_multihead=cfg.ablate_multihead,
         fix_private_output_residual=cfg.fix_private_output_residual,
         reassociate=cfg.reassociate,
         use_fused_attention=cfg.use_fused_attention,
@@ -46,30 +53,39 @@ def layer_spec_from_config(cfg: TransformerConfig, layer_i: int) -> TransLayerSp
 
 
 class SegtranFusionEncoder(nn.Module):
-    """Stack of num_translayers squeezed attention layers."""
+    """Stack of num_translayers squeezed (or cross) attention layers.
+    ``token_grid``: the token grid the ``rand`` code's table is sized
+    from (the other codes take it at each call)."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, token_grid=None):
         super().__init__()
-        if not cfg.use_squeezed_transformer:
-            raise NotImplementedError(
-                "the non-squeezed encoder (--nosqueeze) belongs to a later "
-                "slice of the port")
+        if cfg.use_squeezed_transformer and cfg.pos_code_type == "bias":
+            raise ValueError(
+                "Squeezed transformer cannot use positional biases; pass "
+                "--nosqueeze to disable the squeezed transformer "
+                "(reference segtran_shared.py:841-844)")
         self.cfg = cfg
         dims = cfg.translayer_dims
         self.pos_code_layer = SegtranPosEncoder(
             cfg.pos_code_type, cfg.pos_dim, cfg.trans_in_dim,
-            ln_eps=cfg.ln_eps, dtype=cfg.dtype)
+            pos_bias_radius=cfg.pos_bias_radius, ln_eps=cfg.ln_eps,
+            dtype=cfg.dtype, spatial_shape=token_grid)
         n = cfg.num_translayers
         self.vfeat_norm_layers = nn.ModuleList(
             LayerNorm(dims[i], cfg.ln_eps, dtype=cfg.dtype) for i in range(n))
         self.comb_norm_layers = nn.ModuleList(
             LayerNorm(dims[i], cfg.ln_eps, affine=False, dtype=cfg.dtype)
             for i in range(n))
-        self.translayers = nn.ModuleList(
-            SqueezedAttFeatTrans(layer_spec_from_config(cfg, i),
-                                 num_attractors=cfg.num_attractors,
-                                 has_FFN_in_squeeze=cfg.has_FFN_in_squeeze)
-            for i in range(n))
+        if cfg.use_squeezed_transformer:
+            self.translayers = nn.ModuleList(
+                SqueezedAttFeatTrans(layer_spec_from_config(cfg, i),
+                                     num_attractors=cfg.num_attractors,
+                                     has_FFN_in_squeeze=cfg.has_FFN_in_squeeze)
+                for i in range(n))
+        else:
+            self.translayers = nn.ModuleList(
+                CrossAttFeatTrans(layer_spec_from_config(cfg, i))
+                for i in range(n))
         self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def forward(self, vfeat: torch.Tensor, voxels_pos: torch.Tensor,
@@ -78,13 +94,16 @@ class SegtranFusionEncoder(nn.Module):
         multiplies the normalized features."""
         cfg = self.cfg
         pos_code = self.pos_code_layer(spatial_shape, voxels_pos)
+        # a bias code biases the scores; it is added to the features at
+        # weight 0, so they skip it (reference segtran_shared.py:846-850)
+        pos_biases = pos_code if cfg.pos_code_type == "bias" else None
         for i, layer in enumerate(self.translayers):
             dim_i = cfg.translayer_dims[i]
             feat_normed = self.vfeat_norm_layers[i](vfeat)
-            if cfg.pos_code_type != "none":
+            if cfg.pos_code_type not in ("none", "bias"):
                 feat_comb = feat_normed + cfg.pos_code_weight * pos_code[:, :, :dim_i]
                 feat_normed = self.comb_norm_layers[i](feat_comb)
             if i == 0:
                 feat_normed = self.dropout(feat_normed)
-            vfeat = layer(feat_normed * vmask)
+            vfeat = layer(feat_normed * vmask, pos_biases=pos_biases)
         return vfeat

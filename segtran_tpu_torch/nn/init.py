@@ -8,7 +8,9 @@ segtran_shared.py:392-402, 522-546). After the seeded family init
   copy of Q; then the identity bias goes onto K's weight (onto the one
   shared Q/K weight when tied);
 * every ``ExpandedFeatTrans``: the identity bias onto V's first mode
-  (``first_linear``).
+  (``first_linear``); every ``MultiHeadFeatTrans`` (``ablate_multihead``)
+  counts as an expansion of one mode, so its ``first_linear`` takes the
+  same bias (JAX sows its ``expansion`` meta, nn/attention.py:715-719).
 
 Weights are torch Linear layouts ``[out, in]`` (the JAX kernels are
 ``[in, out]``).
@@ -18,7 +20,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .attention import CrossAttFeatTrans, ExpandedFeatTrans
+from .attention import (CrossAttFeatTrans, ExpandedFeatTrans,
+                        MultiHeadFeatTrans)
 
 
 def _idbias_qk(weight: torch.Tensor, amd: int, scale: float,
@@ -63,7 +66,7 @@ def apply_reference_init_schemes(model: nn.Module, base_range: float,
                     lin.weight.copy_(_idbias_qk(
                         lin.weight, s.attention_mode_dim,
                         query_idbias_scale, base_range))
-            elif isinstance(m, ExpandedFeatTrans):
+            elif isinstance(m, (ExpandedFeatTrans, MultiHeadFeatTrans)):
                 if feattrans_lin1_idbias_scale > 0:
                     w = m.first_linear.weight
                     w.copy_(_idbias_v(w, m.spec.feat_dim,

@@ -97,19 +97,20 @@ def batch_norm_train(x: torch.Tensor, bn: nn.Module, momentum: float,
                      dtype: torch.dtype) -> torch.Tensor:
     """flax ``nn.BatchNorm(use_running_average=False)`` on x [B, C, *spatial]
     (flax 0.12 ``_compute_stats``/``_normalize``): batch mean and the fast
-    variance ``E[x^2] - E[x]^2`` clipped at 0, both in fp32 over every axis
-    but C; ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in fp32,
-    returned in ``dtype``. The running statistics of ``bn`` (buffers
-    ``running_mean``/``running_var``) move to ``momentum * running + (1 -
-    momentum) * batch`` with the biased batch variance -- not
-    ``nn.BatchNorm3d``'s update, which takes the unbiased variance and the
-    inverse momentum."""
+    variance ``E[x^2] - E[x]^2`` clipped at 0, both in fp32 (fp64 for an
+    fp64 ``x``) over every axis but C; ``(x - mean) * (rsqrt(var + eps) *
+    weight) + bias`` in that type, returned in ``dtype``. The running
+    statistics of ``bn`` (buffers ``running_mean``/``running_var``) move
+    to ``momentum * running + (1 - momentum) * batch`` with the biased
+    batch variance -- not ``nn.BatchNorm3d``'s update, which takes the
+    unbiased variance and the inverse momentum."""
     dims = [0] + list(range(2, x.dim()))
     shape = (-1,) + (1,) * (x.dim() - 2)
-    x32 = x.float()
-    mean = x32.mean(dims)
-    var = torch.clamp(x32.square().mean(dims) - mean.square(), min=0.0)
+    xs = x if x.dtype == torch.float64 else x.float()
+    mean = xs.mean(dims)
+    var = torch.clamp(xs.square().mean(dims) - mean.square(), min=0.0)
     update_running_stats(bn, mean, var, momentum)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
-    y = (x32 - mean.view(shape)) * mul.view(shape) + bn.bias.float().view(shape)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.to(xs.dtype)
+    y = (xs - mean.view(shape)) * mul.view(shape) \
+        + bn.bias.to(xs.dtype).view(shape)
     return y.to(dtype)

@@ -9,9 +9,16 @@ def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+# leaves moved off their init: norm scales and biases, BN means, and the
+# position codes' and global bias's parameters (zeros or a table whose
+# LayerNorm would hide a shared offset)
+_SHIFTED = ("scale", "bias", "mean", "biases", "pos_embed", "vfeat_bias")
+
+
 def perturb(tree, seed):
-    """Move every norm scale/bias and BN statistic off its init value, so
-    the folds and affines are tested with non-trivial numbers."""
+    """Move every norm scale/bias, BN statistic and position-code parameter
+    off its init value, so the folds, affines and codes are tested with
+    non-trivial numbers."""
     rng = np.random.RandomState(seed)
 
     def walk(t):
@@ -21,7 +28,7 @@ def perturb(tree, seed):
                 out[k] = walk(v)
                 continue
             v = np.asarray(v, np.float32)
-            if k in ("scale", "bias", "mean"):
+            if k in _SHIFTED:
                 v = v + 0.1 * rng.randn(*v.shape).astype(np.float32)
             elif k == "var":
                 v = v * rng.uniform(0.5, 1.5, v.shape).astype(np.float32)

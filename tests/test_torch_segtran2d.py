@@ -132,12 +132,25 @@ def test_later_slice_flags_raise():
     from segtran_tpu_torch.cli.serve import (build_argparser,
                                              build_model_and_config,
                                              task_settings)
-    for extra in (["--mince"], ["--pos", "bias"],
-                  ["--net", "unet"], ["--polyformer", "source"]):
+    for extra, item in ((["--mince"], "item 5"), (["--net", "unet"], "item 6"),
+                        (["--polyformer", "source"], "item 5")):
         args = build_argparser().parse_args(
             ["--cpdir", "x", "--iter", "1", *extra])
         with pytest.raises(NotImplementedError, match="later slice"):
             build_model_and_config(args, task_settings(args))
+        with pytest.raises(NotImplementedError, match=item):
+            build_model_and_config(args, task_settings(args))
+    # --pos bias is served, but only without the squeezed layers (JAX's
+    # ValueError)
+    args = build_argparser().parse_args(
+        ["--cpdir", "x", "--iter", "1", "--pos", "bias", "--bb", "eff-tiny"])
+    with pytest.raises(ValueError, match="cannot use positional biases"):
+        build_model_and_config(args, task_settings(args))
+    args = build_argparser().parse_args(
+        ["--cpdir", "x", "--iter", "1", "--pos", "bias", "--nosqueeze",
+         "--bb", "eff-tiny", "--translayers", "1", "--task", "oct"])
+    _, cfg = build_model_and_config(args, task_settings(args))
+    assert not cfg.use_squeezed_transformer and cfg.num_classes == 10
 
 
 def test_http_server_on_cpu(tmp_path):

@@ -10,7 +10,8 @@
 * ``main``: a missing ``--iters`` fails before the model is built;
   ``--outorigsize`` writes the preset's 2056x2124 frame; ``--nomask``
   predicts without Dice;
-* every flag of a later slice raises NotImplementedError.
+* every flag of a later slice raises NotImplementedError; the model
+  options build.
 """
 import logging
 import os
@@ -154,14 +155,32 @@ def test_parse_iters_matches_jax():
     (["--robustcp", "x"], "item 6"), (["--savefeat", "2"], "item 6"),
     (["--removefrag"], "item 6"), (["--testinterp", "32"], "item 6"),
     (["--flop"], "item 6"), (["--polyformer", "target"], "item 5"),
-    (["--mince"], "item 5"), (["--pos", "bias"], "item 3"),
-    (["--multihead"], "item 3"), (["--nosqueeze"], "item 3"),
-    (["--inbn"], "item 3"), (["--gbias"], "item 3"),
+    (["--mince"], "item 5"),
     (["--net", "setr"], "item 6"), (["--scanblocks"], "Leave out")])
 def test_later_slice_flags_raise(tmp_path, flags, item):
     from segtran_tpu_torch.cli import test2d
     with pytest.raises(NotImplementedError, match=item):
         test2d.main(["--device", "cpu", "--cpdir", str(tmp_path)] + flags)
+
+
+@pytest.mark.parametrize("flags,field,value", [
+    (["--nosqueeze", "--pos", "bias"], "pos_code_type", "bias"),
+    (["--multihead"], "ablate_multihead", True),
+    (["--nosqueeze"], "use_squeezed_transformer", False),
+    (["--inbn"], "in_fpn_use_bn", True),
+    (["--gbias"], "use_global_bias", True),
+    (["--task", "oct"], "num_classes", 10)])
+def test_ported_option_flags_build(tmp_path, flags, field, value):
+    """test2d builds the model options of item 3 through train2d's
+    factory, in eval form."""
+    from segtran_tpu_torch.cli import test2d, train2d
+    args = test2d.build_argparser().parse_args(
+        ["--bb", "eff-tiny", "--translayers", "1", "--attractors", "8",
+         "--device", "cpu", "--cpdir", str(tmp_path)] + flags)
+    test2d._refuse_later_slices(args)
+    _, cfg = test2d.build_model(args, train2d.task_settings(args))
+    assert getattr(cfg, field) == value
+    assert cfg.hidden_dropout_prob == 0.0
 
 
 def test_needs_a_gpu_unless_cpu_is_asked(tmp_path, monkeypatch):

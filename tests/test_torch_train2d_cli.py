@@ -12,7 +12,7 @@
 * ``main`` on a PNG tree writes ``iter_2.pt`` and its sidecar, and
   ``--cp`` starts from it;
 * every flag of a later slice raises NotImplementedError naming its
-  ROADMAP item.
+  ROADMAP item; the model-option flags build their models.
 """
 import os
 
@@ -255,13 +255,33 @@ def test_main_writes_a_checkpoint_and_resumes(tmp_path):
     (["--optfilter", "backbone"], "item 6"), (["--tp", "2"], "item 6"),
     (["--ep"], "item 6"), (["--ndevices", "2"], "item 6"),
     (["--net", "unet"], "item 6"), (["--profile"], "item 6"),
-    (["--pos", "sinu"], "item 3"), (["--multihead"], "item 3"),
-    (["--nosqueeze"], "item 3"), (["--inbn"], "item 3"),
-    (["--gbias"], "item 3"), (["--scanblocks"], "Leave out")])
+    (["--scanblocks"], "Leave out")])
 def test_later_slice_flags_raise(tmp_path, flags, item):
     from segtran_tpu_torch.cli import train2d
     with pytest.raises(NotImplementedError, match=item):
         train2d.main(["--device", "cpu", "--ckptdir", str(tmp_path)] + flags)
+
+
+@pytest.mark.parametrize("flags,field,value", [
+    (["--pos", "sinu"], "pos_code_type", "sinu"),
+    (["--pos", "rand"], "pos_code_type", "rand"),
+    (["--nosqueeze", "--pos", "bias", "--posr", "3"], "pos_bias_radius", 3),
+    (["--multihead"], "ablate_multihead", True),
+    (["--nosqueeze"], "use_squeezed_transformer", False),
+    (["--inbn"], "in_fpn_use_bn", True),
+    (["--gbias"], "use_global_bias", True),
+    (["--outfpn", "34"], "out_fpn_layers", (3, 4)),
+    (["--task", "oct"], "num_classes", 10)])
+def test_ported_option_flags_build(flags, field, value):
+    """The model options of item 3 build the model they name."""
+    from segtran_tpu_torch.cli import train2d
+    args = train2d.build_argparser().parse_args(
+        ["--bb", "eff-tiny", "--translayers", "1", "--attractors", "8",
+         "--device", "cpu"] + flags)
+    model, cfg = train2d.build_model_and_config(
+        args, train2d.task_settings(args))
+    assert getattr(cfg, field) == value
+    assert model.cfg is cfg
 
 
 def test_needs_a_gpu_unless_cpu_is_asked(tmp_path, monkeypatch):
