@@ -112,6 +112,29 @@ Phases, each of which fails the run:
    per step, peak memory); (f) prep_fundus.center_from_model on two
    synthetic 1024^2 frames at --detsize 640 through build_model_fn.
 
+10. volume options -- the flash forward at the 2.5D model's squeezes (D =
+   F = 1536; N = 9408, 4704 and 34560 tokens) and the 3-D non-squeezed
+   self-attention (Q = N = 2352, 8640, 18000), the flash backward at the
+   2.5D in-squeeze (N = 9408) and the 3-D self-attention (N = 8640), and
+   the epilogue at F = 1536 (per-mode tier P [1,4,34560,1024], private tier
+   mid [1,4,34560,1536]) against their plain versions (bf16), timed beside
+   SDPA or the unfused module chain and their bounds; then at full width:
+   (b) the 2.5D model (eff-b3, 1 translayer 1536->1536, 1024 attractors, 4
+   modes, stemconv on 4 modalities, bf16, --fused --dropout 0) through
+   train3d's train(), 3 steps at the 112x112x96 crop at bs 4 (2 flash
+   forwards, 1 flash backward pair, 1 recompute backward each; ms per step,
+   peak memory) and one --dgroup 2 step; (c) test3d --segtran 25d
+   --wholevol on a 160x192x144 volume with --fused --fusedepi (2 flash,
+   1 private tier) and --fusedepi (1 per-mode tier), each against the
+   unfused modules; (d) the BraTS Segtran3d: --nosqueeze --fused --fusedepi
+   whole volumes at 160x192x144 and 240x240x155 against the unfused
+   modules, one --nosqueeze train() step at 160x192x144 (the flash
+   backward), --pos rand | sinu | bias forwards, two train() steps each of
+   --into3 avgto3, --outdrop --dropout 0.1, --outfpn 34 and --attnconsist
+   (launches as JAX's gate gives), atria and msd (--mod 0 --xyzpermute
+   1,2,0) through train() and evaluate_volume, and one --testinterp
+   volume.
+
 Before the last line it prints a JSON object with the fundus train step's
 and the fused backbone's numbers, one with the per-kernel numbers, and the
 card's ``name, power.limit``; the last line is
@@ -310,17 +333,20 @@ def unfused_call(torch, kind, args):
     return call
 
 
-def check_kernels(torch, epi, only=None, dtypes=("bf16", "fp32")):
-    """Each EPILOGUE_CASES entry (those whose index is in ``only``, where
-    given) in each of ``dtypes`` against its plain version, timed."""
+def check_kernels(torch, epi, only=None, dtypes=("bf16", "fp32"),
+                  cases=None):
+    """Each ``cases`` entry (EPILOGUE_CASES unless given; those whose index
+    is in ``only``, where given) in each of ``dtypes`` against its plain
+    version, timed."""
     results = []
+    cases = EPILOGUE_CASES if cases is None else cases
     for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         if dname not in dtypes:
             continue
         # plain fp32 references without TF32: full-precision products
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        for i, (name, kind, b, m, n, a, f) in enumerate(EPILOGUE_CASES):
+        for i, (name, kind, b, m, n, a, f) in enumerate(cases):
             if only is not None and i not in only:
                 continue
             args = epilogue_inputs(torch, kind, b, m, n, a, f, dt, seed=i)
@@ -639,15 +665,20 @@ def time_recipe_crop(torch, sa):
                 recompute_ms=recompute_ms, **launch)
 
 
-def check_flash_backward(torch, sa):
+def check_flash_backward(torch, sa, cases=None, dtypes=("bf16", "fp32")):
     """The dK/dV and dQ kernels against their plain versions on the same
     inputs (the kernel forward's lse, delta = sum dO O), bit-for-bit
     repeatability, the launch shape, and times: kernel, plain, SDPA
-    backward, bound; then the recipe-crop timing."""
+    backward, bound; then, for FLASH_BWD_CASES (``cases`` not given), the
+    recipe-crop timing."""
     results = []
+    timing = cases is None
+    cases = FLASH_BWD_CASES if cases is None else cases
     torch.backends.cuda.matmul.allow_tf32 = False
     for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        for i, (label, g, nq, n, d, f, qk) in enumerate(FLASH_BWD_CASES):
+        if dname not in dtypes:
+            continue
+        for i, (label, g, nq, n, d, f, qk) in enumerate(cases):
             launch = bwd_launch_shape(torch, sa, label, dname, g, nq, n, d,
                                       f, dt)
             gen = torch.Generator(device="cuda").manual_seed(200 + i)
@@ -732,7 +763,8 @@ def check_flash_backward(torch, sa):
             del q, k, v, do, out, lse, delta, args, dq, dk, dv
             del dq_ref, dk_ref, dv_ref, dk2, dv2
         torch.cuda.empty_cache()
-    results.append(time_recipe_crop(torch, sa))
+    if timing:
+        results.append(time_recipe_crop(torch, sa))
     return results
 
 
@@ -2338,6 +2370,450 @@ def fundus_options(torch, np, epi, sa, ckdir, logger):
     return perf
 
 
+# ----------------------------------------------------------- phase 10 ----
+
+# The kernels at this phase's shapes (bf16, the dtype of its paths): the
+# flash forward at the 2.5D model's in- and out-squeeze (eff-b3, D = F =
+# 1536; N = 9408 tokens at the 112x112x96 crop at batch 4, 4704 with
+# --dgroup 2, 34560 at a 160x192x144 whole volume) and at the 3-D
+# non-squeezed self-attention (4 modes of D = 256, F = 1024; Q = N = 2352
+# at the recipe crop, 8640 at 160x192x144, 18000 at 240x240x155); the flash
+# backward at the 2.5D in-squeeze (N = 9408, batch 4) and the 3-D
+# self-attention at N = 8640; the epilogue at F = 1536 (the whole-volume
+# 2.5D forward: the per-mode tier without --fused, P [1,4,34560,1024]; the
+# private tier with it, mid [1,4,34560,1536]). The 3-D non-squeezed private
+# tier (mid [1,4,8640,1024]) is EPILOGUE_CASES[4].
+VOLUME_FLASH_CASES = [
+    ("25d in-squeeze N=9408 bs4", 4, 1024, 9408, 1536, 1536, 1.0),
+    ("25d out-squeeze N=9408 bs4", 16, 9408, 1024, 384, 1536, 1.0),
+    ("25d in-squeeze N=4704 dgroup2 bs4", 4, 1024, 4704, 1536, 1536, 1.0),
+    ("25d in-squeeze N=34560", 1, 1024, 34560, 1536, 1536, 1.0),
+    ("25d out-squeeze N=34560", 4, 34560, 1024, 384, 1536, 1.0),
+    ("3d self-attention N=2352", 4, 2352, 2352, 256, 1024, 1.0),
+    ("3d self-attention N=8640", 4, 8640, 8640, 256, 1024, 1.0),
+    ("3d self-attention N=18000", 4, 18000, 18000, 256, 1024, 1.0)]
+VOLUME_FLASH_BWD_CASES = [
+    ("25d in-squeeze N=9408 bs4", 4, 1024, 9408, 1536, 1536, 1.0),
+    ("3d self-attention N=8640", 4, 8640, 8640, 256, 1024, 1.0)]
+VOLUME_EPILOGUE_CASES = [
+    ("fused_mid_output_pool_permode", "mid", 1, 4, 34560, 1024, 1536),
+    ("fused_private_output_pool", "private", 1, 4, 34560, 0, 1536)]
+SEG25D_ARGV = ["--task", "brats", "--segtran", "25d", "--translayers", "1",
+               "--attractors", "1024", "--bf16", "--device", "cuda"]
+SEG25D_TRAIN_BS, SEG25D_STEPS = 4, 3
+VOLUME_TRAIN_BS, VOLUME_TRAIN_STEPS = 2, 2
+# (label, train3d flags at the recipe crop with --fused, per-step launches:
+# flash forward, recompute backward): attention dropout and kept scores
+# keep the flash kernel off (JAX's gate)
+VOLUME_TRAIN_CASES = [
+    ("avgto3", ["--into3", "avgto3", "--dropout", "0"], (2, 2)),
+    ("outdrop dropout 0.1", ["--outdrop", "--dropout", "0.1"], (0, 0)),
+    ("outfpn 34", ["--outfpn", "34", "--dropout", "0"], (2, 2)),
+    ("attnconsist", ["--attnconsist", "--dropout", "0"], (0, 0))]
+# (label, flags, launches of one recipe-crop eval forward with --fused
+# --fusedepi: flash forward, private tier, full tier)
+VOLUME_POS_CASES = [("pos rand", ["--pos", "rand"], (2, 1, 0)),
+                    ("pos sinu", ["--pos", "sinu"], (2, 1, 0)),
+                    ("nosqueeze pos bias", ["--nosqueeze", "--pos", "bias"],
+                     (0, 1, 0))]
+
+
+def kernel_launches(epi, sa):
+    """(flash forward, dK/dV, dQ, recompute backward, private tier, full
+    tier) launches since the last reset."""
+    return (sa.fused_cross_attention.launches,
+            sa.flash_backward_dkdv.launches, sa.flash_backward_dq.launches,
+            sa.cross_attention_bwd_recompute.launches,
+            epi.fused_private_output_pool.launches,
+            epi.fused_mid_output_pool.launches
+            + epi.fused_mid_output_pool_permode.launches)
+
+
+def reset_counts(epi, sa):
+    epi.reset_launches()
+    sa.reset_launches()
+
+
+def memory_dataset(cls, vols, **fields):
+    """``cls`` (a datasets3d class) over volumes held in memory: the GPU
+    machine has no h5py. ``vols``: [{'image' as stored, 'label'}]."""
+    class InMemory(cls):
+        def __init__(self):
+            self.case_list = [f"synthetic{i}" for i in range(len(vols))]
+            self.epoch = 0
+            for k, v in fields.items():
+                setattr(self, k, v)
+
+        def read(self, idx):
+            return vols[idx]["image"], vols[idx]["label"]
+
+        def stored_shape(self, idx):
+            return vols[idx]["image"].shape
+    return InMemory()
+
+
+def volume_models(torch, test3d, argv, variants, seed):
+    """{variant: eval model} built by test3d's factory from ``argv`` plus
+    each variant's flags, all with the same seeded weights."""
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    models, state, cfgs = {}, None, {}
+    for name, extra in variants.items():
+        args = test3d.build_argparser().parse_args(
+            argv + extra + ["--cpdir", "unused"])
+        task = test3d.task_settings(args)
+        model, cfg = test3d.build_model_and_config(args, task)
+        if state is None:
+            init_with_reference_schemes(model, cfg, seed)
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state, strict=True)
+        models[name] = (model.cuda().eval(), args, task)
+        cfgs[name] = cfg
+    return models, cfgs
+
+
+def volume_eval(torch, np, epi, sa, test3d, models, sample, wants, label):
+    """evaluate_volume through each model, a warm call then a timed one;
+    the launches of the timed call against ``wants`` {variant: (flash,
+    private, full tier)}; probabilities against the 'unfused' variant's
+    within MODEL_TOL."""
+    dev = torch.device("cuda")
+    out, perf = {}, {}
+    for name, (model, args, task) in models.items():
+        test3d.evaluate_volume(model, sample, args, task, dev)
+        reset_counts(epi, sa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs, _, metrics = test3d.evaluate_volume(model, sample, args, task,
+                                                   dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = kernel_launches(epi, sa)
+        got = (got[0], got[4], got[5])
+        out[name] = probs
+        perf[name] = dict(seconds_per_volume=secs, launches=list(got),
+                          dice=metrics["dice"])
+        log(f"[volume_options] {label} {name}: {secs:.3f} s per volume, "
+            f"launches (flash, private, full tier) {got} (want "
+            f"{wants[name]}); dice (random weights) "
+            f"{[round(d, 4) for d in metrics['dice']]}")
+        if got != wants[name]:
+            fail(f"{label} {name}: launches {got}, want {wants[name]}")
+        if not bool(torch.isfinite(probs).all()):
+            fail(f"{label} {name}: probabilities are not finite")
+    ref = out["unfused"]
+    for name, probs in out.items():
+        if name == "unfused":
+            continue
+        mx, mean = (float(v) for v in ((probs - ref).abs().max(),
+                                       (probs - ref).abs().mean()))
+        perf[name].update(vs_unfused_max_abs=mx, vs_unfused_mean_abs=mean)
+        log(f"[volume_options] {label} {name} vs unfused probabilities: max "
+            f"{mx:.3e} mean {mean:.3e} (tol {MODEL_TOL[0]:g}/"
+            f"{MODEL_TOL[1]:g})")
+        if not (mx <= MODEL_TOL[0] and mean <= MODEL_TOL[1]):
+            fail(f"{label} {name} disagrees with the unfused modules")
+    return perf
+
+
+def train_run(torch, np, epi, sa, train3d, argv, ds, ckdir, logger, label,
+              want=None):
+    """train3d.train() for --maxiter steps of ``argv`` on ``ds``; the
+    launches (flash forward, dK/dV, dQ, recompute backward) against
+    ``want`` per step. Returns (model, args, task, checkpoint dir, row)."""
+    from segtran_tpu_torch.cli.test3d import probe_in_channels
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    dev = torch.device("cuda")
+    args = train3d.build_argparser().parse_args(argv + ["--ckptdir", ckdir])
+    task = train3d.task_settings(args)
+    probe_in_channels(args, task, ds)
+    model, cfg = train3d.build_model_and_config(args, task)
+    init_with_reference_schemes(model, cfg, seed=0)
+    model = model.to(dev)
+    reset_counts(epi, sa)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt = train3d.train(model, ds, args, task, dev, cfg,
+                         os.path.join(ckdir, label.replace(" ", "_")),
+                         logger)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = kernel_launches(epi, sa)[:4]
+    steps = args.maxiter
+    wrote = os.path.isfile(os.path.join(ckpt, f"iter_{steps}.pt"))
+    log(f"[volume_options] train {label}: {steps} train() steps at bs "
+        f"{args.batch_size} in {wall:.2f} s (first step included), "
+        f"launches (flash forward, dK/dV, dQ, recompute) {got}, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, iter_{steps}.pt "
+        f"written {wrote}")
+    if not wrote:
+        fail(f"train {label}: no checkpoint")
+    if want is not None and got != tuple(w * steps for w in want):
+        fail(f"train {label}: launches {got}, want {want} per step")
+    return model, args, task, ckpt, dict(
+        wall_s=wall, launches=list(got),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def seg25d_training(torch, np, epi, sa, ckdir, logger):
+    """(b): the 2.5D model at full width through train3d.train():
+    SEG25D_STEPS steps at the 112x112x96 crop, bs SEG25D_TRAIN_BS (4 fits
+    in 80 GB; each 2
+    flash forwards, one flash backward pair at the in-squeeze's 9408 keys,
+    one recompute backward at the out-squeeze's 1024), ms per step and peak
+    memory; then one --dgroup 2 step (4704 keys: the flash backward
+    too)."""
+    from segtran_tpu_torch.cli import train3d
+    from segtran_tpu_torch.data.datasets3d import BratsSet
+    vols = [synthetic_volume(np, (160, 192, 144), seed=40 + i)
+            for i in range(SEG25D_TRAIN_BS)]
+    ds = memory_dataset(BratsSet, vols, mode="train",
+                        crop_size=(112, 112, 96), seed=0)
+    argv = SEG25D_ARGV + ["--fused", "--dropout", "0", "--seed", "0",
+                          "--bs", str(SEG25D_TRAIN_BS), "--patchsize",
+                          "112,112,96", "--saveiter", "100"]
+    model, args, task, _, row = train_run(
+        torch, np, epi, sa, train3d, argv + ["--maxiter", str(SEG25D_STEPS)],
+        ds, ckdir, logger, "25d", want=(2, 1, 1, 1))
+    cfg = model.cfg
+    if (cfg.backbone_type != "eff-b3" or cfg.translayer_dims != (1536, 1536)
+            or cfg.num_attractors != 1024 or cfg.num_modes != 4
+            or cfg.inchan_to3_scheme != "stemconv" or not cfg.remat_blocks
+            or cfg.dtype != torch.bfloat16):
+        fail(f"unexpected 2.5D training config {cfg}")
+    batch = {k: torch.from_numpy(np.stack([ds[i][k] for i in range(
+        SEG25D_TRAIN_BS)])).cuda() for k in ("image", "label")}
+    perf = train_step_perf(torch, train3d, model, args, task,
+                           torch.device("cuda"), batch,
+                           f"2.5D bs{SEG25D_TRAIN_BS}")
+    if not perf["finite"]:
+        fail("the 2.5D train step's loss or a gradient is not finite")
+    perf.update(train_wall_s=row["wall_s"], launches=row["launches"],
+                train_peak_mem_gb=row["peak_mem_gb"])
+    del model, batch
+    torch.cuda.empty_cache()
+    *_, row = train_run(torch, np, epi, sa, train3d,
+                        argv + ["--maxiter", "1", "--dgroup", "2"], ds,
+                        ckdir, logger, "25d dgroup2", want=(2, 1, 1, 1))
+    perf["dgroup2"] = row
+    torch.cuda.empty_cache()
+    return perf
+
+
+def seg25d_wholevol(torch, np, epi, sa):
+    """(c): test3d --segtran 25d --wholevol at full width on a synthetic
+    160x192x144 volume: --fused --fusedepi (2 flash forwards, the private
+    tier once), --fusedepi (the per-mode tier once: the all-modes tier's
+    W2 does not fit JAX's VMEM arithmetic at F = 1536), each against the
+    unfused modules."""
+    from segtran_tpu_torch.cli import test3d
+    route = epi.epilogue_route("mid", 4, 1024, 1536, torch.bfloat16)
+    log(f"[volume_options] epilogue_route at the 2.5D out-squeeze (bf16, "
+        f"M=4, A=1024, F=1536): {route}")
+    if route != "per_mode":
+        fail(f"the 2.5D out-squeeze's epilogue route is {route}")
+    models, _ = volume_models(torch, test3d, SEG25D_ARGV + ["--wholevol"], {
+        "unfused": [], "fused fusedepi": ["--fused", "--fusedepi"],
+        "fusedepi": ["--fusedepi"]}, seed=5)
+    perf = volume_eval(torch, np, epi, sa, test3d, models,
+                       synthetic_volume(np, (160, 192, 144), seed=6), {
+                           "unfused": (0, 0, 0), "fused fusedepi": (2, 1, 0),
+                           "fusedepi": (0, 0, 1)}, "25d 160x192x144")
+    del models
+    torch.cuda.empty_cache()
+    return perf
+
+
+def brats_nosqueeze(torch, np, epi, sa, ckdir, logger):
+    """(d) first half: the BraTS Segtran3d at full width with --nosqueeze:
+    whole-volume eval at 160x192x144 and 240x240x155 with --fused
+    --fusedepi (one flash forward at Q = N, the private tier once) against
+    the unfused modules; one --fused --dropout 0 train() step at
+    160x192x144, bs 1 (the flash backward at 8640 keys); the position
+    codes' forwards at the recipe crop, launches as the gate gives."""
+    from segtran_tpu_torch.cli import test3d, train3d
+    from segtran_tpu_torch.data.datasets3d import BratsSet
+    perf = {}
+    models, _ = volume_models(torch, test3d, WHOLEVOL_ARGV + ["--nosqueeze"],
+                              {"unfused": [],
+                               "fused fusedepi": ["--fused", "--fusedepi"]},
+                              seed=7)
+    for i, shape in enumerate(VOLUMES):
+        tag = "x".join(map(str, shape))
+        perf[f"nosqueeze {tag}"] = volume_eval(
+            torch, np, epi, sa, test3d, models,
+            synthetic_volume(np, shape, seed=20 + i),
+            {"unfused": (0, 0, 0), "fused fusedepi": (1, 1, 0)},
+            f"nosqueeze {tag}")
+        torch.cuda.empty_cache()
+    del models
+    torch.cuda.empty_cache()
+    ds = memory_dataset(BratsSet, [synthetic_volume(np, (160, 192, 144), 30)],
+                        mode="train", crop_size=(160, 192, 144), seed=0)
+    model, *_, row = train_run(
+        torch, np, epi, sa, train3d,
+        TRAIN_ARGV + ["--nosqueeze", "--bs", "1", "--patchsize",
+                      "160,192,144", "--inputsize", "160,192,144", "--bf16",
+                      "--maxiter", "1", "--saveiter", "1"],
+        ds, ckdir, logger, "nosqueeze 160x192x144", want=(1, 1, 1, 0))
+    perf["nosqueeze train 160x192x144"] = row
+    del model
+    torch.cuda.empty_cache()
+    x = torch.from_numpy(synthetic_volume(np, (112, 112, 96), 31)[
+        "image"])[None].cuda()
+    argv = ["--task", "brats", "--translayers", "1", "--attractors", "1024",
+            "--inputsize", "112,112,96", "--bf16", "--device", "cuda"]
+    for label, flags, want in VOLUME_POS_CASES:
+        models, _ = volume_models(torch, test3d, argv + flags, {
+            "fused": ["--fused", "--fusedepi"], "unfused": []}, seed=8)
+        reset_counts(epi, sa)
+        with torch.inference_mode():
+            got = models["fused"][0](x)
+            torch.cuda.synchronize()
+            launches = kernel_launches(epi, sa)
+            launches = (launches[0], launches[4], launches[5])
+            ref = models["unfused"][0](x)
+        probs, ref_probs = (torch.sigmoid(t.float()) for t in (got, ref))
+        mx = float((probs - ref_probs).abs().max())
+        mean = float((probs - ref_probs).abs().mean())
+        log(f"[volume_options] {label} recipe-crop forward: launches "
+            f"(flash, private, full tier) {launches} (want {want}); vs the "
+            f"unfused modules max {mx:.3e} mean {mean:.3e}")
+        if launches != want:
+            fail(f"{label}: launches {launches}, want {want}")
+        if not (bool(torch.isfinite(probs).all()) and mx <= MODEL_TOL[0]
+                and mean <= MODEL_TOL[1]):
+            fail(f"{label} disagrees with the unfused modules")
+        perf[label] = dict(launches=list(launches), max_abs=mx,
+                           mean_abs=mean)
+        del models, got, ref
+        torch.cuda.empty_cache()
+    return perf
+
+
+def brats_option_training(torch, np, epi, sa, ckdir, logger):
+    """(d) second half: two train() steps each of VOLUME_TRAIN_CASES at the
+    recipe crop, bs VOLUME_TRAIN_BS, --fused (launches as JAX's gate
+    gives); atria (112x112x80, one channel) and msd (two stored
+    modalities, --mod 0 --xyzpermute 1,2,0, three classes) through
+    train3d's train() and test3d's evaluate_volume; one --testinterp
+    volume."""
+    from segtran_tpu_torch.cli import test3d, train3d
+    from segtran_tpu_torch.data.datasets3d import (AtriaSet, BratsSet,
+                                                   MSDSet)
+    from segtran_tpu_torch.train.checkpoint import load_checkpoint
+    dev = torch.device("cuda")
+    perf = {}
+    ds = memory_dataset(BratsSet, [synthetic_volume(np, (128, 128, 112), 50 + i)
+                                   for i in range(VOLUME_TRAIN_BS)],
+                        mode="train", crop_size=(112, 112, 96), seed=0)
+    common = ["--task", "brats", "--translayers", "1", "--attractors",
+              "1024", "--fused", "--bf16", "--device", "cuda", "--seed", "0",
+              "--bs", str(VOLUME_TRAIN_BS), "--maxiter",
+              str(VOLUME_TRAIN_STEPS), "--saveiter", "100"]
+    for label, flags, (n_fwd, n_rec) in VOLUME_TRAIN_CASES:
+        model, *_, row = train_run(torch, np, epi, sa, train3d,
+                                   common + flags, ds, ckdir, logger, label,
+                                   want=(n_fwd, 0, 0, n_rec))
+        perf[label] = row
+        del model
+        torch.cuda.empty_cache()
+
+    def task_volume(seed, shape, channels, classes, channels_last=True):
+        rng = np.random.RandomState(seed)
+        v = synthetic_volume(np, shape, seed)
+        image = v["image"][..., :channels] + 0.1 * rng.rand(
+            *shape, channels).astype(np.float32)
+        label = np.minimum(v["label"], classes - 1).astype(np.uint8)
+        return {"image": image if channels_last
+                else np.ascontiguousarray(image.transpose(3, 0, 1, 2)),
+                "label": label}
+
+    for task_name, cls, shape, channels, classes, extra in (
+            ("atria", AtriaSet, (128, 128, 88), 1, 2, []),
+            ("msd", MSDSet, (120, 88, 128), 2, 3,
+             ["--mod", "0", "--xyzpermute", "1,2,0", "--nclasses", "3"])):
+        vols = [task_volume(60 + i, shape, channels, classes)
+                for i in range(VOLUME_TRAIN_BS + 1)]
+        argv = (["--task", task_name, "--translayers", "1", "--attractors",
+                 "1024", "--fused", "--dropout", "0", "--bf16", "--device",
+                 "cuda", "--seed", "0", "--bs", str(VOLUME_TRAIN_BS),
+                 "--maxiter", str(VOLUME_TRAIN_STEPS), "--saveiter",
+                 str(VOLUME_TRAIN_STEPS)] + extra)
+        args = train3d.build_argparser().parse_args(argv)
+        task = train3d.task_settings(args)
+        xyz = (tuple(int(v) for v in args.xyz_permute.split(","))
+               if args.xyz_permute else None)
+        fields = dict(binarize=task["binarize"],
+                      chosen_modality=args.chosen_modality, xyz_permute=xyz)
+        train_ds = memory_dataset(cls, vols[:-1], mode="train", seed=0,
+                                  crop_size=tuple(task["orig_patch_size"]),
+                                  **fields)
+        model, _, ttask, ckpt, row = train_run(
+            torch, np, epi, sa, train3d, argv, train_ds, ckdir, logger,
+            task_name)
+        if ttask["orig_in_channels"] != 1:
+            fail(f"{task_name}: {ttask['orig_in_channels']} input channels")
+        del model
+        eargs = test3d.build_argparser().parse_args(
+            argv[:2] + ["--translayers", "1", "--attractors", "1024",
+                        "--bf16", "--device", "cuda", "--wholevol", "--fused",
+                        "--fusedepi", "--cpdir", ckpt, "--iters",
+                        str(VOLUME_TRAIN_STEPS)] + extra)
+        etask = test3d.task_settings(eargs)
+        test_ds = memory_dataset(cls, vols[-1:], mode="test", **fields)
+        test3d.probe_in_channels(eargs, etask, test_ds)
+        emodel, ecfg = test3d.build_model_and_config(eargs, etask)
+        emodel.load_state_dict(load_checkpoint(
+            os.path.join(ckpt, f"iter_{VOLUME_TRAIN_STEPS}"), ecfg))
+        sample = test_ds[0]
+        probs, _, metrics = test3d.evaluate_volume(
+            emodel.to(dev).eval(), sample, eargs, etask, dev)
+        log(f"[volume_options] {task_name}: image {sample['image'].shape}, "
+            f"test3d dice (random start, {VOLUME_TRAIN_STEPS} steps) "
+            f"{[round(d, 4) for d in metrics['dice']]}")
+        if (tuple(probs.shape) != sample["image"].shape[:3] + (classes,)
+                or not bool(torch.isfinite(probs).all())
+                or not np.isfinite(metrics["dice"]).all()):
+            fail(f"{task_name}: test3d's output is not finite "
+                 f"{tuple(probs.shape)}")
+        perf[task_name] = dict(row, dice=metrics["dice"])
+        del emodel, probs
+        torch.cuda.empty_cache()
+
+    iargs = test3d.build_argparser().parse_args(
+        ["--task", "brats", "--testinterp", "0.5", "--cpdir", "unused",
+         "--device", "cuda"])
+    sample = synthetic_volume(np, (160, 192, 144), seed=70)
+    probs, _, metrics = test3d.evaluate_volume(None, sample, iargs,
+                                               test3d.task_settings(iargs),
+                                               dev)
+    log(f"[volume_options] --testinterp 0.5 at 160x192x144: dice "
+        f"{[round(d, 4) for d in metrics['dice']]}")
+    if not min(metrics["dice"]) > 0.5:
+        fail("--testinterp 0.5 scored the ground truth below 0.5 Dice")
+    perf["testinterp"] = dict(dice=metrics["dice"])
+    return perf
+
+
+def volume_options(torch, np, epi, sa, ckdir, logger):
+    """Phase 10: the 2.5D model and the 3-D CLIs' options at full width."""
+    t0 = time.perf_counter()
+    perf = {"flash": check_flash(torch, sa, VOLUME_FLASH_CASES, ("bf16",)),
+            "flash_backward": check_flash_backward(
+                torch, sa, VOLUME_FLASH_BWD_CASES, ("bf16",)),
+            "epilogue": check_kernels(torch, epi, dtypes=("bf16",),
+                                      cases=VOLUME_EPILOGUE_CASES)}
+    perf["train_25d"] = seg25d_training(torch, np, epi, sa, ckdir, logger)
+    perf["wholevol_25d"] = seg25d_wholevol(torch, np, epi, sa)
+    perf.update(brats_nosqueeze(torch, np, epi, sa, ckdir, logger))
+    perf.update(brats_option_training(torch, np, epi, sa, ckdir, logger))
+    perf["phase_s"] = time.perf_counter() - t0
+    log(f"[volume_options] phase in {perf['phase_s']:.1f} s")
+    return perf
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
@@ -2347,7 +2823,7 @@ def main(argv=None) -> int:
                                        "flash_backward",
                                        "training", "mbconv",
                                        "fundus_training", "fundus_cli",
-                                       "fundus_options"],
+                                       "fundus_options", "volume_options"],
                     default=None,
                     help="build and run only this check, print no result")
     only = ap.parse_args(argv).only
@@ -2419,6 +2895,13 @@ def main(argv=None) -> int:
             shutil.rmtree(ckdir, ignore_errors=True)
         print(json.dumps({"fundus_options": perf, "card": card}), flush=True)
         return 0
+    if only == "volume_options":
+        try:
+            perf = volume_options(torch, np, epi, sa, ckdir, logger)
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        print(json.dumps({"volume_options": perf, "card": card}), flush=True)
+        return 0
     if only == "training":
         try:
             train_perf, _ = training(torch, np, sa, ckdir, logger)
@@ -2461,6 +2944,11 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     log(f"[fundus_options] {json.dumps(options_perf)} on {card}")
+    try:
+        volume_perf = volume_options(torch, np, epi, sa, ckdir, logger)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"[volume_options] {json.dumps(volume_perf)} on {card}")
 
     replaces = {
         "fused_mid_output_pool": "segtran_tpu/kernels/expansion_epilogue.py:333",

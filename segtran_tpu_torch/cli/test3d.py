@@ -1,17 +1,20 @@
-"""3D evaluation of Segtran3d on a CUDA GPU: whole-volume or sliding-window
-inference, Dice/Jaccard (+ HD95/ASD with medpy), prediction export.
+"""3D evaluation of Segtran3d and Segtran25d on a CUDA GPU: whole-volume
+or sliding-window inference, Dice/Jaccard (+ HD95/ASD with medpy),
+prediction export.
 
-Counterpart of ``segtran_tpu/cli/test3d.py`` for ``--net segtran
---segtran 3d`` on BraTS. Per volume (``evaluate_volume``): the whole
-volume, zero-padded up to multiples of (16, 16, 8), in one forward
+Counterpart of ``segtran_tpu/cli/test3d.py`` for ``--net segtran`` on
+the BraTS, atria and MSD tasks. Per volume (``evaluate_volume``): the
+whole volume, zero-padded up to multiples of (16, 16, 8), in one forward
 (``--wholevol``) or overlapping windows; sigmoid; BraTS predictions made
 class-consistent (WT >= TC >= ET); per-class metrics on the hardened map;
-with ``--outdir`` the raw-label prediction (ET written back as 4) as
-``.npz`` (and ``.nii.gz`` when nibabel is installed), tarred into
-``pred.tar``. Flags whose modules belong to a later slice of the port
-raise NotImplementedError.
+with ``--outdir`` the raw-label prediction (BraTS: ET written back as 4)
+as ``.npz`` (and ``.nii.gz`` when nibabel is installed), tarred into
+``pred.tar``. ``--testinterp`` scores the ground truth down- and
+upsampled instead of a model. The flags of a later slice of the port (the
+model zoo, multi-GPU, ``--flop``) raise NotImplementedError naming their
+ROADMAP item.
 
-Example (GPU; BraTS h5 files need h5py):
+Example (GPU; h5 files need h5py):
   python -m segtran_tpu_torch.cli.test3d --task brats --ds 2019valid \\
       --cpdir model/segtran-brats --iters 8000 --wholevol --fused \\
       --fusedepi --bf16
@@ -29,104 +32,137 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..configs.base import Segtran3dConfig
+from ..configs.base import Segtran3dConfig, Segtran25dConfig
 from ..configs.presets import TASK_SETTINGS
-from ..data.labelmaps import harden_segmap
+from ..data.labelmaps import harden_segmap, index_to_onehot
 from ..data.labelmaps3d import (brats_inv_map_label, brats_map_label,
                                 make_brats_pred_consistent)
 from ..infer.metrics import (dice_score_nd, jaccard_score, log_metric_stack,
                              surface_metrics)
 from ..infer.sliding import sliding_window_3d
 from ..models.segtran3d import Segtran3d, init_segtran3d
+from ..models.segtran25d import Segtran25d
+from ..ops.resize import resize_linear
 from ..train.checkpoint import load_checkpoint
 
 # the strides of every 3D variant: x/y by 16, depth by 8
 WHOLEVOL_MULTIPLES = (16, 16, 8)
 
+_ZOO = "ROADMAP Queue 1 item 6, the model zoo"
+_MULTI_GPU = "ROADMAP Queue 1 item 6, the multi-GPU slice (parallel/)"
+_TOOLS = "ROADMAP Queue 1 item 6, tools/flops"
 
-def build_argparser():
-    p = argparse.ArgumentParser(
-        description="segtran_tpu_torch 3D evaluation (Segtran3d, BraTS)")
-    p.add_argument("--task", dest="task_name", default="brats")
-    p.add_argument("--net", default="segtran")
-    p.add_argument("--segtran", dest="segtran_type", default="3d")
-    p.add_argument("--spatialshard", dest="spatial_shard",
-                   action="store_true")
-    p.add_argument("--wholevol", action="store_true",
-                   help="one whole-volume forward instead of sliding "
-                        "windows")
+
+def add_model_args(p) -> None:
+    """The model and dataset flags test3d and train3d share (JAX
+    cli/test3d.py and cli/train3d.py argparsers)."""
+    p.add_argument("--task", dest="task_name", default="brats",
+                   choices=["brats", "atria", "msd"])
     p.add_argument("--ds", dest="ds_name", default=None,
-                   help="dataset dir under dataroot/<task>/ (default "
-                        "2019valid)")
-    p.add_argument("--split", default="all")
+                   help="dataset dir under dataroot/<task>/")
+    p.add_argument("--nclasses", dest="num_classes", type=int, default=-1,
+                   help="override the task's class count (MSD tasks vary)")
+    p.add_argument("--mod", dest="chosen_modality", type=int, default=-1,
+                   help="the modality channel to use (-1: all)")
+    p.add_argument("--xyzpermute", dest="xyz_permute", default=None,
+                   help="spatial axis permutation, e.g. 1,2,0")
     p.add_argument("--dataroot", default="../data")
+    p.add_argument("--net", default="segtran")
+    p.add_argument("--segtran", dest="segtran_type", default="3d",
+                   choices=["3d", "25d"])
+    p.add_argument("--bb", dest="backbone_type", default=None,
+                   help="i3d (3d) or eff-b* (25d)")
+    p.add_argument("--into3", dest="inchan_to3_scheme", default=None,
+                   choices=[None, "avgto3", "only1", "dup3", "bridgeconv",
+                            "stemconv"])
+    p.add_argument("--pos", dest="pos_code_type", default="lsinu",
+                   choices=["lsinu", "rand", "sinu", "none", "bias"])
+    p.add_argument("--nosqueeze", dest="use_squeezed_transformer",
+                   action="store_false")
+    p.add_argument("--multihead", dest="ablate_multihead",
+                   action="store_true")
+    p.add_argument("--infpn", dest="in_fpn_layers", default="34")
+    p.add_argument("--outfpn", dest="out_fpn_layers", default="1234")
+    p.add_argument("--attnclip", dest="attn_clip", type=float, default=500.0)
+    p.add_argument("--posw", dest="pos_code_weight", type=float, default=1.0)
+    p.add_argument("--posr", dest="pos_bias_radius", type=int, default=7)
+    p.add_argument("--squeezeuseffn", dest="has_FFN_in_squeeze",
+                   action="store_true")
+    p.add_argument("--inbn", dest="in_fpn_use_bn", action="store_true",
+                   help="accepted; the 3-D models do not read it (as JAX)")
+    p.add_argument("--nofeatup", dest="bb_feat_upsize", action="store_false")
+    p.add_argument("--gbias", dest="use_global_bias", action="store_true",
+                   help="accepted; the 3-D models do not read it (as JAX)")
     p.add_argument("--translayers", dest="num_translayers", type=int,
                    default=1)
     p.add_argument("--layercompress", dest="translayer_compress_ratios",
                    default=None)
     p.add_argument("--attractors", dest="num_attractors", type=int,
                    default=1024)
-    p.add_argument("--upd", dest="out_fpn_upsampleD_scheme", default=None,
-                   choices=[None, "interp", "conv", "none"])
-    p.add_argument("--pos", dest="pos_code_type", default="lsinu")
-    p.add_argument("--nosqueeze", dest="use_squeezed_transformer",
-                   action="store_false")
-    p.add_argument("--multihead", dest="ablate_multihead",
-                   action="store_true")
     p.add_argument("--modes", dest="num_modes", type=int, default=4)
     p.add_argument("--noqkbias", dest="qk_have_bias", action="store_false")
-    p.add_argument("--infpn", dest="in_fpn_layers", default="34")
-    p.add_argument("--outfpn", dest="out_fpn_layers", default="1234")
-    p.add_argument("--attnclip", dest="attn_clip", type=float, default=500.0)
-    p.add_argument("--posw", dest="pos_code_weight", type=float, default=1.0)
-    p.add_argument("--squeezeuseffn", dest="has_FFN_in_squeeze",
+    p.add_argument("--upd", dest="out_fpn_upsampleD_scheme", default=None,
+                   choices=[None, "interp", "conv", "none"],
+                   help="out-FPN depth unpool (default interp for 3d, conv "
+                        "for 25d)")
+    p.add_argument("--dgroup", dest="d_groupsize", type=int, default=-1,
+                   help="25d: merge G consecutive depth slices into the "
+                        "channels (-1: 1)")
+    p.add_argument("--dpool", dest="d_pool_k", type=int, default=-1,
+                   help="depth pooling before the transformer (-1: 2)")
+    p.add_argument("--patchsize", dest="orig_patch_size", default=None,
+                   help="crop size, e.g. 112,112,96")
+    p.add_argument("--inputsize", dest="input_patch_size", default=None)
+    p.add_argument("--scale", dest="input_scale", default=None,
+                   help="per-axis input/crop scale, e.g. 0.5,0.5,1")
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu; no GPU and no --device cpu "
+                        "is an error")
+
+
+def build_argparser():
+    p = argparse.ArgumentParser(
+        description="segtran_tpu_torch 3D evaluation (Segtran3d/25d)")
+    add_model_args(p)
+    p.add_argument("--spatialshard", dest="spatial_shard",
                    action="store_true")
-    p.add_argument("--nofeatup", dest="bb_feat_upsize",
-                   action="store_false")
-    p.add_argument("--dpool", dest="d_pool_k", type=int, default=-1)
+    p.add_argument("--wholevol", action="store_true",
+                   help="one whole-volume forward instead of sliding "
+                        "windows")
+    p.add_argument("--split", default="all")
     p.add_argument("--cpdir", required=True)
     p.add_argument("--iters", default=None,
                    help="checkpoint iterations: 1,2 or 1000-8000,1000; "
                         "none: seeded random weights")
     p.add_argument("--bs", dest="window_batch", type=int, default=8,
                    help="windows per model call")
-    p.add_argument("--patchsize", dest="orig_patch_size", default=None)
-    p.add_argument("--inputsize", dest="input_patch_size", default=None)
     p.add_argument("--outdir", default=None)
-    p.add_argument("--testinterp", dest="test_interp", default=None)
-    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--testinterp", dest="test_interp", default=None,
+                   help="score the ground truth downsampled by these "
+                        "factor(s) and restored trilinearly, e.g. 0.5 or "
+                        "0.5,0.5,0.25")
     p.add_argument("--fused", dest="use_fused_attention",
                    action="store_true",
-                   help="CUDA flash cross-attention in the squeezed layer")
+                   help="CUDA flash cross-attention in the fusion layers")
     p.add_argument("--fusedepi", dest="use_fused_epilogue",
                    action="store_true",
                    help="CUDA fused output+LN+mode-pool epilogue")
     p.add_argument("--verbose", dest="verbose_output", action="store_true")
-    p.add_argument("--device", default=None,
-                   help="cuda (default) or cpu; no GPU and no --device cpu "
-                        "is an error")
+    p.add_argument("--flop", dest="calc_flop", action="store_true")
     return p
 
 
-# the encoder runs both in 3-D; Segtran3d is not yet held to JAX under them
-_ITEM4_3D = ("ROADMAP Queue 1 item 4: --pos / --nosqueeze in 3-D, which "
-             "need a Segtran3d parity test")
-
-
-def _refuse_later_slices(args) -> None:
+def refuse_later_slices(args, extra=()) -> None:
+    """NotImplementedError naming the ROADMAP item of a flag whose modules
+    are not ported yet."""
+    bb = args.backbone_type
+    bb_ok = bb is None or (bb.startswith("eff") if args.segtran_type == "25d"
+                           else bb == "i3d")
     later = [
-        (args.task_name != "brats", f"--task {args.task_name}",
-         "the atria/MSD datasets"),
-        (args.net != "segtran", f"--net {args.net}", "the 3D model zoo"),
-        (args.segtran_type != "3d", f"--segtran {args.segtran_type}",
-         "the 2.5D/mince slice"),
-        (args.spatial_shard, "--spatialshard", "the multi-GPU slice"),
-        (args.test_interp is not None, "--testinterp",
-         "the evaluation tools"),
-        (args.pos_code_type not in ("lsinu", "none"),
-         f"--pos {args.pos_code_type}", _ITEM4_3D),
-        (not args.use_squeezed_transformer, "--nosqueeze", _ITEM4_3D),
-        (args.ablate_multihead, "--multihead", "the ablations"),
+        (args.net != "segtran", f"--net {args.net}", _ZOO),
+        (not bb_ok, f"--bb {bb}", _ZOO),
+        *extra,
     ]
     for bad, flag, where in later:
         if bad:
@@ -135,18 +171,65 @@ def _refuse_later_slices(args) -> None:
                 f"the PyTorch port ({where})")
 
 
+def _refuse_later_slices(args) -> None:
+    refuse_later_slices(args, [
+        (args.spatial_shard, "--spatialshard", _MULTI_GPU),
+        (args.calc_flop, "--flop", _TOOLS)])
+
+
 def task_settings(args):
+    """TASK_SETTINGS of --task with the crop / input sizes, --scale and
+    --nclasses applied (JAX cli/test3d.py and cli/train3d.py)."""
     task = dict(TASK_SETTINGS[args.task_name])
     for field, override in (("orig_patch_size", args.orig_patch_size),
                             ("input_patch_size", args.input_patch_size)):
         if override:
             task[field] = tuple(int(v) for v in str(override).split(","))
+    if args.input_scale and not args.input_patch_size:
+        sc = [float(v) for v in str(args.input_scale).split(",")]
+        task["input_patch_size"] = tuple(
+            int(s * n) for s, n in zip(sc, task["orig_patch_size"]))
+    if args.num_classes > 0:
+        task["num_classes"] = args.num_classes
+        task["bce_weight"] = (0.0,) + (1.0,) * (args.num_classes - 1)
+        task["binarize"] = args.num_classes == 2
     return task
 
 
-def segtran3d_config(args, task, **extra) -> Segtran3dConfig:
-    """The Segtran3dConfig of the model flags shared by test3d and train3d
-    (reference test3d.py:190-237); ``extra`` sets the training fields."""
+def make_dataset(args, task, mode: str, default_ds: str, crop_size=None,
+                 seed: int = 0):
+    """The task's dataset (BratsSet, AtriaSet or MSDSet) under
+    <dataroot>/<task>/<--ds> (JAX cli/train3d.py:203-222), with
+    ``probe_in_channels``."""
+    from ..data.datasets3d import AtriaSet, BratsSet, MSDSet
+    xyz = (tuple(int(v) for v in args.xyz_permute.split(","))
+           if args.xyz_permute else task.get("xyz_permute"))
+    cls = {"brats": BratsSet, "atria": AtriaSet,
+           "msd": MSDSet}[args.task_name]
+    ds = cls(os.path.join(args.dataroot, args.task_name,
+                          args.ds_name or default_ds),
+             split=args.split, mode=mode, crop_size=crop_size,
+             binarize=task.get("binarize", False), seed=seed,
+             chosen_modality=args.chosen_modality, xyz_permute=xyz)
+    probe_in_channels(args, task, ds)
+    return ds
+
+
+def probe_in_channels(args, task, dataset) -> None:
+    """Where the task leaves ``orig_in_channels`` to the data (-1): 1 with
+    --mod, else the dataset's modality count (reference
+    test3d.py:257-260)."""
+    if task["orig_in_channels"] == -1:
+        task["orig_in_channels"] = (1 if args.chosen_modality != -1
+                                    else max(dataset.num_modalities, 1))
+        task["orig_in_channels_probed"] = True
+
+
+def segtran_config(args, task, **extra):
+    """The Segtran3dConfig / Segtran25dConfig of the model flags shared by
+    test3d and train3d (JAX cli/test3d.py:190-237); ``extra`` sets the
+    training fields. --inbn and --gbias reach no 3-D model in JAX, so
+    they are parsed and set nothing."""
     compress = tuple(float(x) for x in (
         args.translayer_compress_ratios
         or ",".join(["1"] * (args.num_translayers + 1))).split(","))
@@ -155,17 +238,27 @@ def segtran3d_config(args, task, **extra) -> Segtran3dConfig:
         kw["out_fpn_upsampleD_scheme"] = args.out_fpn_upsampleD_scheme
     if args.d_pool_k > 0:
         kw["D_pool_K"] = args.d_pool_k
-    return Segtran3dConfig(
+    if args.d_groupsize > 0:
+        kw["D_groupsize"] = args.d_groupsize
+    if args.backbone_type:
+        kw["backbone_type"] = args.backbone_type
+    if args.inchan_to3_scheme:
+        kw["inchan_to3_scheme"] = args.inchan_to3_scheme
+    cls = Segtran3dConfig if args.segtran_type == "3d" else Segtran25dConfig
+    return cls(
         **kw,
         num_classes=task["num_classes"],
         num_attractors=args.num_attractors,
         num_modes=args.num_modes,
         qk_have_bias=args.qk_have_bias,
         pos_code_type=args.pos_code_type,
+        use_squeezed_transformer=args.use_squeezed_transformer,
+        ablate_multihead=args.ablate_multihead,
         in_fpn_layers=tuple(int(c) for c in args.in_fpn_layers),
         out_fpn_layers=tuple(int(c) for c in args.out_fpn_layers),
         attn_clip=args.attn_clip,
         pos_code_weight=args.pos_code_weight,
+        pos_bias_radius=args.pos_bias_radius,
         has_FFN_in_squeeze=args.has_FFN_in_squeeze,
         bb_feat_upsize=args.bb_feat_upsize,
         orig_in_channels=task["orig_in_channels"],
@@ -176,12 +269,18 @@ def segtran3d_config(args, task, **extra) -> Segtran3dConfig:
     ).derive(translayer_compress_ratios=compress)
 
 
+def build_model(cfg, task):
+    """Segtran3d or Segtran25d by the config's class, for inputs of the
+    task's input size."""
+    cls = Segtran25d if isinstance(cfg, Segtran25dConfig) else Segtran3d
+    return cls(cfg, patch_size=tuple(task["input_patch_size"]))
+
+
 def build_model_and_config(args, task):
-    """``--net segtran --segtran 3d`` as the JAX test3d builds it, in eval
-    form."""
+    """``--net segtran`` as the JAX test3d builds it, in eval form."""
     _refuse_later_slices(args)
-    cfg = segtran3d_config(args, task)
-    return Segtran3d(cfg), cfg
+    cfg = segtran_config(args, task)
+    return build_model(cfg, task), cfg
 
 
 def parse_iters(spec):
@@ -194,15 +293,48 @@ def parse_iters(spec):
     return [int(x) for x in spec.split(",")]
 
 
+def nearest_downsample(gt: torch.Tensor, factors) -> torch.Tensor:
+    """n-hot [H, W, D, C] downsampled by ``factors`` (one, or one per axis)
+    at half-pixel centres: ``nearest-exact``, the sampling of JAX's
+    ``jax.image.resize(..., 'nearest')`` (``nearest`` samples elsewhere).
+    Returns [1, h, w, d, C] fp32."""
+    factors = [float(f) for f in factors]
+    if len(factors) == 1:
+        factors = factors * 3
+    small = tuple(max(int(s * f), 1) for s, f in zip(gt.shape[:3], factors))
+    return F.interpolate(gt.float()[None].movedim(-1, 1), size=small,
+                         mode="nearest-exact").movedim(1, -1)
+
+
+def interp_probs(gt: torch.Tensor, factors) -> torch.Tensor:
+    """``--testinterp``: the ground truth downsampled
+    (``nearest_downsample``) and restored trilinearly (reference
+    test_util3d.py:48-60)."""
+    return resize_linear(nearest_downsample(gt, factors), gt.shape[:3])[0]
+
+
+def ground_truth(label: np.ndarray, task_name: str, num_classes: int):
+    """n-hot [H, W, D, C]: the BraTS region map, else one-hot."""
+    lab = torch.from_numpy(np.ascontiguousarray(label))
+    if task_name == "brats":
+        return brats_map_label(lab)
+    return index_to_onehot(lab, num_classes)
+
+
 def evaluate_volume(model_fn, sample, args, task, device):
     """One volume: sample {'image' [H, W, D, C], 'label' [H, W, D]} ->
     (probs [H, W, D, classes] on ``device``, hard n-hot numpy,
     {metric: [per class 1..C-1]})."""
     num_classes = task["num_classes"]
+    is_brats = args.task_name == "brats"
+    gt = ground_truth(sample["label"], args.task_name, num_classes)
     vol = torch.from_numpy(np.ascontiguousarray(sample["image"]))[None]
     vol = vol.to(device)
     with torch.inference_mode():
-        if args.wholevol:
+        if args.test_interp:
+            probs = interp_probs(gt.to(device),
+                                 str(args.test_interp).split(","))
+        elif args.wholevol:
             sp = vol.shape[1:4]
             pads = [(-s) % m for s, m in zip(sp, WHOLEVOL_MULTIPLES)]
             volp = F.pad(vol, (0, 0, 0, pads[2], 0, pads[1], 0, pads[0]))
@@ -214,9 +346,10 @@ def evaluate_volume(model_fn, sample, args, task, device):
                 model_fn, vol, tuple(task["orig_patch_size"]),
                 tuple(task["input_patch_size"]), num_classes=num_classes,
                 window_batch=args.window_batch)[0]
-        probs = make_brats_pred_consistent(probs)
+        if is_brats:
+            probs = make_brats_pred_consistent(probs)
         hard = harden_segmap(probs).cpu().numpy()
-    gt = brats_map_label(torch.from_numpy(sample["label"])).numpy()
+    gt = gt.numpy()
     metrics = {"dice": [], "jaccard": [], "hd95": [], "asd": []}
     for cls in range(1, num_classes):
         metrics["dice"].append(dice_score_nd(hard[..., cls], gt[..., cls]))
@@ -227,12 +360,16 @@ def evaluate_volume(model_fn, sample, args, task, device):
     return probs, hard, metrics
 
 
-def _export(probs, name, outdir):
-    """Raw-label prediction (BraTS labels, 3 written back as 4) as .npz,
-    and as .nii.gz when nibabel is installed; returns the .npz path."""
-    inv = brats_inv_map_label(probs).cpu().numpy()
-    pred_raw = inv.argmax(-1).astype(np.uint8)
-    pred_raw[pred_raw == 3] = 4
+def _export(probs, hard, name, outdir, is_brats):
+    """The raw-label prediction (BraTS labels, 3 written back as 4; else
+    the hardened map's argmax) as .npz, and as .nii.gz when nibabel is
+    installed; returns the .npz path."""
+    if is_brats:
+        inv = brats_inv_map_label(probs).cpu().numpy()
+        pred_raw = inv.argmax(-1).astype(np.uint8)
+        pred_raw[pred_raw == 3] = 4
+    else:
+        pred_raw = hard.argmax(-1).astype(np.uint8)
     name = os.path.splitext(name)[0]
     path = os.path.join(outdir, name + ".npz")
     np.savez_compressed(path, pred=pred_raw)
@@ -260,11 +397,10 @@ def _logger(log_dir):
 
 def main(argv=None):
     """Returns {iteration: [mean Dice of classes 1..C-1]}."""
-    from ..data.datasets3d import BratsSet
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
+    _refuse_later_slices(args)
     task = task_settings(args)
-    model, cfg = build_model_and_config(args, task)
     logger = _logger(args.cpdir)
     log_metric_stack(logger)
     iters = parse_iters(args.iters)
@@ -274,11 +410,12 @@ def main(argv=None):
         raise FileNotFoundError(
             f"checkpoint(s) not found under {args.cpdir}: "
             + ", ".join(f"iter_{it}.pt" for it in missing))
-    dataset = BratsSet(
-        os.path.join(args.dataroot, args.task_name,
-                     args.ds_name or "2019valid"),
-        split=args.split, binarize=task["binarize"])
+    dataset = make_dataset(args, task, "test", "2019valid"
+                           if args.task_name == "brats" else "test")
     logger.info("%d eval volumes on %s", len(dataset), device)
+    if task.get("orig_in_channels_probed"):
+        logger.info("orig_in_channels probed: %d", task["orig_in_channels"])
+    model, cfg = build_model_and_config(args, task)
 
     results = {}
     for it in iters:
@@ -293,8 +430,8 @@ def main(argv=None):
         saved = []
         for vi in range(len(dataset)):
             sample = dataset[vi]
-            probs, _, metrics = evaluate_volume(model, sample, args, task,
-                                                device)
+            probs, hard, metrics = evaluate_volume(model, sample, args, task,
+                                                   device)
             for key, vals in metrics.items():
                 for cls, v in enumerate(vals, start=1):
                     if np.isfinite(v):
@@ -304,7 +441,8 @@ def main(argv=None):
                             np.round(metrics["dice"], 4))
             if args.outdir:
                 os.makedirs(args.outdir, exist_ok=True)
-                saved.append(_export(probs, sample["name"], args.outdir))
+                saved.append(_export(probs, hard, sample["name"],
+                                     args.outdir, args.task_name == "brats"))
         cls_dice = [float(np.mean(sums.get(("dice", c), [np.nan])))
                     for c in range(1, task["num_classes"])]
         for c, d in enumerate(cls_dice, start=1):

@@ -1,19 +1,22 @@
-"""3D training of Segtran3d on a CUDA GPU (BraTS).
+"""3D training of Segtran3d and Segtran25d on a CUDA GPU (BraTS, atria,
+MSD).
 
-Counterpart of ``segtran_tpu/cli/train3d.py`` for ``--net segtran
---segtran 3d`` on BraTS. Per step (``make_step``): per-sample random
-rot90/flips, the BraTS n-hot mask, the batch's random zoom
+Counterpart of ``segtran_tpu/cli/train3d.py`` for ``--net segtran``. Per
+step (``make_step``): per-sample random rot90/flips, the n-hot mask (the
+BraTS regions, else one-hot classes), the batch's random zoom
 (``--randscale``), optional noise, a resize to ``--inputsize``; then the
 forward in training mode, (1 - w) weighted BCE + w class-averaged Dice
-(``--diceweight``), the global-norm clip (``--gradclip``) and BertAdam with
-warmup-linear over the reference's parameter groups. ``--fused`` runs the
-CUDA flash attention forward and backward in the squeezed layer when
-``--dropout 0``. Checkpoints ``iter_N.pt`` (BatchNorm statistics included)
-with their sidecar every ``--saveiter`` iterations; ``--cp`` resumes from
-one. Flags whose modules belong to a later slice of the port raise
-NotImplementedError.
+(``--diceweight``), with ``--attnconsist`` the weighted
+attention-consistency loss, the global-norm clip (``--gradclip``) and
+BertAdam with warmup-linear over the reference's parameter groups.
+``--fused`` runs the CUDA flash attention forward and backward in the
+fusion layers when ``--dropout 0``. Checkpoints ``iter_N.pt`` (BatchNorm
+statistics included) with their sidecar every ``--saveiter`` iterations;
+``--cp`` resumes from one. The flags of a later slice of the port (the
+model zoo, multi-GPU) raise NotImplementedError naming their ROADMAP
+item.
 
-Example (GPU; BraTS h5 files need h5py):
+Example (GPU; h5 files need h5py):
   python -m segtran_tpu_torch.cli.train3d --task brats --split all \\
       --maxiter 10000 --translayers 1 --bs 4 --randscale 0.1 \\
       --attractors 1024 --fused --dropout 0 --bf16 --dataroot <h5 root>
@@ -25,71 +28,43 @@ import logging
 import os
 import sys
 import time
+from typing import Callable
 
-import numpy as np
 import torch
 
 from .. import resolve_device
 from ..data.augment import (noise_draw, resized_crop_3d, resized_crop_draw,
                             rot_flip_3d, rot_flip_draws)
+from ..data.labelmaps import index_to_onehot
 from ..data.labelmaps3d import brats_map_label
 from ..data.pipeline import DevicePrefetcher, batch_iterator
-from ..models.segtran3d import Segtran3d
 from ..nn.attention import set_dropout_generator
 from ..nn.init import init_with_reference_schemes
 from ..ops.losses import dice_loss_indiv, weighted_bce_with_logits
 from ..ops.resize import resize_linear
 from ..train.checkpoint import load_checkpoint, save_checkpoint
+from ..train.da import attention_consistency_loss_3d, collect_attn_scores
 from ..train.trainer import build_optimizer, make_train_step
 from ..utils.meters import AverageMeters
-from .test3d import _ITEM4_3D, segtran3d_config, task_settings
+from .test3d import (_MULTI_GPU, add_model_args, build_model,
+                     make_dataset, refuse_later_slices, segtran_config,
+                     task_settings)
 
 
 def build_argparser():
     p = argparse.ArgumentParser(
-        description="segtran_tpu_torch 3D training (Segtran3d, BraTS)")
-    p.add_argument("--task", dest="task_name", default="brats")
-    p.add_argument("--ds", dest="ds_name", default=None,
-                   help="dataset dir under dataroot/<task>/ (default "
-                        "2019train)")
-    p.add_argument("--nclasses", dest="num_classes", type=int, default=-1)
-    p.add_argument("--mod", dest="chosen_modality", type=int, default=-1)
-    p.add_argument("--xyzpermute", dest="xyz_permute", default=None)
+        description="segtran_tpu_torch 3D training (Segtran3d/25d)")
+    add_model_args(p)
     p.add_argument("--split", default="train", choices=["train", "all"])
-    p.add_argument("--dataroot", default="../data")
-    p.add_argument("--net", default="segtran")
-    p.add_argument("--segtran", dest="segtran_type", default="3d")
-    p.add_argument("--bb", dest="backbone_type", default=None)
-    p.add_argument("--into3", dest="inchan_to3_scheme", default=None)
-    p.add_argument("--pos", dest="pos_code_type", default="lsinu")
-    p.add_argument("--nosqueeze", dest="use_squeezed_transformer",
-                   action="store_false")
-    p.add_argument("--multihead", dest="ablate_multihead",
-                   action="store_true")
-    p.add_argument("--infpn", dest="in_fpn_layers", default="34")
-    p.add_argument("--outfpn", dest="out_fpn_layers", default="1234")
-    p.add_argument("--attnclip", dest="attn_clip", type=float, default=500.0)
-    p.add_argument("--posw", dest="pos_code_weight", type=float, default=1.0)
-    p.add_argument("--squeezeuseffn", dest="has_FFN_in_squeeze",
-                   action="store_true")
     p.add_argument("--outdrop", dest="out_fpn_do_dropout",
                    action="store_true")
-    p.add_argument("--nofeatup", dest="bb_feat_upsize", action="store_false")
-    p.add_argument("--translayers", dest="num_translayers", type=int,
-                   default=1)
-    p.add_argument("--layercompress", dest="translayer_compress_ratios",
-                   default=None)
-    p.add_argument("--attractors", dest="num_attractors", type=int,
-                   default=1024)
-    p.add_argument("--modes", dest="num_modes", type=int, default=4)
     p.add_argument("--dropout", dest="dropout_prob", type=float, default=0.1)
-    p.add_argument("--noqkbias", dest="qk_have_bias", action="store_false")
     p.add_argument("--attnconsist", dest="use_attn_consist_loss",
-                   action="store_true")
-    p.add_argument("--upd", dest="out_fpn_upsampleD_scheme", default=None,
-                   choices=[None, "interp", "conv", "none"])
-    p.add_argument("--dgroup", dest="d_groupsize", type=int, default=-1)
-    p.add_argument("--dpool", dest="d_pool_k", type=int, default=-1)
+                   action="store_true",
+                   help="attention-consistency loss: BCE between the "
+                        "attention scores and the mask consistency matrix")
+    p.add_argument("--attnconsistweight", dest="attn_consist_w", type=float,
+                   default=0.01)
     p.add_argument("--maxiter", type=int, default=10000)
     p.add_argument("--saveiter", type=int, default=500)
     p.add_argument("--bs", dest="batch_size", type=int, default=4)
@@ -101,94 +76,72 @@ def build_argparser():
     p.add_argument("--diceweight", dest="max_dice_w", type=float, default=0.5)
     p.add_argument("--randscale", type=float, default=0.1)
     p.add_argument("--noise", dest="noise_sigma", type=float, default=0.0)
-    p.add_argument("--patchsize", dest="orig_patch_size", default=None,
-                   help="crop size, e.g. 112,112,96")
-    p.add_argument("--inputsize", dest="input_patch_size", default=None)
-    p.add_argument("--scale", dest="input_scale", default=None,
-                   help="per-axis input/crop scale, e.g. 0.5,0.5,1")
     p.add_argument("--cp", dest="checkpoint_path", default=None,
                    help="resume from <dir>/iter_N(.pt)")
     p.add_argument("--ckptdir", default="./model")
     p.add_argument("--seed", type=int, default=1337)
     p.add_argument("--ndevices", type=int, default=-1)
     p.add_argument("--tp", dest="tensor_parallel", type=int, default=1)
-    p.add_argument("--bf16", action="store_true")
     p.add_argument("--fused", dest="use_fused_attention",
                    action="store_true",
                    help="CUDA flash attention forward + backward in the "
-                        "squeezed layer (with --dropout 0)")
+                        "fusion layers (with --dropout 0)")
     p.add_argument("--fusedepi", dest="use_fused_epilogue",
                    action="store_true",
                    help="CUDA fused epilogue (eval only; inert in training)")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--norematblocks", dest="remat_blocks",
                    action="store_false", default=True,
-                   help="no effect on the 3D I3D backbone")
+                   help="no per-block recompute of the 2.5D EfficientNet "
+                        "(no effect on the I3D backbone)")
     p.add_argument("--gradaccum", dest="grad_accum", type=int, default=1)
-    p.add_argument("--device", default=None,
-                   help="cuda (default) or cpu; no GPU and no --device cpu "
-                        "is an error")
     return p
 
 
 def _refuse_later_slices(args) -> None:
-    later = [
-        (args.task_name != "brats", f"--task {args.task_name}",
-         "the atria/MSD datasets"),
-        (args.net != "segtran", f"--net {args.net}", "the 3D model zoo"),
-        (args.segtran_type != "3d", f"--segtran {args.segtran_type}",
-         "the 2.5D/mince slice"),
-        (args.d_groupsize > 0, "--dgroup", "the 2.5D/mince slice"),
-        (args.chosen_modality != -1, "--mod", "the atria/MSD datasets"),
-        (args.xyz_permute is not None, "--xyzpermute",
-         "the atria/MSD datasets"),
-        (args.backbone_type not in (None, "i3d"), f"--bb {args.backbone_type}",
-         "the 3D backbones of the model zoo"),
-        (args.inchan_to3_scheme not in (None, "bridgeconv"),
-         f"--into3 {args.inchan_to3_scheme}", "the 3D input bridges"),
-        (args.use_attn_consist_loss, "--attnconsist", "the DA slice"),
+    refuse_later_slices(args, [
         (args.tensor_parallel > 1 or args.ndevices > 1,
-         "--tp/--ndevices above 1", "the multi-GPU slice"),
-        (args.pos_code_type not in ("lsinu", "none"),
-         f"--pos {args.pos_code_type}", _ITEM4_3D),
-        (not args.use_squeezed_transformer, "--nosqueeze", _ITEM4_3D),
-        (args.ablate_multihead, "--multihead", "the ablations"),
-    ]
-    for bad, flag, where in later:
-        if bad:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: it belongs to a later slice of "
-                f"the PyTorch port ({where})")
+         "--tp/--ndevices above 1", _MULTI_GPU)])
 
 
-def train_task_settings(args):
-    """TASK_SETTINGS['brats'] with the crop/input sizes and --nclasses."""
-    task = task_settings(args)
-    if args.input_scale and not args.input_patch_size:
-        sc = [float(v) for v in str(args.input_scale).split(",")]
-        task["input_patch_size"] = tuple(
-            int(s * n) for s, n in zip(sc, task["orig_patch_size"]))
-    if args.num_classes > 0:
-        task["num_classes"] = args.num_classes
-        task["bce_weight"] = (0.0,) + (1.0,) * (args.num_classes - 1)
-        task["binarize"] = args.num_classes == 2
-    return task
+# the JAX CLIs share task_settings; the name stays for train3d's callers
+train_task_settings = task_settings
 
 
 def build_model_and_config(args, task):
-    """Segtran3d in training form: the test3d model flags plus dropout,
-    --outdrop and --remat (reference train3d.py:247-294)."""
+    """Segtran3d / Segtran25d in training form: the test3d model flags
+    plus dropout, --outdrop, --attnconsist, --remat and the 2.5D
+    backbone's per-block recompute (JAX cli/train3d.py:247-294)."""
     _refuse_later_slices(args)
-    kw = {}
-    if args.backbone_type:
-        kw["backbone_type"] = args.backbone_type
-    if args.inchan_to3_scheme:
-        kw["inchan_to3_scheme"] = args.inchan_to3_scheme
-    cfg = segtran3d_config(
+    cfg = segtran_config(
         args, task, hidden_dropout_prob=args.dropout_prob,
         attention_probs_dropout_prob=args.dropout_prob,
-        out_fpn_do_dropout=args.out_fpn_do_dropout, remat=args.remat, **kw)
-    return Segtran3d(cfg), cfg
+        out_fpn_do_dropout=args.out_fpn_do_dropout,
+        use_attn_consist_loss=args.use_attn_consist_loss, remat=args.remat,
+        remat_blocks=args.remat_blocks)
+    return build_model(cfg, task), cfg
+
+
+def make_attn_consist_loss(args) -> Callable:
+    """``aux_loss_fn(model, mask)`` of --attnconsist (JAX
+    cli/train3d.py:333-356): the weighted attention-consistency loss of
+    the first layer over the model's token grid."""
+    if args.remat:
+        raise ValueError(
+            "no attention scores collected -- remat drops the kept scores; "
+            "use --attnconsist without --remat")
+    depth_first = args.segtran_type == "3d"      # 25d rasters (h, w, d)
+    weight = args.attn_consist_w
+
+    def aux_loss_fn(model, mask):
+        scores = collect_attn_scores(model)
+        if not scores:
+            raise ValueError("no attention scores collected")
+        ac = attention_consistency_loss_3d(scores, mask, model.last_grid,
+                                           depth_first=depth_first)
+        return weight * ac, {"attn_consist_loss": ac.detach()}
+
+    return aux_loss_fn
 
 
 def make_loss_fn(task, dice_w: float, device):
@@ -229,10 +182,12 @@ def make_step(model, optimizer, args, task, device):
     generators seeded with --seed unless ``draws`` gives them:
     {'rot_flip': (k, flip_h, flip_w) per sample, 'zoom': f, 'noise':
     tensor} (reference train3d.py:361-379)."""
+    aux = (make_attn_consist_loss(args) if args.use_attn_consist_loss
+           else None)
     base = make_train_step(model, optimizer,
                            make_loss_fn(task, args.max_dice_w, device),
                            grad_accum=max(1, args.grad_accum),
-                           grad_clip=args.grad_clip)
+                           grad_clip=args.grad_clip, aux_loss_fn=aux)
     input_size = tuple(task["input_patch_size"])
     host_gen = torch.Generator().manual_seed(args.seed)
     dev_gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -254,8 +209,11 @@ def make_step(model, optimizer, args, task, device):
         pairs = [rot_flip_3d(image[i], label[i], int(ks[i]), bool(fhs[i]),
                              bool(fws[i])) for i in range(image.shape[0])]
         image = torch.stack([p[0] for p in pairs])
-        mask = brats_map_label(torch.stack([p[1] for p in pairs]),
-                               task["binarize"])
+        label = torch.stack([p[1] for p in pairs])
+        if args.task_name == "brats":
+            mask = brats_map_label(label, task["binarize"])
+        else:
+            mask = index_to_onehot(label, task["num_classes"])
         if args.randscale > 0:
             image, mask = resized_crop_3d(image, mask, draws["zoom"])
         if args.noise_sigma > 0:
@@ -344,22 +302,21 @@ def train(model, dataset, args, task, device, cfg=None, ckpt_dir=None,
 
 def main(argv=None):
     """Returns the checkpoint directory."""
-    from ..data.datasets3d import BratsSet
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
     _refuse_later_slices(args)
-    task = train_task_settings(args)
-    model, cfg = build_model_and_config(args, task)
+    task = task_settings(args)
     ckpt_dir = job_dir(args)
     logger = _logger(ckpt_dir)
     logger.info("args: %s", vars(args))
-    dataset = BratsSet(
-        os.path.join(args.dataroot, args.task_name,
-                     args.ds_name or "2019train"),
-        split=args.split, mode="train",
-        crop_size=tuple(task["orig_patch_size"]),
-        binarize=task["binarize"], seed=args.seed)
+    dataset = make_dataset(args, task, "train", "2019train"
+                           if args.task_name == "brats" else "train",
+                           crop_size=tuple(task["orig_patch_size"]),
+                           seed=args.seed)
     logger.info("%d training volumes on %s", len(dataset), device)
+    if task.get("orig_in_channels_probed"):
+        logger.info("orig_in_channels probed: %d", task["orig_in_channels"])
+    model, cfg = build_model_and_config(args, task)
     init_with_reference_schemes(model, cfg, seed=args.seed)
     if args.checkpoint_path:
         path = args.checkpoint_path

@@ -1,5 +1,5 @@
 from .base import (BACKBONE_FEAT_DIMS, Segtran2dConfig, Segtran3dConfig,
-                   TransformerConfig)
+                   Segtran25dConfig, TransformerConfig)
 
 __all__ = ["BACKBONE_FEAT_DIMS", "Segtran2dConfig", "Segtran3dConfig",
-           "TransformerConfig"]
+           "Segtran25dConfig", "TransformerConfig"]

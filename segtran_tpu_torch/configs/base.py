@@ -1,5 +1,5 @@
-"""Typed configuration for Segtran2d (serving, training) and Segtran3d
-(whole-volume inference, training).
+"""Typed configuration for Segtran2d (serving, training), Segtran3d and
+Segtran25d (whole-volume inference, training).
 
 Counterpart of ``segtran_tpu/configs/base.py``: the same frozen dataclasses,
 field names and ``derive()`` rules (layer-compression cumprod, FPN check),
@@ -77,6 +77,9 @@ class TransformerConfig:
     out_fpn_do_dropout: bool = False
     # standard multi-head attention output in place of the expansion block
     ablate_multihead: bool = False
+    # keep each layer's attention scores for the trainer's
+    # attention-consistency loss (train/da.py); turns the flash path off
+    use_attn_consist_loss: bool = False
     # the reference init passes (nn/init.py)
     base_initializer_range: float = 0.02
     query_idbias_scale: float = 10.0
@@ -174,6 +177,9 @@ class Segtran3dConfig(TransformerConfig):
     orig_in_channels: int = 4
     # depth pooling of the in-FPN features before the transformer
     D_pool_K: int = 2
+    # Segtran25d: G consecutive depth slices merge into the channels before
+    # the per-slice backbone (segtran25d.py:385-396)
+    D_groupsize: int = 1
     out_fpn_upsampleD_scheme: str = "interp"   # interp | conv | none
 
     @property
@@ -185,3 +191,13 @@ class Segtran3dConfig(TransformerConfig):
         return self.bb_feat_dims[self.in_fpn_layers[-1]]
 
     derive = Segtran2dConfig.derive
+
+
+@dataclass(frozen=True)
+class Segtran25dConfig(Segtran3dConfig):
+    """2.5D variant defaults (reference segtran25d.py:15-74): depth folded
+    into the batch, a per-slice 2-D EfficientNet, 3-D position-coded
+    fusion."""
+    backbone_type: str = "eff-b3"
+    inchan_to3_scheme: str = "stemconv"
+    out_fpn_upsampleD_scheme: str = "conv"

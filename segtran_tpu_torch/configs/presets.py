@@ -1,7 +1,7 @@
 """Per-task and per-net defaults (reference train2d.py:245-385 and
-train3d.py:218-255; the fundus, polyp, oct and brats entries and ``--net
-segtran``) and the CLI-override rule ``get_default`` (reference
-common_util.py:6-13)."""
+train3d.py:218-255; the fundus, polyp, oct, brats, atria and msd entries
+and ``--net segtran``) and the CLI-override rule ``get_default``
+(reference common_util.py:6-13)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -66,6 +66,26 @@ TASK_SETTINGS: Dict[str, Dict[str, Any]] = {
         "orig_patch_size": (112, 112, 96),
         "input_patch_size": (112, 112, 96),
         "binarize": False,
+    },
+    "atria": {
+        "num_classes": 2,
+        "bce_weight": (0.0, 1.0),
+        "orig_in_channels": 1,
+        "orig_patch_size": (112, 112, 80),
+        "input_patch_size": (112, 112, 80),
+        "binarize": True,
+    },
+    # Medical Segmentation Decathlon (reference datasets3d.py:210-329);
+    # the class count and the modality vary by task: --nclasses, --mod
+    "msd": {
+        "num_classes": 3,
+        "bce_weight": (0.0, 1.0, 1.0),
+        "orig_in_channels": -1,      # probed from the data
+        "orig_patch_size": (112, 112, 80),
+        "input_patch_size": (112, 112, 80),
+        "binarize": False,
+        "chosen_modality": -1,
+        "xyz_permute": None,
     },
 }
 

@@ -18,6 +18,11 @@ The reverse of the JAX package's torch importer (rules of
   biases), ``vfeat_bias``                  -> as they are
 * ``batch_stats`` ``mean`` / ``var``      -> ``running_mean`` / ``running_var``
 * tied Q/K: the JAX tree holds one ``query`` set, and so does the port.
+* Segtran25d: the 2-D in-FPN convs, the 3-D out-FPN convs and the
+  EfficientNet stem by the rules above; with ``stemconv`` the stem's
+  kernel ``[3, 3, c*G, O]`` (c modalities in depth groups of G) becomes
+  ``[O, c*G, 3, 3]`` like any conv (flax infers the stem's input
+  channels, the port's ``EfficientNetFeatures`` takes ``in_channels``).
 
 Every leaf must map; a leaf no rule covers raises.
 """

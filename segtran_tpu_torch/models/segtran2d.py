@@ -45,12 +45,13 @@ from ..ops.resize import avg_pool_nhwc, resize_linear
 
 class _GroupNorm(nn.GroupNorm):
     """flax nn.GroupNorm math on channels-last tensors: statistics and
-    normalize in fp32, result in the compute dtype (eps 1e-5,
-    segtran2d.py:148-150)."""
+    normalize in fp32 (fp64 for fp64 inputs), result in the compute dtype
+    (eps 1e-5, segtran2d.py:148-150)."""
 
     def run(self, x, dtype):
-        y = F.group_norm(x.movedim(-1, 1).float(), self.num_groups,
-                         self.weight, self.bias, self.eps)
+        ct = torch.promote_types(x.dtype, torch.float32)
+        y = F.group_norm(x.movedim(-1, 1).to(ct), self.num_groups,
+                         self.weight.to(ct), self.bias.to(ct), self.eps)
         return y.movedim(1, -1).to(dtype)
 
 

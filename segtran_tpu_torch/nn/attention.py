@@ -534,7 +534,8 @@ class SqueezedAttFeatTrans(nn.Module):
     (segtran_shared.py:787-816)."""
 
     def __init__(self, spec: TransLayerSpec, num_attractors: int = 256,
-                 has_FFN_in_squeeze: bool = False):
+                 has_FFN_in_squeeze: bool = False,
+                 keep_attn_scores: bool = False):
         super().__init__()
         self.spec = spec
         # in-squeeze: single mode, no channel compression
@@ -542,8 +543,8 @@ class SqueezedAttFeatTrans(nn.Module):
                                       num_modes=1, has_FFN=has_FFN_in_squeeze)
         self.attractors = nn.Parameter(
             torch.empty(1, num_attractors, spec.in_feat_dim))
-        self.in_ator_trans = CrossAttFeatTrans(in_spec)
-        self.ator_out_trans = CrossAttFeatTrans(spec)
+        self.in_ator_trans = CrossAttFeatTrans(in_spec, keep_attn_scores)
+        self.ator_out_trans = CrossAttFeatTrans(spec, keep_attn_scores)
 
     def forward(self, in_feat, pos_biases=None):
         b = in_feat.shape[0]

@@ -7,7 +7,9 @@ SqueezedAttFeatTrans, or with ``use_squeezed_transformer=False`` one
 CrossAttFeatTrans attending the N tokens to themselves. The code is
 computed once at trans_in_dim and sliced per layer; a ``bias`` code is
 not added to the features but passed to every layer, whose scores it
-biases (non-squeezed layers only, as in the reference).
+biases (non-squeezed layers only, as in the reference). With
+``use_attn_consist_loss`` every attention keeps its scores of the last
+forward on its module (``attention_scores``).
 """
 from __future__ import annotations
 
@@ -76,15 +78,20 @@ class SegtranFusionEncoder(nn.Module):
         self.comb_norm_layers = nn.ModuleList(
             LayerNorm(dims[i], cfg.ln_eps, affine=False, dtype=cfg.dtype)
             for i in range(n))
+        # the attention-consistency loss reads every layer's scores
+        # (train/da.collect_attn_scores); keeping them shuts the flash path
+        keep = cfg.use_attn_consist_loss
         if cfg.use_squeezed_transformer:
             self.translayers = nn.ModuleList(
                 SqueezedAttFeatTrans(layer_spec_from_config(cfg, i),
                                      num_attractors=cfg.num_attractors,
-                                     has_FFN_in_squeeze=cfg.has_FFN_in_squeeze)
+                                     has_FFN_in_squeeze=cfg.has_FFN_in_squeeze,
+                                     keep_attn_scores=keep)
                 for i in range(n))
         else:
             self.translayers = nn.ModuleList(
-                CrossAttFeatTrans(layer_spec_from_config(cfg, i))
+                CrossAttFeatTrans(layer_spec_from_config(cfg, i),
+                                  keep_attn_scores=keep)
                 for i in range(n))
         self.dropout = Dropout(cfg.hidden_dropout_prob)
 

@@ -15,7 +15,7 @@ reference train2d.py:1134-1337):
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -119,10 +119,15 @@ def clip_by_global_norm_(params: Iterable[torch.Tensor],
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     loss_fn: Callable, grad_accum: int = 1,
-                    grad_clip: float = 0.0) -> Callable:
+                    grad_clip: float = 0.0,
+                    aux_loss_fn: Optional[Callable] = None) -> Callable:
     """train_step(batch {'image', 'mask'}) -> metrics {name: 0-d tensor},
     one optimizer update; ``loss_fn(logits, mask) -> (loss, metrics)``.
-    The batch splits into ``grad_accum`` microbatches along dim 0."""
+    ``aux_loss_fn(model, mask) -> (extra loss, metrics)``, where given, is
+    read after each forward (the model keeps what it needs, e.g. the
+    attention scores) and its loss added before the backward (JAX
+    train/trainer.py:113-160). The batch splits into ``grad_accum``
+    microbatches along dim 0."""
     params = list(model.parameters())
 
     def train_step(batch):
@@ -132,6 +137,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         for image, mask in zip(batch["image"].chunk(grad_accum),
                                batch["mask"].chunk(grad_accum)):
             loss, metrics = loss_fn(model(image), mask)
+            if aux_loss_fn is not None:
+                extra, extra_metrics = aux_loss_fn(model, mask)
+                loss = loss + extra
+                metrics = dict(metrics, **extra_metrics, loss=loss)
             loss.backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0) + v.detach()

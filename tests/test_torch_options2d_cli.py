@@ -95,13 +95,25 @@ def test_oct_evaluate_checkpoint_matches_jax():
 @pytest.mark.parametrize("flags", [["--pos", "rand"], ["--pos", "bias"],
                                    ["--nosqueeze"]])
 def test_3d_clis_refuse_the_2d_options(cli, flags):
-    """The encoder runs --pos and --nosqueeze in 3-D too, but Segtran3d is
-    not held to JAX under them yet: the 3-D CLIs refuse them, naming
-    ROADMAP item 4."""
+    """The 3-D CLIs take --pos and --nosqueeze since Segtran3d is held to
+    JAX under them (tests/test_torch_segtran3d_attention_options.py):
+    the flags reach the config, and --pos bias with the squeezed encoder
+    meets JAX's ValueError. What they still refuse (the model zoo) names
+    its ROADMAP item."""
     import importlib
     mod = importlib.import_module(f"segtran_tpu_torch.cli.{cli}")
-    args = mod.build_argparser().parse_args(
-        ["--attractors", "8", "--device", "cpu"]
-        + (["--cpdir", "unused"] if cli == "test3d" else []) + flags)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    common = (["--attractors", "8", "--device", "cpu"]
+              + (["--cpdir", "unused"] if cli == "test3d" else []))
+    args = mod.build_argparser().parse_args(common + flags)
+    mod._refuse_later_slices(args)
+    task = mod.task_settings(args)
+    if flags == ["--pos", "bias"]:
+        with pytest.raises(ValueError, match="positional biases"):
+            mod.build_model_and_config(args, task)
+    else:
+        _, cfg = mod.build_model_and_config(args, task)
+        assert (cfg.pos_code_type, cfg.use_squeezed_transformer) == (
+            args.pos_code_type, args.use_squeezed_transformer)
+    args = mod.build_argparser().parse_args(common + ["--net", "vnet"])
+    with pytest.raises(NotImplementedError, match="item 6"):
         mod._refuse_later_slices(args)

@@ -148,9 +148,9 @@ def test_test3d_cli_end_to_end_on_the_cpu(tmp_path):
 def test_later_slice_flags_raise():
     from segtran_tpu_torch.cli.test3d import (build_model_and_config,
                                               task_settings)
-    for extra in (["--net", "vnet"], ["--segtran", "25d"],
-                  ["--spatialshard"], ["--testinterp", "0.5"],
-                  ["--pos", "bias"], ["--nosqueeze"]):
+    for extra in (["--net", "vnet"], ["--bb", "resnet34"],
+                  ["--segtran", "25d", "--bb", "i3d"], ["--spatialshard"],
+                  ["--flop"]):
         args = _small_args(extra)
         with pytest.raises(NotImplementedError, match="later slice"):
             build_model_and_config(args, task_settings(args))
