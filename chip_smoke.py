@@ -135,6 +135,24 @@ Phases, each of which fails the run:
    1,2,0) through train() and evaluate_volume, and one --testinterp
    volume.
 
+11. da -- domain adaptation, the Polyformer and the mince layers through
+   train2d's train() on synthetic 576^2 frames (bf16): (a) --net
+   unet-scratch --polyformer source (64->512 channels, 256 attractors, 4
+   modes, 288^2 patches, bs 6), 3 steps; --polyformer target --targetopt
+   k --adv feat --reconweight 0.1 from its checkpoint with a second
+   synthetic set as the source, 3 steps: only K's two tensors (and
+   running statistics) move, the discriminator and recon head included,
+   and no flash kernel launches; test2d and one served batch on it; (b)
+   the flagship with --adv feat --fused --dropout 0 at bs 6 and
+   --sourcebs 6, 3 steps of 12 flash forwards each (6 per pass, target
+   and source), ms per step and peak memory, one fp32 step with --fused
+   against two without; (c) two steps each of --adv mask, --adda, --vcdr
+   sep, --attnconsist (no flash: JAX's gate), --attndiag 1, --tunebn
+   (parameters bit-identical, statistics moved) and --contrastweight
+   --negcontrast --reffeatcp with a seeded bank; (d) --nosqueeze --mince
+   --mincescales 2,1 --minceprops 1,1: test2d with --fused (no flash) and
+   two train steps.
+
 Before the last line it prints a JSON object with the fundus train step's
 and the fused backbone's numbers, one with the per-kernel numbers, and the
 card's ``name, power.limit``; the last line is
@@ -2814,6 +2832,440 @@ def volume_options(torch, np, epi, sa, ckdir, logger):
     return perf
 
 
+# ----------------------------------------------------------- phase 11 ----
+
+# the flagship in train2d's flags (bf16) and the Polyformer's U-Net
+DA_ARGV = ["--task", "fundus", "--bb", "eff-b4", "--translayers", "3",
+           "--layercompress", "1,1,2,2", "--attractors", "256",
+           "--device", "cuda"]
+UNET_DA_ARGV = ["--task", "fundus", "--net", "unet-scratch", "--attractors",
+                "256", "--bf16", "--device", "cuda"]
+MINCE_FLAGS = ["--nosqueeze", "--mince", "--mincescales", "2,1",
+               "--minceprops", "1,1"]
+DA_BS, DA_FRAMES, DA_STEPS, DA_OPTION_STEPS, DA_FP32_BS = 6, 12, 3, 2, 2
+# flash forwards of one --adv --fused step: 6 per pass, target and source
+DA_FLASH_PER_STEP = 12
+# (label, flags, flash forward launches per step): the second pass of
+# --adv doubles them, kept scores (--attnconsist) shut the gate (JAX's),
+# --attndiag and --tunebn run without --fused
+DA_OPTION_CASES = [
+    ("adv mask", ["--adv", "mask", "--fused"], 12),
+    ("adda", ["--adv", "feat", "--adda", "--fused"], 12),
+    ("vcdr sep", ["--vcdr", "sep", "--vcdrestimstart", "0",
+                  "--vcdrnetstart", "0", "--fused"], 6),
+    ("attnconsist", ["--attnconsist", "--fused"], 0),
+    ("attndiag", ["--attndiag", "1"], 0),
+    ("tunebn", ["--tunebn"], 0),
+    ("contrast", ["--contrastweight", "0.01", "--negcontrast", "--reffeatcp",
+                  "BANK", "--numreffeat", "1000", "--fused"], 6)]
+
+
+class _Lines(logging.Handler):
+    """Keeps the messages a logger emits (train()'s log lines)."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def da_train(torch, epi, sa, argv, frames, src, ckdir, logger, label,
+             cp=None):
+    """train2d.train() of ``argv`` from seed 0 (``cp`` loaded as train2d's
+    --cp loads it) on in-memory frames, ``src`` as the --sourceds set.
+    Returns (model, args, task, cfg, checkpoint dir, the net's state before
+    training on the CPU, row: wall, launches, peak memory, log lines)."""
+    from segtran_tpu_torch.cli import train2d
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    from segtran_tpu_torch.train.checkpoint import load_checkpoint
+    dev = torch.device("cuda")
+    args = train2d.build_argparser().parse_args(
+        argv + ["--seed", "0", "--logiter", "1", "--ckptdir", ckdir])
+    task = train2d.task_settings(args)
+    model, cfg = train2d.build_model_and_config(args, task)
+    init_with_reference_schemes(model, cfg, seed=0)
+    if cp is not None:
+        train2d.load_into(model, load_checkpoint(cp), logger)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    model = model.to(dev)
+    lines = _Lines()
+    logger.addHandler(lines)
+    reset_counts(epi, sa)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        ckpt = train2d.train(model, frames, args, task, dev, cfg,
+                             os.path.join(ckdir, label.replace(" ", "_")),
+                             logger, source_dataset=src)
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(lines)
+    wall = time.perf_counter() - t0
+    got = kernel_launches(epi, sa)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    wrote = os.path.isfile(os.path.join(ckpt, f"iter_{args.maxiter}.pt"))
+    log(f"[da] train {label}: {args.maxiter} train() steps at bs "
+        f"{args.batch_size} in {wall:.2f} s (first step included), launches "
+        f"(flash forward, dK/dV, dQ, recompute, private, full) {got}, peak "
+        f"{peak:.2f} GB, iter_{args.maxiter}.pt written {wrote}")
+    if not wrote:
+        fail(f"train {label}: no checkpoint")
+    return model, args, task, cfg, ckpt, before, dict(
+        wall_s=wall, launches=list(got), peak_mem_gb=peak,
+        lines=lines.lines)
+
+
+def polyformer_recipe(torch, np, epi, sa, ckdir, logger):
+    """(a): --polyformer source, 3 steps; --polyformer target --targetopt
+    k --adv feat --reconweight 0.1 from it, 3 steps (only K and running
+    statistics move; no flash launch); test2d and one served batch on the
+    target checkpoint."""
+    from segtran_tpu_torch.cli import serve, test2d, train2d
+    from segtran_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                    net_state_dict)
+    frames = synthetic_fundus(np, DA_FRAMES, seed=10)
+    src = synthetic_fundus(np, DA_FRAMES, seed=11)
+    argv = UNET_DA_ARGV + ["--bs", str(DA_BS), "--maxiter", str(DA_STEPS),
+                           "--saveiter", str(DA_STEPS)]
+    *_, ckpt_s, _, row_s = da_train(
+        torch, epi, sa, argv + ["--polyformer", "source"], frames, None,
+        ckdir, logger, "polyformer source")
+    model, args, task, _, ckpt_t, before, row_t = da_train(
+        torch, epi, sa, argv + ["--polyformer", "target", "--targetopt", "k",
+                                "--adv", "feat", "--sourceds", "rim",
+                                "--reconweight", "0.1"],
+        frames, src, ckdir, logger, "polyformer target",
+        cp=os.path.join(ckpt_s, f"iter_{DA_STEPS}"))
+    step_ms = da_step_ms(torch, np, epi, sa, model, args, task, None,
+                         frames, src, "polyformer target --adv feat")
+    saved = load_checkpoint(os.path.join(ckpt_t, f"iter_{DA_STEPS}"))
+    # the aux modules start from their seeds: rebuilt, they are the start
+    start = {f"net.{k}": v for k, v in before.items()}
+    start.update(train2d.build_aux_modules(args, task, None).state_dict())
+    moved = sorted(k for k, v in saved.items()
+                   if not torch.equal(v, start[k]))
+    moved_params = [k for k in moved if "running_" not in k]
+    want = ["net.polyformer.polyformer_layers.0.in_ator_trans.key.bias",
+            "net.polyformer.polyformer_layers.0.in_ator_trans.key.weight"]
+    flash = row_s["launches"][:4] + row_t["launches"][:4]
+    log(f"[da] polyformer target --targetopt k: {len(moved)} of {len(saved)} "
+        f"tensors moved, parameters among them {moved_params}; the "
+        f"discriminator and recon head unchanged "
+        f"{not any(k.startswith(('discriminator.', 'recon.')) for k in moved_params)}; "
+        f"flash launches of both runs {flash}")
+    if moved_params != want or any(flash):
+        fail("the Polyformer target run moved other parameters than K, or "
+             "launched a flash kernel")
+    # test2d and serve on the target checkpoint
+    targv = (["--task", "fundus", "--net", "unet-scratch", "--polyformer",
+              "target", "--attractors", "256", "--bf16", "--device", "cuda",
+              "--cpdir", ckpt_t, "--iters", str(DA_STEPS), "--bs",
+              str(CLI_EVAL_FRAMES), "--vcdr"])
+    targs = test2d.build_argparser().parse_args(targv)
+    ttask = train2d.task_settings(targs)
+    tmodel, _ = test2d.build_model(targs, ttask)
+    tmodel.load_state_dict(net_state_dict(saved), strict=True)
+    tmodel = tmodel.cuda().eval()
+    eval_frames = synthetic_fundus(np, CLI_EVAL_FRAMES, seed=14)
+    mean, std = train2d.load_stats(targs, "train")
+    reset_counts(epi, sa)
+    res = test2d.evaluate_checkpoint(tmodel, eval_frames, ttask, targs,
+                                     logger, mean, std)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    test2d.evaluate_checkpoint(tmodel, eval_frames, ttask, targs, logger,
+                               mean, std)
+    torch.cuda.synchronize()
+    spf = (time.perf_counter() - t0) / CLI_EVAL_FRAMES
+    eval_flash = kernel_launches(epi, sa)[0]
+    sargs = serve.build_argparser().parse_args(
+        ["--task", "fundus", "--net", "unet-scratch", "--polyformer",
+         "target", "--attractors", "256", "--bf16", "--device", "cuda",
+         "--cpdir", ckpt_t, "--iter", str(DA_STEPS), "--maxbatch", "2"])
+    engine = serve.InferenceEngine(sargs, logger)
+    try:
+        batch = np.stack([f["image"] for f in eval_frames[:2]])
+        served = engine.forward(batch)
+    finally:
+        engine.close()
+    log(f"[da] test2d --net unet-scratch --polyformer target: per-class "
+        f"Dice {[round(float(d), 4) for d in res[:2]]}, vCDR error "
+        f"{float(res[2]):.4f}, {spf:.4f} s per 576^2 frame, flash launches "
+        f"{eval_flash}; served batch {served.shape}, finite "
+        f"{bool(np.isfinite(served).all())}")
+    if (not np.isfinite(res).all() or eval_flash
+            or served.shape != (2, 576, 576, 3)
+            or not np.isfinite(served).all()):
+        fail("test2d or serve on the Polyformer checkpoint failed")
+    del model, tmodel, engine
+    torch.cuda.empty_cache()
+    return dict(source=_row(row_s), target=_row(row_t),
+                target_ms_per_step=step_ms[0], target_peak_gb=step_ms[1],
+                eval_s_per_frame=spf, eval_dice=[float(d) for d in res[:2]],
+                eval_vcdr_err=float(res[2]))
+
+
+def _row(row):
+    return {k: v for k, v in row.items() if k != "lines"}
+
+
+def _da_batch(torch, np, frames, src, bs, dev):
+    batch = {k: torch.from_numpy(np.stack([f[k] for f in frames[:bs]]))
+             for k in ("image", "mask")}
+    batch["source_image"] = torch.from_numpy(np.stack(
+        [f["image"] for f in src[:bs]]))
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def da_step_ms(torch, np, epi, sa, model, args, task, cfg, frames, src,
+               label):
+    """train()'s DA step (fresh aux modules and optimizer) on a fixed
+    batch of DA_BS target and source frames: ms per step on the host
+    clock (DA_STEPS steps after a warm one, ending in a synchronise),
+    peak memory, flash forward launches per step."""
+    from segtran_tpu_torch.cli import train2d
+    dev = torch.device("cuda")
+    aux = train2d.build_aux_modules(args, task, cfg).to(dev)
+    wrapped = torch.nn.ModuleDict({"net": model, **aux})
+    opt, clip = train2d.build_train_optimizer(wrapped, model, args)
+    step = train2d.make_step(model, opt, args, task, dev, None, aux, clip)
+    batch = _da_batch(torch, np, frames, src, DA_BS, dev)
+    torch.cuda.reset_peak_memory_stats()
+    step(batch)
+    torch.cuda.synchronize()
+    reset_counts(epi, sa)
+    t0 = time.perf_counter()
+    losses = [float(step(batch)["loss"]) for _ in range(DA_STEPS)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / DA_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    flash = sa.fused_cross_attention.launches / DA_STEPS
+    log(f"[da] {label} step bs {DA_BS} + source bs {DA_BS}: {ms:.1f} ms per "
+        f"step on the host clock ({DA_STEPS} steps after a warm one), peak "
+        f"{peak:.2f} GB, {flash:g} flash forward launches per step, losses "
+        f"{losses}")
+    if not all(map(math.isfinite, losses)):
+        fail(f"the {label} step's losses are not finite")
+    del aux, wrapped, opt, step, batch
+    torch.cuda.empty_cache()
+    return ms, peak, flash
+
+
+def flagship_da(torch, np, epi, sa, ckdir, logger):
+    """(b): the flagship with --adv feat --fused --dropout 0 at bs 6
+    (--sourcebs 6) through train(), 3 steps of 12 flash forwards each;
+    then ms per step and peak memory of the step on a fixed batch; one
+    fp32 step with --fused against one without."""
+    from segtran_tpu_torch.cli import train2d
+    dev = torch.device("cuda")
+    frames = synthetic_fundus(np, DA_FRAMES, seed=12)
+    src = synthetic_fundus(np, DA_FRAMES, seed=13)
+    argv = DA_ARGV + ["--bf16", "--adv", "feat", "--fused", "--dropout", "0",
+                      "--bs", str(DA_BS), "--sourcebs", str(DA_BS),
+                      "--sourceds", "rim", "--maxiter", str(DA_STEPS),
+                      "--saveiter", str(DA_STEPS)]
+    model, args, task, cfg, _, _, row = da_train(
+        torch, epi, sa, argv, frames, src, ckdir, logger, "flagship adv feat")
+    want = (DA_FLASH_PER_STEP * DA_STEPS, 0, 0)
+    if tuple(row["launches"][:3]) != want:
+        fail(f"the --adv --fused steps launched (flash forward, dK/dV, dQ) "
+             f"{tuple(row['launches'][:3])}, want {want}")
+    ms, peak, flash = da_step_ms(torch, np, epi, sa, model, args, task, cfg,
+                                 frames, src, "flagship --adv feat --fused")
+    if flash != DA_FLASH_PER_STEP:
+        fail("the flagship DA step's launches are wrong")
+    del model
+    torch.cuda.empty_cache()
+    out = dict(train=_row(row), ms_per_step=ms, peak_mem_gb=peak,
+               flash_per_step=flash)
+    out.update(da_fused_vs_unfused_fp32(torch, np, epi, sa, frames, src))
+    return out
+
+
+def da_fused_vs_unfused_fp32(torch, np, epi, sa, frames, src):
+    """One fp32 --adv feat step (TF32 off, bs 2, no update) with --fused
+    and twice without, same weights and draws: the loss and every
+    gradient within REMAT_TOL or REMAT_FLOOR times the two unfused runs'
+    spread (the net's, the discriminator's)."""
+    from segtran_tpu_torch.cli import train2d
+    from segtran_tpu_torch.data.augment import draw_2d
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = _da_batch(torch, np, frames, src, DA_FP32_BS, dev)
+    state, draws, runs = None, None, []
+    for fused in (True, False, False):
+        args = train2d.build_argparser().parse_args(
+            DA_ARGV + ["--adv", "feat", "--dropout", "0", "--bs",
+                       str(DA_FP32_BS), "--sourcebs", str(DA_FP32_BS),
+                       "--seed", "0"] + (["--fused"] if fused else []))
+        task = train2d.task_settings(args)
+        model, cfg = train2d.build_model_and_config(args, task)
+        if state is None:
+            init_with_reference_schemes(model, cfg, seed=0)
+            state = model.state_dict()
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            aug = train2d.aug_config(args, *train2d.load_stats(args, "train"))
+            draws = (draw_2d(DA_FP32_BS, aug, gen),
+                     draw_2d(DA_FP32_BS, aug, gen))
+        model.load_state_dict(state, strict=True)
+        aux = train2d.build_aux_modules(args, task, cfg).to(dev)
+        model = model.to(dev)
+        step = train2d.make_step(model, None, args, task, dev, None, aux,
+                                 grad_clip=0.0)
+        reset_counts(epi, sa)
+        loss = float(step(batch, draws=draws[0], src_draws=draws[1])["loss"])
+        flash = sa.fused_cross_attention.launches
+        if flash != (DA_FLASH_PER_STEP if fused else 0):
+            fail(f"the fp32 DA step (--fused {fused}) launched {flash} "
+                 f"flash forwards")
+        wrapped = torch.nn.ModuleDict({"net": model, **aux})
+        runs.append((loss, {n: p.grad.clone()
+                            for n, p in wrapped.named_parameters()
+                            if p.grad is not None}))
+        del model, aux, step, wrapped
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    (l_f, g_f), (l_u, g_u), (_, g_again) = runs
+    g_max = max(float(g.abs().max()) for g in g_u.values())
+
+    def rel(grads, n):
+        g = g_u[n]
+        return float((grads[n] - g).abs().max()) / max(
+            float(g.abs().max()), REMAT_NOISE * g_max)
+
+    w_f = max((rel(g_f, n), n) for n in g_u)
+    w_floor = max((rel(g_again, n), n) for n in g_u)
+    tol = max(REMAT_TOL["grad"], REMAT_FLOOR * w_floor[0])
+    loss_rel = abs(l_f - l_u) / abs(l_u)
+    log(f"[da] fp32 --adv feat step bs {DA_FP32_BS}, --fused ("
+        f"{DA_FLASH_PER_STEP} flash forwards) vs unfused: loss {l_f!r} vs "
+        f"{l_u!r} (rel {loss_rel:.2e}, tol "
+        f"{TRAIN_TOL['loss_rel']:g}); worst gradient max |diff| / max "
+        f"|unfused| {w_f[0]:.2e} ({w_f[1]}) over {len(g_u)} tensors; two "
+        f"unfused runs {w_floor[0]:.2e} ({w_floor[1]}); tol {tol:.2e}")
+    if set(g_f) != set(g_u) or not all(bool(torch.isfinite(g).all())
+                                       for g in g_f.values()):
+        fail("the fused fp32 DA step's gradients are missing or not finite")
+    if loss_rel > TRAIN_TOL["loss_rel"] or w_f[0] > tol:
+        fail("the fused fp32 DA step disagrees with the unfused one")
+    return dict(fp32_loss_rel=loss_rel, fp32_worst_grad=w_f[0],
+                fp32_worst_grad_tensor=w_f[1],
+                fp32_unfused_rerun_worst_grad=w_floor[0])
+
+
+def da_options(torch, np, epi, sa, ckdir, logger):
+    """(c): two train() steps of each DA_OPTION_CASES flag set at the
+    flagship's width, bf16, bs 6, --dropout 0: launches, finite weights;
+    --tunebn leaves every parameter bit-identical and moves the running
+    statistics; --attndiag 1 logs its line each step; the contrast bank
+    is a seeded .npz of 3 x 1200 448-wide features."""
+    from segtran_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                    net_state_dict)
+    frames = synthetic_fundus(np, DA_FRAMES, seed=15)
+    src = synthetic_fundus(np, DA_FRAMES, seed=16)
+    bank = os.path.join(ckdir, "bank.npz")
+    os.makedirs(ckdir, exist_ok=True)
+    rng = np.random.RandomState(0)
+    np.savez(bank, features=rng.randn(3600, 448).astype(np.float32),
+             labels=np.repeat([0, 1, 2], 1200))
+    perf = {}
+    for label, flags, per_step in DA_OPTION_CASES:
+        argv = DA_ARGV + ["--bf16", "--dropout", "0", "--bs", str(DA_BS),
+                          "--sourceds", "rim", "--maxiter",
+                          str(DA_OPTION_STEPS), "--saveiter",
+                          str(DA_OPTION_STEPS)]
+        model, _, _, _, ckpt, before, row = da_train(
+            torch, epi, sa, argv + [bank if f == "BANK" else f
+                                    for f in flags],
+            frames, src, ckdir, logger, label)
+        saved = net_state_dict(load_checkpoint(
+            os.path.join(ckpt, f"iter_{DA_OPTION_STEPS}")))
+        finite = all(bool(torch.isfinite(v).all()) for v in saved.values())
+        ok = finite and row["launches"][0] == per_step * DA_OPTION_STEPS
+        if label == "tunebn":
+            params = {n for n, _ in model.named_parameters()}
+            same = all(torch.equal(saved[n], before[n]) for n in params)
+            stats = any(not torch.equal(saved[n], before[n])
+                        for n in saved if n.endswith("running_mean"))
+            row.update(params_identical=same, stats_moved=stats)
+            ok = ok and same and stats
+        if label == "attndiag":
+            n = sum("max-attn" in line for line in row["lines"])
+            row["attn_diag_lines"] = n
+            ok = ok and n == DA_OPTION_STEPS
+        perf[label] = _row(row)
+        log(f"[da] {label}: finite {finite}, flash forwards "
+            f"{row['launches'][0]} (want {per_step * DA_OPTION_STEPS})"
+            + (f", parameters bit-identical {row['params_identical']}, "
+               f"running statistics moved {row['stats_moved']}"
+               if label == "tunebn" else "")
+            + (f", {row['attn_diag_lines']} max-attn lines"
+               if label == "attndiag" else ""))
+        if not ok:
+            fail(f"the DA option {label} failed")
+        del model
+        torch.cuda.empty_cache()
+    return perf
+
+
+def mince_paths(torch, np, epi, sa, ckdir, logger):
+    """(d): --nosqueeze --mince --mincescales 2,1 --minceprops 1,1 at the
+    flagship's width: test2d's evaluate_checkpoint with --fused on 4
+    frames (no flash launch), and two train() steps."""
+    from segtran_tpu_torch.cli import test2d, train2d
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    frames = synthetic_fundus(np, 4, seed=17)
+    targs = test2d.build_argparser().parse_args(
+        DA_ARGV + ["--bf16", "--fused", "--cpdir", ckdir, "--bs", "4"]
+        + MINCE_FLAGS)
+    task = train2d.task_settings(targs)
+    model, cfg = test2d.build_model(targs, task)
+    init_with_reference_schemes(model, cfg, seed=0)
+    model = model.cuda().eval()
+    mean, std = train2d.load_stats(targs, "train")
+    test2d.evaluate_checkpoint(model, frames, task, targs, logger, mean, std)
+    reset_counts(epi, sa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = test2d.evaluate_checkpoint(model, frames, task, targs, logger,
+                                     mean, std)
+    torch.cuda.synchronize()
+    spf = (time.perf_counter() - t0) / len(frames)
+    flash = kernel_launches(epi, sa)[0]
+    del model
+    torch.cuda.empty_cache()
+    *_, row = da_train(torch, epi, sa, DA_ARGV + [
+        "--bf16", "--dropout", "0", "--bs", str(DA_BS), "--maxiter",
+        str(DA_OPTION_STEPS), "--saveiter", str(DA_OPTION_STEPS), "--fused"]
+        + MINCE_FLAGS, synthetic_fundus(np, DA_FRAMES, seed=18), None,
+        ckdir, logger, "mince")
+    log(f"[da] mince test2d --fused: {spf:.4f} s per 576^2 frame, Dice "
+        f"(random weights) {[round(float(d), 4) for d in res]}, flash "
+        f"launches {flash}; mince train flash launches {row['launches'][0]}")
+    if flash or row["launches"][0] or not np.isfinite(res).all():
+        fail("a mince path launched a flash kernel or is not finite")
+    torch.cuda.empty_cache()
+    return dict(eval_s_per_frame=spf, train=_row(row))
+
+
+def da_phase(torch, np, epi, sa, ckdir, logger):
+    """Phase 11: domain adaptation, the Polyformer and the mince layers."""
+    t0 = time.perf_counter()
+    perf = {"polyformer": polyformer_recipe(torch, np, epi, sa, ckdir,
+                                            logger),
+            "flagship": flagship_da(torch, np, epi, sa, ckdir, logger),
+            "options": da_options(torch, np, epi, sa, ckdir, logger),
+            "mince": mince_paths(torch, np, epi, sa, ckdir, logger)}
+    perf["phase_s"] = time.perf_counter() - t0
+    log(f"[da] phase in {perf['phase_s']:.1f} s")
+    return perf
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
@@ -2823,7 +3275,8 @@ def main(argv=None) -> int:
                                        "flash_backward",
                                        "training", "mbconv",
                                        "fundus_training", "fundus_cli",
-                                       "fundus_options", "volume_options"],
+                                       "fundus_options", "volume_options",
+                                       "da"],
                     default=None,
                     help="build and run only this check, print no result")
     only = ap.parse_args(argv).only
@@ -2902,6 +3355,13 @@ def main(argv=None) -> int:
             shutil.rmtree(ckdir, ignore_errors=True)
         print(json.dumps({"volume_options": perf, "card": card}), flush=True)
         return 0
+    if only == "da":
+        try:
+            perf = da_phase(torch, np, epi, sa, ckdir, logger)
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        print(json.dumps({"da": perf, "card": card}), flush=True)
+        return 0
     if only == "training":
         try:
             train_perf, _ = training(torch, np, sa, ckdir, logger)
@@ -2949,6 +3409,11 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     log(f"[volume_options] {json.dumps(volume_perf)} on {card}")
+    try:
+        da_perf = da_phase(torch, np, epi, sa, ckdir, logger)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"[da] {json.dumps(da_perf)} on {card}")
 
     replaces = {
         "fused_mid_output_pool": "segtran_tpu/kernels/expansion_epilogue.py:333",

@@ -11,8 +11,10 @@ Counterpart of ``segtran_tpu/cli/serve.py`` with the same flags (minus
 Every request is resized to the task's ``orig_input_size`` and batches are
 padded to ``--maxbatch``, so the model always sees one shape. Weights move
 to the device once, at startup; one worker thread runs the batches under
-``torch.inference_mode()``. Flags whose modules belong to a later slice of
-the port raise NotImplementedError.
+``torch.inference_mode()``. The model comes from test2d's factory, as in
+JAX (``--net segtran`` or ``unet-scratch``, ``--polyformer``,
+``--mince``); a DA run's checkpoint gives its net. Flags whose modules
+belong to a later slice of the port raise NotImplementedError.
 
 Example:
   python -m segtran_tpu_torch.cli.serve --task fundus --bb eff-b4 \\
@@ -34,13 +36,11 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..configs.base import Segtran2dConfig
-from ..configs.presets import NET_SETTINGS, TASK_SETTINGS
+from ..configs.presets import TASK_SETTINGS
 from ..data.stats import load_dataset_stats
 from ..infer.sliding import sliding_window_2d
-from ..models.segtran2d import Segtran2d
-from ..train.checkpoint import load_checkpoint
-from .train2d import _DA, _ZOO
+from ..train.checkpoint import load_checkpoint, net_state_dict
+from . import test2d
 
 
 def build_argparser():
@@ -93,42 +93,10 @@ def build_argparser():
     return p
 
 
-def _refuse_later_slices(args) -> None:
-    later = [
-        (args.net != "segtran", f"--net {args.net}", _ZOO),
-        (args.use_mince_transformer, "--mince", _DA),
-        (args.polyformer_mode is not None, "--polyformer", _DA),
-    ]
-    for bad, flag, where in later:
-        if bad:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: it belongs to a later slice of "
-                f"the PyTorch port ({where})")
-
-
 def build_model_and_config(args, task):
-    """``--net segtran`` as the JAX train2d/test2d factories build it, in
-    eval form."""
-    _refuse_later_slices(args)
-    num_modes = NET_SETTINGS["segtran"]["num_modes"].get(args.in_fpn_layers, 4)
-    compress = tuple(float(x) for x in (
-        args.translayer_compress_ratios
-        or ",".join(["1"] * (args.num_translayers + 1))).split(","))
-    cfg = Segtran2dConfig(
-        backbone_type=args.backbone_type,
-        num_classes=task["num_classes"],
-        num_attractors=args.num_attractors,
-        num_modes=num_modes,
-        qk_have_bias=args.qk_have_bias,
-        use_squeezed_transformer=args.use_squeezed_transformer,
-        pos_code_type=args.pos_code_type,
-        use_fused_attention=args.use_fused_attention,
-        use_fused_epilogue=args.use_fused_epilogue,
-        in_fpn_layers=tuple(int(c) for c in args.in_fpn_layers),
-        out_fpn_layers=tuple(int(c) for c in args.out_fpn_layers),
-        dtype=torch.bfloat16 if args.bf16 else torch.float32,
-    ).derive(translayer_compress_ratios=compress)
-    return Segtran2d(cfg, patch_size=task["patch_size"]), cfg
+    """The model as JAX's server builds it: test2d's factory (train2d's
+    in eval form), which refuses what the port has not reached."""
+    return test2d.build_model(args, task)
 
 
 def task_settings(args):
@@ -170,7 +138,8 @@ class InferenceEngine:
         if not os.path.isfile(path + ".pt"):
             raise FileNotFoundError(f"checkpoint not found: {path}.pt")
         model, self.cfg = build_model_and_config(args, task)
-        model.load_state_dict(load_checkpoint(path, self.cfg), strict=True)
+        model.load_state_dict(
+            net_state_dict(load_checkpoint(path, self.cfg)), strict=True)
         self.model = model.to(self.device).eval()   # the one weight upload
 
         mean, std = load_dataset_stats(args.task_name, args.gray_alpha, "train",

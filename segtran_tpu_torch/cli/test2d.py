@@ -1,8 +1,11 @@
-"""2-D evaluation of Segtran2d checkpoints on a CUDA GPU: checkpoint
-sweeps, batched sliding-window inference, per-class Dice and vCDR,
-prediction export.
+"""2-D evaluation of Segtran2d and U-Net checkpoints on a CUDA GPU:
+checkpoint sweeps, batched sliding-window inference, per-class Dice and
+vCDR, prediction export.
 
-Counterpart of ``segtran_tpu/cli/test2d.py`` for ``--net segtran``. Per
+Counterpart of ``segtran_tpu/cli/test2d.py`` for ``--net segtran`` and
+``--net unet-scratch`` (with ``--polyformer``), built by train2d's
+factory as JAX builds them. A DA run's checkpoint gives its net (JAX
+evaluates a fresh net from one: its tolerant merge finds no key). Per
 batch of frames (``evaluate_checkpoint``), walked in order with the last
 partial batch kept: the gray blend and mean/std normalisation, overlapping
 ``orig_input_size`` windows resized to the patch size
@@ -40,7 +43,7 @@ from ..infer.metrics import batch_dice_per_class, log_metric_stack
 from ..infer.sliding import sliding_window_2d
 from ..nn.init import init_with_reference_schemes
 from ..ops.losses import calc_vcdr_eval
-from ..train.checkpoint import load_checkpoint
+from ..train.checkpoint import load_checkpoint, net_state_dict
 from . import train2d
 
 _GRAY_W = (0.299, 0.587, 0.114)
@@ -172,7 +175,6 @@ def _refuse_later_slices(args) -> None:
         (args.do_remove_frag, "--removefrag", _TOOLS),
         (args.test_interp is not None, "--testinterp", _TOOLS),
         (args.do_flop_count, "--flop", _TOOLS),
-        (args.polyformer_mode is not None, "--polyformer", train2d._DA),
     ]
     for bad, flag, where in later:
         if bad:
@@ -346,8 +348,8 @@ def main(argv=None):
         if it is None:
             init_with_reference_schemes(model, cfg, seed=0)
         else:
-            model.load_state_dict(load_checkpoint(
-                os.path.join(args.cpdir, f"iter_{it}"), cfg), strict=True)
+            model.load_state_dict(net_state_dict(load_checkpoint(
+                os.path.join(args.cpdir, f"iter_{it}"), cfg)), strict=True)
             log.info("=== iter %d ===", it)
         model = model.to(device).eval()
         results[it] = evaluate_checkpoint(model, dataset, task, args, log,

@@ -1,11 +1,13 @@
-"""2-D training of Segtran2d on a CUDA GPU (REFUGE fundus, polyp, OCT).
+"""2-D training of Segtran2d and the Polyformer's U-Net on a CUDA GPU
+(REFUGE fundus, polyp, OCT), supervised or with domain adaptation.
 
-Counterpart of ``segtran_tpu/cli/train2d.py`` for ``--net segtran``,
-supervised. Per step (``make_step``) on the device: the task's label map
-of the raw masks, the batched 2-D augmentation (``data/augment.py``:
-crop-and-pad ``--randscale``, flips, quarter turns, ``--affine``, the
-gray blend ``--gray``, the colour jitter, ``--robustaug``, normalisation
-by the dataset's mean/std table, per sample in a multi-``--ds`` run), a
+Counterpart of ``segtran_tpu/cli/train2d.py`` for ``--net segtran`` and
+``--net unet-scratch``. Per step (``make_step``) on the device: the
+task's label map of the raw masks, the batched 2-D augmentation
+(``data/augment.py``: crop-and-pad ``--randscale``, flips, quarter
+turns, ``--affine``, the gray blend ``--gray``, the colour jitter,
+``--robustaug``, normalisation by the dataset's mean/std table, per
+sample in a multi-``--ds`` run), a
 bilinear resize to the patch size; then the forward in training mode,
 (1 - w) weighted BCE + w class-weighted Dice (``--diceweight``,
 ``--focus``), the global-norm clip and BertAdam with warmup-linear over
@@ -14,9 +16,25 @@ the reference's parameter groups, with ``--gradaccum`` microbatches.
 ``--dropout 0``. The model options of the paper's ablations build as JAX
 builds them: ``--nosqueeze``, ``--pos rand|sinu|bias`` (``--posr``,
 ``--posw``), ``--multihead``, ``--inbn``, ``--gbias``, and ``--outfpn``
-equal to ``--infpn`` (no output FPN). Checkpoints ``iter_N.pt`` with
-their sidecar every ``--saveiter`` iterations and at the end; ``--cp``
-starts from one.
+equal to ``--infpn`` (no output FPN), ``--nosqueeze --mince``.
+
+Domain adaptation and the auxiliary losses (JAX ``make_full_step``,
+reference train2d.py:1228-1318), each held to JAX on the CPU:
+``--polyformer source|target`` (the U-Net's adapter; ``--sourceopt`` /
+``--targetopt`` choose the trained parameters, BertAdam without weight
+decay or global clip), ``--tunebn`` (no updates; the running statistics
+move), ``--adv feat|mask`` (a gradient-reversal discriminator on the
+features or predicted masks of a target batch and a ``--sourceds`` batch
+of ``--sourcebs``; ``--adda`` trains it on detached features and the net
+against its detached parameters), ``--reconweight``, ``--vcdr
+single|sep`` (learned vCDR estimators), ``--contrastweight`` with
+``--reffeatcp`` (``--negcontrast``), ``--attnconsist`` and ``--attndiag``.
+The net's running statistics move with the target batch only, the
+discriminator's and the estimators' once per step from their last call,
+as JAX keeps them. Checkpoints ``iter_N.pt`` with their sidecar every
+``--saveiter`` iterations and at the end (a DA run's under ``net.``,
+``discriminator.``, ...); ``--cp`` starts from one, parameters it lacks
+keeping their fresh values as JAX's ``merge_params`` keeps them.
 Flags whose modules belong to a later slice of the port raise
 NotImplementedError naming the ROADMAP item that will port them.
 
@@ -28,6 +46,7 @@ Example (GPU; reading the PNG frames needs Pillow):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import sys
@@ -35,20 +54,32 @@ import time
 
 import numpy as np
 import torch
+from torch import nn
 
 from .. import resolve_device
+from ..adapt.polyformer import polyformer_param_labels
 from ..configs.base import Segtran2dConfig
 from ..configs.presets import NET_SETTINGS, TASK_SETTINGS
 from ..data.augment import Aug2dConfig, augment_batch_2d, draw_2d
 from ..data.labelmaps import fundus_map_mask, index_to_onehot, polyp_map_mask
 from ..data.pipeline import DevicePrefetcher, batch_iterator
 from ..data.stats import load_dataset_stats
+from ..models.discriminator import Discriminator
 from ..models.segtran2d import Segtran2d
+from ..models.unet2d import VanillaUNet
 from ..nn.attention import set_dropout_generator
 from ..nn.init import init_with_reference_schemes
+from ..ops.norm import frozen_running_stats
 from ..ops.resize import resize_linear
-from ..train.checkpoint import load_checkpoint, save_checkpoint
-from ..train.trainer import (build_optimizer, make_loss_fn, make_train_step,
+from ..train.bertadam import BertAdam
+from ..train.checkpoint import (load_checkpoint, net_state_dict,
+                                save_checkpoint)
+from ..train.contrast import calc_contrast_losses, load_reference_features
+from ..train.da import (attention_consistency_loss, collect_attn_diag,
+                        collect_attn_scores, domain_adversarial_loss,
+                        recon_loss, vcdr_estimation_losses)
+from ..train.trainer import (build_optimizer, clip_by_global_norm_,
+                             make_loss_fn, make_train_step,
                              resolve_remat_blocks)
 from ..utils.meters import AverageMeters
 
@@ -210,29 +241,18 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-_DA = "ROADMAP Queue 1 item 5: 2.5D, DA and Polyformer"
 _ZOO = "ROADMAP Queue 1 item 6: the zoo, parallel/ and tools"
+NETS = ("segtran", "unet-scratch")
+VCDR_NAMES = {"single": ("vcdr_estim",), "sep": ("vc_estim", "vd_estim")}
 
 
 def _refuse_later_slices(args) -> None:
     later = [
-        (args.adversarial_mode is not None, "--adv", _DA),
-        (args.source_ds_name != "train", "--sourceds", _DA),
-        (args.adda, "--adda", _DA),
-        (args.recon_w > 0, "--reconweight", _DA),
-        (args.vcdr_estim_scheme != "none", "--vcdr", _DA),
-        (args.contrast_loss_w > 0, "--contrastweight", _DA),
-        (args.ref_feat_cp_path is not None, "--reffeatcp", _DA),
-        (args.use_attn_consist_loss, "--attnconsist", _DA),
-        (args.attn_diag_cycles > 0, "--attndiag", _DA),
-        (args.polyformer_mode is not None, "--polyformer", _DA),
-        (args.tune_bn_only, "--tunebn", _DA),
         (args.opt_name in ("sgd", "adam"), f"--opt {args.opt_name}", _ZOO),
         (args.opt_filters is not None, "--optfilter", _ZOO),
         (args.tensor_parallel > 1 or args.expert_parallel
          or args.ndevices > 1, "--tp/--ep/--ndevices above 1", _ZOO),
-        (args.net != "segtran", f"--net {args.net}", _ZOO),
-        (args.use_mince_transformer, "--mince", _DA),
+        (args.net not in NETS, f"--net {args.net}", _ZOO),
         (args.profile, "--profile", _ZOO),
     ]
     for bad, flag, where in later:
@@ -270,9 +290,21 @@ def load_stats(args, ds_name):
 
 
 def build_model_and_config(args, task):
-    """``--net segtran`` in training form (JAX train2d.py:313-356). An
-    unset --rematblocks/--norematblocks takes ``resolve_remat_blocks``."""
+    """The --net in training form (JAX train2d.py:313-365): Segtran2d and
+    its config, or the U-Net (with ``--polyformer``) and None. An unset
+    --rematblocks/--norematblocks takes ``resolve_remat_blocks``."""
     _refuse_later_slices(args)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    if args.net == "unet-scratch":
+        return VanillaUNet(
+            3, task["num_classes"], polyformer_mode=args.polyformer_mode,
+            num_attractors=args.num_attractors,
+            num_modes=4 if args.num_modes == -1 else args.num_modes,
+            bn_eval=args.bn_opt_scheme == "fixstats", dtype=dtype), None
+    if args.polyformer_mode:
+        logger.info("--polyformer adds no Polyformer to --net segtran (as "
+                    "in JAX); --sourceopt/--targetopt still choose the "
+                    "trained parameters")
     if args.remat_blocks is None:
         args.remat_blocks, mb = resolve_remat_blocks(
             args.batch_size, args.grad_accum, 1, 1)
@@ -302,16 +334,24 @@ def build_model_and_config(args, task):
         pos_code_weight=args.pos_code_weight,
         pos_bias_radius=args.pos_bias_radius,
         has_FFN_in_squeeze=args.has_FFN_in_squeeze,
+        use_attn_consist_loss=args.use_attn_consist_loss,
+        attn_diag=args.attn_diag_cycles > 0,
         use_fused_attention=args.use_fused_attention,
         use_fused_epilogue=args.use_fused_epilogue,
         remat=args.remat,
         remat_blocks=bool(args.remat_blocks),
         pos_code_type=args.pos_code_type,
+        use_mince_transformer=args.use_mince_transformer,
+        mince_scales=(tuple(int(v) for v in args.mince_scales.split(","))
+                      if args.mince_scales else None),
+        mince_channel_props=(
+            tuple(float(v) for v in args.mince_channel_props.split(","))
+            if args.mince_channel_props else None),
         in_fpn_layers=tuple(int(c) for c in args.in_fpn_layers),
         out_fpn_layers=tuple(int(c) for c in args.out_fpn_layers),
         hidden_dropout_prob=dropout,
         attention_probs_dropout_prob=dropout,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        dtype=dtype,
     ).derive(translayer_compress_ratios=compress)
     if args.use_fused_attention and dropout > 0:
         logger.warning("--fused is inert during training with attention "
@@ -322,7 +362,7 @@ def build_model_and_config(args, task):
 
 def optimizer_settings(args):
     """(lr, decay, grad_clip): the flags where set, else --net's preset."""
-    net_set = NET_SETTINGS[args.net]
+    net_set = NET_SETTINGS.get(args.net, NET_SETTINGS["unet-like"])
     return (args.lr if args.lr > 0 else net_set["lr"],
             args.decay if args.decay >= 0 else net_set["decay"],
             args.grad_clip if args.grad_clip > 0 else net_set["grad_clip"])
@@ -348,30 +388,149 @@ def map_mask(args, task, raw):
     return index_to_onehot(raw[..., 0], task["num_classes"])
 
 
-def make_step(model, optimizer, args, task, device, ds_stats=None):
+def uses_vcdr(args) -> bool:
+    return args.task_name == "fundus" and args.vcdr_estim_scheme != "none"
+
+
+class ReconHead(nn.Module):
+    """The 1x1 conv from the DA feature to the 3 image channels (JAX
+    train2d.py:552-559; reference train2d.py:923-926), in fp32."""
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, 3, 1)
+
+    def forward(self, x):
+        w = self.conv.weight[:, :, 0, 0]
+        return torch.matmul(x.float(), w.t()) + self.conv.bias
+
+
+def build_aux_modules(args, task, cfg) -> nn.ModuleDict:
+    """The modules trained beside the net (JAX train2d.py:512-587), each
+    initialised from its own seed: the discriminator (--adv; no gradient
+    reversal under --adda) on the DA feature's channels, the recon head
+    (--reconweight), the vCDR estimators (--vcdr on fundus: the
+    discriminator CNN on the predicted probabilities)."""
+    aux = nn.ModuleDict()
+    if args.adversarial_mode == "mask":
+        ch = task["num_classes"]
+    else:
+        ch = 64 if args.net == "unet-scratch" else cfg.trans_out_dim
+    if args.adversarial_mode:
+        aux["discriminator"] = init_with_reference_schemes(
+            Discriminator(ch, num_classes=1, do_revgrad=not args.adda),
+            seed=args.seed + 7)
+    if args.recon_w > 0:
+        aux["recon"] = init_with_reference_schemes(ReconHead(ch),
+                                                   seed=args.seed + 8)
+    if uses_vcdr(args):
+        for i, name in enumerate(VCDR_NAMES[args.vcdr_estim_scheme]):
+            aux[name] = init_with_reference_schemes(
+                Discriminator(task["num_classes"], num_classes=1,
+                              do_revgrad=False), seed=args.seed + 9 + i)
+    return aux
+
+
+def build_train_optimizer(wrapped, net, args):
+    """The optimizer of JAX train2d (:454-510) over ``wrapped`` (the net,
+    or a DA run's net + aux modules), and the global clip before it.
+    --tunebn: none (every parameter frozen). --polyformer: one BertAdam
+    group without weight decay over the parameters
+    ``polyformer_param_labels`` selects (their own 0.05 clip, no global
+    one), the rest frozen; under DA the labels see the wrapped names, as
+    JAX's do. Otherwise BertAdam over the reference's groups with the
+    global clip. Frozen parameters take no gradient."""
+    lr, decay, clip = optimizer_settings(args)
+    warmup_ratio = min(args.lr_warmup_steps, args.maxiter // 2) / args.maxiter
+    if args.tune_bn_only:
+        wrapped.requires_grad_(False)
+        return None, 0.0
+    if args.polyformer_mode:
+        opt_mode = (args.poly_source_opt if args.polyformer_mode == "source"
+                    else args.poly_target_opt)
+        bn = {n.rsplit(".", 1)[0] for n, _ in net.named_buffers()
+              if n.endswith("running_mean")}
+        labels = polyformer_param_labels(
+            [n for n, _ in wrapped.named_parameters()], opt_mode, bn,
+            args.bn_opt_scheme)
+        trained = []
+        for n, p in wrapped.named_parameters():
+            p.requires_grad_(labels[n])
+            if labels[n]:
+                trained.append(p)
+        if not trained:
+            return None, 0.0
+        return BertAdam([dict(params=trained, lr=lr, weight_decay=0.0)],
+                        lr=lr, warmup=warmup_ratio,
+                        t_total=args.maxiter), 0.0
+    return build_optimizer(wrapped, lr=lr, decay=decay,
+                           t_total=args.maxiter,
+                           warmup_ratio=warmup_ratio), clip
+
+
+def load_contrast_bank(args, task, device):
+    """(bank [K, R, C], valid [K, R], class weights [K]) on ``device`` from
+    --reffeatcp (JAX train2d.py:592-606): the BCE's pos-weights rescaled to
+    sum to K - 1."""
+    sel = (tuple(int(v) for v in args.selected_ref_classes.split(","))
+           if args.selected_ref_classes else None)
+    bank, valid = load_reference_features(
+        args.ref_feat_cp_path, args.num_ref_features, task["num_classes"],
+        sel, seed=args.seed)
+    bw = np.asarray(task["bce_weight"], np.float32)
+    bw = bw * (task["num_classes"] - 1) / bw.sum()
+    return tuple(torch.as_tensor(a, device=device) for a in (bank, valid, bw))
+
+
+def _da_feature(model):
+    """JAX train2d's ``_da_feature`` (:444-462): the U-Net's features
+    before ``outc``; Segtran2d's last translayer tokens on the token grid,
+    or the input FPN's output where it keeps none (--remat, --gbias)."""
+    for name in ("pre_outc_feat", "last_layer_feat", "in_fpn_feat"):
+        feat = getattr(model, name, None)
+        if feat is not None:
+            return feat
+    raise ValueError("the model kept no DA feature (keep_features off)")
+
+
+def _drop_features(model):
+    for name in ("pre_outc_feat", "last_layer_feat", "in_fpn_feat"):
+        if getattr(model, name, None) is not None:
+            setattr(model, name, None)
+
+
+def _diag_metrics(model):
+    """attn_max / attn_avg / attn_clamped of --attndiag (none after a
+    flash forward, which keeps no diagnostics, as in JAX)."""
+    diag = collect_attn_diag(model)
+    if diag is None:
+        return {}
+    return {"attn_max": diag[0], "attn_avg": diag[1],
+            "attn_clamped": diag[2]}
+
+
+def make_step(model, optimizer, args, task, device, ds_stats=None,
+              aux=None, grad_clip=None, contrast_bank=None):
     """step(batch {'image' [B, H, W, 3] float in [0, 1], 'mask' [B, H, W,
-    C] raw uint8, and with ``ds_stats`` 'ds_idx' [B]} on the device,
-    draws=None) -> metrics. The augmentation draws come from a generator
-    on the device seeded with --seed (which the model's dropout shares)
-    unless ``draws`` (``data/augment.draw_2d``) gives them. ``ds_stats``:
-    (mean [D, C], std [D, C]) of a multi-dataset run, indexed per sample
-    by 'ds_idx' (reference train_util.py:100-106)."""
+    C] raw uint8, with ``ds_stats`` 'ds_idx' [B], with a discriminator
+    'source_image' [B_s, H, W, 3]} on the device, draws=None) -> metrics.
+    The augmentation draws come from a generator on the device seeded with
+    --seed (which the model's dropout shares) unless ``draws``
+    (``data/augment.draw_2d``) gives them. ``ds_stats``: (mean [D, C], std
+    [D, C]) of a multi-dataset run, indexed per sample by 'ds_idx'
+    (reference train_util.py:100-106). ``aux``: a DA run's modules
+    (``build_aux_modules``); ``grad_clip``: the global clip (default the
+    --net's); ``contrast_bank``: ``load_contrast_bank``'s. With any of
+    them or --attnconsist the step is JAX ``make_full_step``'s with its
+    auxiliary losses (``_full_step``), else the supervised one."""
     mean, std = load_stats(args, dataset_names(args, task)[0])
     cfg = aug_config(args, mean, std)
     patch = tuple(task["patch_size"])
     loss_fn = make_loss_fn(task["num_classes"], task["bce_weight"],
                            dice_w=args.max_dice_w,
                            focus_class=args.focus_class)
-    if args.supervised_w != 1.0:
-        unscaled = loss_fn
-
-        def loss_fn(logits, mask):
-            loss, metrics = unscaled(logits, mask)
-            loss = args.supervised_w * loss
-            return loss, dict(metrics, loss=loss)
-    base = make_train_step(model, optimizer, loss_fn,
-                           grad_accum=max(1, args.grad_accum),
-                           grad_clip=optimizer_settings(args)[2])
+    grad_clip = optimizer_settings(args)[2] if grad_clip is None \
+        else grad_clip
     gen = torch.Generator(device=device).manual_seed(args.seed)
     set_dropout_generator(model, gen)
     if ds_stats is not None:
@@ -389,10 +548,183 @@ def make_step(model, optimizer, args, task, device, ds_stats=None):
         image, mask = augment_batch_2d(image, mask, draws, cfg, mu, sd)
         return {"image": resize_linear(image, patch), "mask": mask}
 
-    def step(batch, draws=None):
-        return base(augment(batch, draws))
+    aux = nn.ModuleDict() if aux is None else aux
+    if len(aux) or contrast_bank is not None or args.use_attn_consist_loss:
+        if args.grad_accum > 1:
+            # the source batch and the bank are whole-batch structures and
+            # the consistency loss is batch-joint (one count, the cap)
+            raise ValueError("--gradaccum > 1 is supported for the "
+                             "supervised path only (no DA/recon/vCDR/"
+                             "contrast/attnconsist)")
+        src_stats = (load_stats(args, args.source_ds_name)
+                     if "discriminator" in aux else None)
+        step = _full_step(model, aux, optimizer, loss_fn, args, task,
+                          augment, gen, cfg, patch, src_stats, contrast_bank,
+                          grad_clip)
+    else:
+        if args.supervised_w != 1.0:
+            unscaled = loss_fn
+
+            def loss_fn(logits, mask):
+                loss, metrics = unscaled(logits, mask)
+                loss = args.supervised_w * loss
+                return loss, dict(metrics, loss=loss)
+        diag = ((lambda m, mask: (0.0, _diag_metrics(m)))
+                if args.attn_diag_cycles > 0 else None)
+        base = make_train_step(model, optimizer, loss_fn,
+                               grad_accum=max(1, args.grad_accum),
+                               grad_clip=grad_clip, aux_loss_fn=diag)
+
+        def step(batch, draws=None):
+            return base(augment(batch, draws))
 
     step.augment = augment
+    return step
+
+
+def _full_step(model, aux, optimizer, loss_fn, args, task, augment, gen,
+               aug_cfg, patch, src_stats, contrast_bank, grad_clip):
+    """JAX ``make_full_step`` with its auxiliary losses (cli/train2d.py
+    :465-770 of the JAX package), in its order: the segmentation loss, the
+    attention diagnostics, --attnconsist, the contrast losses, the
+    --supweight scale, recon, the discriminator on a source pass (whose
+    running-statistics updates are dropped), the vCDR estimators; one
+    backward, the global clip, one update. step(batch, draws=None,
+    src_draws=None, neg_offsets=None): the latter two stand in for the
+    source batch's augmentation draws and --negcontrast's class offsets
+    [K] in [1, K)."""
+    disc = aux["discriminator"] if "discriminator" in aux else None
+    recon = aux["recon"] if "recon" in aux else None
+    vcdr = [aux[n] for n in VCDR_NAMES.get(args.vcdr_estim_scheme, ())
+            if n in aux]
+    feat_mode = args.adversarial_mode == "feat"
+    keep = ((disc is not None and feat_mode) or recon is not None
+            or contrast_bank is not None)
+    params = list(model.parameters()) + list(aux.parameters())
+    sup_w = args.supervised_w
+    count = [0]
+
+    def frozen_disc_call(v):
+        # the generator's ADDA loss: the discriminator's parameters
+        # detached, its running statistics its own
+        return torch.func.functional_call(
+            disc, {n: p.detach() for n, p in disc.named_parameters()}, (v,))
+
+    def step(batch, draws=None, src_draws=None, neg_offsets=None):
+        aug = augment(batch, draws)
+        image, mask = aug["image"], aug["mask"]
+        model.train()
+        aux.train()
+        model.zero_grad(set_to_none=True)
+        aux.zero_grad(set_to_none=True)
+        model.keep_features = keep
+        try:
+            logits = model(image)
+            loss, metrics = loss_fn(logits, mask)
+            if args.attn_diag_cycles > 0:
+                metrics.update(_diag_metrics(model))
+            if args.use_attn_consist_loss:
+                scores = collect_attn_scores(model)
+                if scores:
+                    ac = attention_consistency_loss(scores, mask,
+                                                    model.token_grid)
+                    loss = loss + args.attn_consist_w * ac
+                    metrics["attn_consist_loss"] = ac
+            feat_t = _da_feature(model) if keep else None
+            if contrast_bank is not None:
+                bank, valid, cls_w = contrast_bank
+                k = bank.shape[0]
+                if args.task_name == "fundus":
+                    ex_mask = torch.cat([mask[..., :1],
+                                         mask[..., 1:2] * (1 - mask[..., 2:3]),
+                                         mask[..., 2:3]], -1)
+                else:
+                    ex_mask = mask
+                if args.do_neg_contrast and neg_offsets is None:
+                    neg_offsets = torch.randint(1, k, (k,), generator=gen,
+                                                device=gen.device)
+                pos, neg = calc_contrast_losses(
+                    feat_t, ex_mask, bank, valid, cls_w,
+                    neg_offsets=neg_offsets,
+                    do_neg_contrast=args.do_neg_contrast)
+                loss = loss + args.contrast_loss_w * (pos - neg)
+                metrics["contrast_pos_loss"] = pos
+                if args.do_neg_contrast:
+                    metrics["contrast_neg_loss"] = neg
+            if sup_w != 1.0:
+                loss = sup_w * loss
+            if recon is not None:
+                rl = recon_loss(recon, feat_t, image)
+                loss = loss + args.recon_w * rl
+                metrics["recon_loss"] = rl
+            if disc is not None:
+                src = batch["source_image"]
+                src_draws = (draw_2d(src.shape[0], aug_cfg, gen)
+                             if src_draws is None else src_draws)
+                src, _ = augment_batch_2d(
+                    src, torch.zeros(src.shape[:3] + (1,), device=src.device),
+                    src_draws, aug_cfg, *src_stats)
+                # JAX keeps the target pass's running statistics
+                with frozen_running_stats(model):
+                    src_logits = model(resize_linear(src, patch))
+                if feat_mode:
+                    feat_s = _da_feature(model)
+                else:
+                    feat_s = torch.sigmoid(src_logits)
+                    feat_t = torch.sigmoid(logits)
+                if args.adda:
+                    # each call starts from the pre-step statistics; the
+                    # last one's are kept
+                    with frozen_running_stats(disc):
+                        d_loss = domain_adversarial_loss(
+                            disc, feat_s.detach(), feat_t.detach())
+                    g_loss = domain_adversarial_loss(frozen_disc_call,
+                                                     feat_t, feat_s)
+                    loss = loss + d_loss + args.domain_loss_w * g_loss
+                    metrics["disc_loss"] = d_loss
+                    metrics["domain_loss"] = g_loss
+                else:
+                    dl = domain_adversarial_loss(disc, feat_s, feat_t)
+                    loss = loss + args.domain_loss_w * dl
+                    metrics["domain_loss"] = dl
+            if vcdr:
+                probs = torch.sigmoid(resize_linear(
+                    logits, tuple(mask.shape[1:3])).float())
+                calls = []
+
+                def estimate(x):
+                    """reference estimate_vcdr (train2d.py:655-664); the
+                    running statistics move on the step's last call."""
+                    ctx = (frozen_running_stats(aux) if not calls
+                           else contextlib.nullcontext())
+                    calls.append(x)
+                    with ctx:
+                        preds = [m(x)[:, 0] for m in vcdr]
+                    raw = (preds[0] / (preds[1] + 1e-6) if len(preds) == 2
+                           else preds[0])
+                    return torch.sigmoid(raw)
+
+                vl = vcdr_estimation_losses(estimate, probs, mask)
+                on_estim = float(count[0] >= args.vcdr_estim_start)
+                on_net = float(count[0] >= args.vcdr_net_start)
+                vcdr_loss = on_estim * (vl["vcdr_estim_loss"]
+                                        + on_net * vl["vcdr_net_loss"])
+                loss = loss + sup_w * args.vcdr_w * vcdr_loss
+                metrics["vcdr_loss"] = vcdr_loss
+                metrics.update(vl)
+            metrics["loss"] = loss
+        finally:
+            model.keep_features = False
+            _drop_features(model)
+        if loss.requires_grad:
+            loss.backward()
+        if grad_clip and grad_clip > 0:
+            clip_by_global_norm_(params, grad_clip)
+        if optimizer is not None:
+            optimizer.step()
+        count[0] += 1
+        return {k: v.detach() for k, v in metrics.items()}
+
     return step
 
 
@@ -423,12 +755,36 @@ def _summary_writer(log_dir):
     return SummaryWriter(log_dir)
 
 
+def _with_source(it, source, args):
+    """Each batch of ``it`` with a 'source_image' batch of --sourcebs from
+    the source dataset, whose epochs restart with each pass over the
+    target's (seed --seed + 5; JAX train2d.py:654-676)."""
+    bs = args.source_batch_size if args.source_batch_size > 0 \
+        else args.batch_size
+    epoch = 0
+    src_it = batch_iterator(source, bs, epoch, seed=args.seed + 5,
+                            keys=("image",))
+    for batch in it:
+        try:
+            src = next(src_it)
+        except StopIteration:
+            epoch += 1
+            src_it = batch_iterator(source, bs, epoch, seed=args.seed + 5,
+                                    keys=("image",))
+            src = next(src_it)
+        batch["source_image"] = src["image"]
+        yield batch
+
+
 def train(model, dataset, args, task, device, cfg=None, ckpt_dir=None,
-          log=None):
+          log=None, source_dataset=None):
     """Train ``model`` (initialised, on ``device``) on any dataset of the
     ``data/datasets2d.py`` schema for --maxiter steps; returns the
     checkpoint directory. A multi-``--ds`` run normalises each sample with
-    its dataset's table through the samples' 'ds_idx'."""
+    its dataset's table through the samples' 'ds_idx'. With --adv the
+    source batches come from ``source_dataset`` (default: --sourceds
+    under --dataroot); a DA run's checkpoints hold the net with its aux
+    modules."""
     ckpt_dir = ckpt_dir or job_dir(args, task)
     log = log or _logger(ckpt_dir)
     if args.grad_accum > 1 and args.batch_size % args.grad_accum:
@@ -441,33 +797,59 @@ def train(model, dataset, args, task, device, cfg=None, ckpt_dir=None,
         ds_stats = ([s[0] for s in stats], [s[1] for s in stats])
         for n, (m, s) in zip(names, stats):
             log.info("normalization stats for %s: mean=%s std=%s", n, m, s)
-    lr, decay, _ = optimizer_settings(args)
-    warmup_ratio = min(args.lr_warmup_steps, args.maxiter // 2) / args.maxiter
-    optimizer = build_optimizer(model, lr=lr, decay=decay,
-                                t_total=args.maxiter,
-                                warmup_ratio=warmup_ratio)
-    step = make_step(model, optimizer, args, task, device, ds_stats)
+    aux = build_aux_modules(args, task, cfg).to(device)
+    wrapped = nn.ModuleDict({"net": model, **aux}) if len(aux) else model
+    optimizer, clip = build_train_optimizer(wrapped, model, args)
+    contrast_bank = None
+    if args.ref_feat_cp_path:
+        contrast_bank = load_contrast_bank(args, task, device)
+        log.info("reference feature bank: %s, %d/%d valid",
+                 tuple(contrast_bank[0].shape), int(contrast_bank[1].sum()),
+                 contrast_bank[1].numel())
+    if "discriminator" in aux:
+        if source_dataset is None:
+            source_dataset = build_source_dataset(args, task)
+        log.info("%d source-domain samples for adversarial DA",
+                 len(source_dataset))
+        log.info("source-domain stats (%s): mean=%s std=%s",
+                 args.source_ds_name, *load_stats(args, args.source_ds_name))
+    step = make_step(model, optimizer, args, task, device, ds_stats, aux,
+                     clip, contrast_bank)
     keys = ("image", "mask") + (("ds_idx",) if ds_stats else ())
     writer = _summary_writer(os.path.join(ckpt_dir, "log"))
     meters = AverageMeters()
     iter_num, epoch, t0 = 0, 0, time.time()
+    diag_max, diag_clamp = 0.0, 0
     try:
         while iter_num < args.maxiter:
-            loader = DevicePrefetcher(batch_iterator(
-                dataset, args.batch_size, epoch, seed=args.seed, keys=keys),
-                device)
+            it = batch_iterator(dataset, args.batch_size, epoch,
+                                seed=args.seed, keys=keys)
+            if "discriminator" in aux:
+                it = _with_source(it, source_dataset, args)
+            loader = DevicePrefetcher(it, device)
             try:
                 for batch in loader:
                     metrics = step(batch)
                     iter_num += 1
                     values = torch.stack(list(metrics.values())).tolist()
-                    for k, v in zip(metrics, values):
+                    values = dict(zip(metrics, values))
+                    for k, v in values.items():
                         meters.update(k, v)
                         if writer is not None:
                             writer.add_scalar(k, v, iter_num)
                     if iter_num == 1:
                         log.info("first step done in %.1fs",
                                  time.time() - t0)
+                    if args.attn_diag_cycles > 0 and "attn_max" in values:
+                        diag_max = max(diag_max, values["attn_max"])
+                        diag_clamp += int(values["attn_clamped"])
+                        if iter_num % args.attn_diag_cycles == 0:
+                            # the reference's periodic line and reset
+                            # (segtran_shared.py:582-587)
+                            log.info("max-attn: %.2f, avg-attn: %.2f, "
+                                     "clamp-count: %d", diag_max,
+                                     values["attn_avg"], diag_clamp)
+                            diag_max, diag_clamp = 0.0, 0
                     if iter_num % args.logiter == 0:
                         log.info("iter %d (%.2f it/s): %s", iter_num,
                                  iter_num / (time.time() - t0),
@@ -477,7 +859,7 @@ def train(model, dataset, args, task, device, cfg=None, ckpt_dir=None,
                     if (iter_num % args.saveiter == 0
                             or iter_num >= args.maxiter):
                         save_checkpoint(ckpt_dir, iter_num,
-                                        model.state_dict(), cfg)
+                                        wrapped.state_dict(), cfg)
                         log.info("saved iter_%d", iter_num)
                     if iter_num >= args.maxiter:
                         break
@@ -491,12 +873,27 @@ def train(model, dataset, args, task, device, cfg=None, ckpt_dir=None,
     return ckpt_dir
 
 
+def _dataset_class(task):
+    from ..data.datasets2d import SegCrop, SegWhole
+    return {"SegCrop": SegCrop, "SegWhole": SegWhole}[task["ds_class"]]
+
+
+def build_source_dataset(args, task):
+    """The --sourceds dataset of adversarial DA (JAX train2d.py:537-542):
+    split 'all', the task's frame size."""
+    return _dataset_class(task)(
+        base_dir=os.path.join(args.dataroot, args.task_name,
+                              args.source_ds_name),
+        split="all", mask_num_classes=task["num_classes"],
+        binarize=task.get("binarize", False),
+        out_size=task["orig_input_size"], seed=args.seed)
+
+
 def build_datasets(args, task):
     """One SegCrop/SegWhole per --ds name; a ConcatDataset of them for
     more than one."""
-    from ..data.datasets2d import ConcatDataset, SegCrop, SegWhole
-    ds_cls = {"SegCrop": SegCrop, "SegWhole": SegWhole}[task["ds_class"]]
-    datasets = [ds_cls(
+    from ..data.datasets2d import ConcatDataset
+    datasets = [_dataset_class(task)(
         base_dir=os.path.join(args.dataroot, args.task_name, name),
         split=args.split, sample_num=args.sample_num,
         mask_num_classes=task["num_classes"],
@@ -512,6 +909,20 @@ def build_datasets(args, task):
     return ConcatDataset(datasets) if len(datasets) > 1 else datasets[0]
 
 
+def load_into(model, sd, log):
+    """The net's part of a checkpoint into ``model`` (a DA run's too); as
+    JAX's ``merge_params``, a parameter the checkpoint lacks keeps its
+    fresh value (a --polyformer source checkpoint has no K for a target
+    run) and one the model lacks is dropped; both are logged."""
+    res = model.load_state_dict(net_state_dict(sd), strict=False)
+    if res.missing_keys:
+        log.info("kept the fresh values of %d tensor(s) the checkpoint "
+                 "lacks: %s", len(res.missing_keys), res.missing_keys)
+    if res.unexpected_keys:
+        log.info("dropped %d checkpoint tensor(s) the model lacks: %s",
+                 len(res.unexpected_keys), res.unexpected_keys)
+
+
 def main(argv=None):
     """Returns the checkpoint directory."""
     args = build_argparser().parse_args(argv)
@@ -520,6 +931,13 @@ def main(argv=None):
     if args.grad_accum > 1 and args.batch_size % args.grad_accum:
         raise ValueError(f"--gradaccum {args.grad_accum} must divide --bs "
                          f"{args.batch_size}")
+    if args.grad_accum > 1 and args.use_attn_consist_loss:
+        raise ValueError("--gradaccum > 1 is incompatible with "
+                         "--attnconsist: the 2D attention-consistency loss "
+                         "is batch-joint (shared inconsistent-count "
+                         "denominator), so microbatching changes its value")
+    if args.tune_bn_only and not args.checkpoint_path:
+        raise SystemExit("--tunebn requires --cp <checkpoint to adapt>")
     task = task_settings(args)
     ckpt_dir = job_dir(args, task)
     log = _logger(ckpt_dir)
@@ -531,7 +949,7 @@ def main(argv=None):
     if args.checkpoint_path:
         path = args.checkpoint_path
         path = path[:-3] if path.endswith(".pt") else path
-        model.load_state_dict(load_checkpoint(path, cfg), strict=True)
+        load_into(model, load_checkpoint(path, cfg), log)
         log.info("loaded checkpoint %s", args.checkpoint_path)
     return train(model.to(device), dataset, args, task, device, cfg,
                  ckpt_dir, log)

@@ -80,6 +80,15 @@ class TransformerConfig:
     # keep each layer's attention scores for the trainer's
     # attention-consistency loss (train/da.py); turns the flash path off
     use_attn_consist_loss: bool = False
+    # the mince (multi-scale, channel-partitioned) layers of the
+    # non-squeezed encoder (nn/mince.py); the squeezed encoder ignores them
+    use_mince_transformer: bool = False
+    mince_scales: Any = None               # e.g. (2, 1)
+    mince_channel_props: Any = None        # e.g. (1.0, 1.0)
+    # keep each non-fused attention's (max, positive mean, clamped) score
+    # statistics for train2d's --attndiag line (reference
+    # segtran_shared.py:569-587)
+    attn_diag: bool = False
     # the reference init passes (nn/init.py)
     base_initializer_range: float = 0.02
     query_idbias_scale: float = 10.0

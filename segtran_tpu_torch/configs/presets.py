@@ -1,17 +1,19 @@
 """Per-task and per-net defaults (reference train2d.py:245-385 and
-train3d.py:218-255; the fundus, polyp, oct, brats, atria and msd entries
-and ``--net segtran``) and the CLI-override rule ``get_default``
+train3d.py:218-255; the fundus, polyp, oct, brats, atria and msd entries,
+``--net segtran`` and ``unet-scratch``) and the CLI-override rule ``get_default``
 (reference common_util.py:6-13)."""
 from __future__ import annotations
 
 from typing import Any, Dict
 
 NET_SETTINGS: Dict[str, Dict[str, Any]] = {
+    "unet-like": {"opt": "adamw", "lr": 1e-3, "decay": 1e-4, "grad_clip": -1},
     "segtran": {"opt": "adamw", "lr": 2e-4, "decay": 1e-4, "grad_clip": 0.1,
                 # keyed by in_fpn_layers string
                 "dropout_prob": {"234": 0.3, "34": 0.2, "4": 0.2},
                 "num_modes": {"234": 2, "34": 4, "4": 4}},
 }
+NET_SETTINGS["unet-scratch"] = NET_SETTINGS["unet-like"]
 
 TASK_SETTINGS: Dict[str, Dict[str, Any]] = {
     "fundus": {

@@ -24,6 +24,17 @@ The reverse of the JAX package's torch importer (rules of
   ``[O, c*G, 3, 3]`` like any conv (flax infers the stem's input
   channels, the port's ``EfficientNetFeatures`` takes ``in_channels``).
 
+* the DA slice by the same rules: the U-Net (``inc/double_conv_0`` ->
+  ``inc.double_conv.0``), the discriminator's ``model_{idx}`` scopes in
+  both index layouts (``model_1`` first with gradient reversal,
+  ``model_0`` under ADDA) and its ``tail_1`` Dense, the Polyformer's
+  ``attractors`` and attention, the mince layers' plain-Dense
+  ``query`` / ``key`` (the Dense rule; JAX names them as ``_QKDense``
+  does), the recon head's 1x1 conv; and a DA run's wrapped tree
+  ``{"net", "discriminator", "recon", "vcdr_estim" | "vc_estim" +
+  "vd_estim"}``, whose top-level names become key prefixes
+  (``net.inc...``), the layout ``train/checkpoint.py`` saves.
+
 Every leaf must map; a leaf no rule covers raises.
 """
 from __future__ import annotations

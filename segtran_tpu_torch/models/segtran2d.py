@@ -16,6 +16,13 @@ out-FPN tail with dropout before ``out_conv``. ``cfg.remat`` recomputes the
 backbone and the encoder in the backward, ``cfg.remat_blocks`` each
 backbone block (``nn/remat.py``).
 
+Each forward records its token grid ``(h2, w2)`` in ``token_grid``. With
+``keep_features`` it also keeps the input FPN's output ``in_fpn_feat``
+[B, h2, w2, C] and, unless ``cfg.remat`` (JAX sows the layer outputs only
+without it), the last translayer's tokens on that grid in
+``last_layer_feat``: the features the DA losses read (JAX train2d's
+``_da_feature``).
+
 Counterpart of ``segtran_tpu/models/segtran2d.py`` (reference
 code/networks/segtran2d.py: forward :314-438, in_fpn_forward :235-271,
 out_fpn_forward :273-312, get_mask :229-233). Module names follow the
@@ -39,7 +46,7 @@ from ..nn.encoder import SegtranFusionEncoder
 from ..nn.heads import Conv1x1Params, apply_pointwise, compose_1x1
 from ..nn.poscode import gen_all_indices
 from ..nn.remat import remat
-from ..ops.norm import LayerNorm, batch_norm_train
+from ..ops.norm import BatchNorm, LayerNorm
 from ..ops.resize import avg_pool_nhwc, resize_linear
 
 
@@ -55,29 +62,13 @@ class _GroupNorm(nn.GroupNorm):
         return y.movedim(1, -1).to(dtype)
 
 
-class _BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype)`` on
-    channels-last tensors (JAX segtran2d.py:35-38): statistics and the
-    normalize in fp32, result in the compute dtype; in training the batch's
-    statistics (``ops/norm.batch_norm_train``, which moves the running ones
-    with the biased variance), in eval the running ones."""
-
-    def __init__(self, feats: int, eps: float = 1e-5, momentum: float = 0.9):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(feats))
-        self.bias = nn.Parameter(torch.zeros(feats))
-        self.register_buffer("running_mean", torch.zeros(feats))
-        self.register_buffer("running_var", torch.ones(feats))
-        self.eps, self.momentum = eps, momentum
+class _BatchNorm(BatchNorm):
+    """``ops.norm.BatchNorm`` (flax ``nn.BatchNorm(momentum=0.9,
+    epsilon=1e-5, dtype)``, JAX segtran2d.py:35-38) on channels-last
+    tensors."""
 
     def run(self, x, dtype):
-        if self.training:
-            return batch_norm_train(x.movedim(-1, 1), self, self.momentum,
-                                    dtype).movedim(1, -1)
-        mul = torch.rsqrt(self.running_var.float() + self.eps) \
-            * self.weight.float()
-        return ((x.float() - self.running_mean.float()) * mul
-                + self.bias.float()).to(dtype)
+        return self(x.movedim(-1, 1), dtype).movedim(1, -1)
 
 
 def _conv1x1(x, conv: nn.Module, dtype):
@@ -141,6 +132,8 @@ class Segtran2d(nn.Module):
             self.out_conv = nn.ConvTranspose2d(cfg.trans_out_dim,
                                                cfg.num_classes, 2, stride=2)
         self.out_fpn_dropout = Dropout(cfg.hidden_dropout_prob)
+        self.keep_features = False
+        self.token_grid = self.in_fpn_feat = self.last_layer_feat = None
 
     def _norm_name(self, prefix: str, layer: int) -> str:
         use_bn = (self.cfg.in_fpn_use_bn if prefix == "in"
@@ -199,6 +192,9 @@ class Segtran2d(nn.Module):
         if hasattr(self, "in_fpn_bridgeconv"):
             curr = _conv1x1(curr, self.in_fpn_bridgeconv, dt)
         h2, w2 = curr.shape[1], curr.shape[2]
+        self.token_grid = (h2, w2)
+        self.in_fpn_feat = curr if self.keep_features else None
+        self.last_layer_feat = None
         vfeat_fpn = curr.reshape(b, h2 * w2, cfg.trans_in_dim)
         vmask = nonzero_mask.reshape(b, h2 * w2)
         if mod:
@@ -224,6 +220,8 @@ class Segtran2d(nn.Module):
             vfeat_fused = (remat(self.voxel_fusion, *enc_args) if rematted
                            else self.voxel_fusion(*enc_args))
         vfeat_fused = vfeat_fused.reshape(b0, h2, w2, cfg.trans_out_dim)
+        if self.keep_features and not cfg.use_global_bias and not cfg.remat:
+            self.last_layer_feat = vfeat_fused
 
         if mod:
             # the pyramid max-fused over the modalities too (JAX

@@ -113,6 +113,7 @@ class TransLayerSpec:
     hidden_dropout_prob: float = 0.1
     use_fused_attention: bool = False
     use_fused_epilogue: bool = False
+    keep_attn_diag: bool = False
     ln_eps: float = 1e-12
     dtype: Any = torch.float32
 
@@ -434,13 +435,17 @@ class CrossAttFeatTrans(nn.Module):
     """Multi-mode QK cross-attention feeding an ExpandedFeatTrans, or a
     MultiHeadFeatTrans with ``ablate_multihead`` (segtran_shared.py:478-610);
     the non-fused path with the q/k folds. ``keep_attn_scores`` keeps each
-    call's clamped, biased scores in ``attention_scores``."""
+    call's clamped, biased scores in ``attention_scores``; the spec's
+    ``keep_attn_diag`` keeps the non-fused path's [max, positive mean,
+    clamped] of the unclamped scores in ``attn_diag`` (None after a flash
+    call, which keeps nothing, as in JAX)."""
 
     def __init__(self, spec: TransLayerSpec, keep_attn_scores: bool = False):
         super().__init__()
         s = self.spec = spec
         self.keep_attn_scores = keep_attn_scores
         self.attention_scores = None
+        self.attn_diag = None
         self.query = _QKDense(s.in_feat_dim, s.att_size_allmode,
                               bias=s.qk_have_bias)
         if s.tie_qk_scheme != "shared":
@@ -462,6 +467,7 @@ class CrossAttFeatTrans(nn.Module):
         u2, c_k = in_key.shape[1], in_key.shape[2]
         m, amd = s.num_modes, s.attention_mode_dim
         query, key = self.query, self._key()
+        self.attn_diag = None
 
         def proj_q():
             return query(in_query, dt).reshape(b, u1, m, amd).permute(0, 2, 1, 3)
@@ -499,7 +505,16 @@ class CrossAttFeatTrans(nn.Module):
                 scores = scores + torch.einsum("bmqd,md->bmq", q, bk)[..., None]
         else:
             scores = torch.matmul(proj_q(), proj_k().transpose(-1, -2))
-        scores = _clamp_if_exceeds(scores / math.sqrt(amd), s.attn_clip)
+        scores = scores / math.sqrt(amd)
+        if s.keep_attn_diag:
+            # the stats behind the reference's every-500-calls print
+            # (segtran_shared.py:569-587)
+            sg = scores.detach().float()
+            cur_max = sg.max()
+            cur_avg = sg.sum() / (sg > 0).sum().clamp(min=1)
+            self.attn_diag = torch.stack(
+                [cur_max, cur_avg, (cur_max > s.attn_clip).float()])
+        scores = _clamp_if_exceeds(scores, s.attn_clip)
         if pos_biases is not None:
             scores = scores + s.pos_code_weight * pos_biases.to(dt)
         if self.keep_attn_scores:

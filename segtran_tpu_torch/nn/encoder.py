@@ -4,10 +4,12 @@ of ``segtran_tpu/nn/encoder.py``).
 Per layer i: vfeat -> affine LayerNorm -> (+ poscode[..., :dim_i]) ->
 non-affine LayerNorm -> dropout (layer 0 only) -> * mask ->
 SqueezedAttFeatTrans, or with ``use_squeezed_transformer=False`` one
-CrossAttFeatTrans attending the N tokens to themselves. The code is
+CrossAttFeatTrans attending the N tokens to themselves (a
+CrossMinceAttFeatTrans with ``use_mince_transformer``). The code is
 computed once at trans_in_dim and sliced per layer; a ``bias`` code is
 not added to the features but passed to every layer, whose scores it
-biases (non-squeezed layers only, as in the reference). With
+biases (non-squeezed layers only, as in the reference; mince layers take
+one bias per scale from the per-scale encoders ``pos_code_layers``). With
 ``use_attn_consist_loss`` every attention keeps its scores of the last
 forward on its module (``attention_scores``).
 """
@@ -22,6 +24,7 @@ from ..configs.base import TransformerConfig
 from ..ops.norm import LayerNorm
 from .attention import (CrossAttFeatTrans, Dropout, SqueezedAttFeatTrans,
                         TransLayerSpec)
+from .mince import CrossMinceAttFeatTrans, scaled_shape
 from .poscode import SegtranPosEncoder
 
 
@@ -49,6 +52,7 @@ def layer_spec_from_config(cfg: TransformerConfig, layer_i: int) -> TransLayerSp
         reassociate=cfg.reassociate,
         use_fused_attention=cfg.use_fused_attention,
         use_fused_epilogue=cfg.use_fused_epilogue,
+        keep_attn_diag=cfg.attn_diag,
         ln_eps=cfg.ln_eps,
         dtype=cfg.dtype,
     )
@@ -88,6 +92,20 @@ class SegtranFusionEncoder(nn.Module):
                                      has_FFN_in_squeeze=cfg.has_FFN_in_squeeze,
                                      keep_attn_scores=keep)
                 for i in range(n))
+        elif cfg.use_mince_transformer:
+            self.translayers = nn.ModuleList(
+                CrossMinceAttFeatTrans(layer_spec_from_config(cfg, i),
+                                       cfg.mince_scales,
+                                       cfg.mince_channel_props,
+                                       keep_attn_scores=keep)
+                for i in range(n))
+            if cfg.pos_code_type == "bias":
+                # shared by all layers (reference segtran_shared.py:856-861)
+                self.pos_code_layers = nn.ModuleList(
+                    SegtranPosEncoder("bias", cfg.pos_dim, cfg.trans_in_dim,
+                                      pos_bias_radius=cfg.pos_bias_radius,
+                                      ln_eps=cfg.ln_eps, dtype=cfg.dtype)
+                    for _ in cfg.mince_scales)
         else:
             self.translayers = nn.ModuleList(
                 CrossAttFeatTrans(layer_spec_from_config(cfg, i),
@@ -104,6 +122,14 @@ class SegtranFusionEncoder(nn.Module):
         # a bias code biases the scores; it is added to the features at
         # weight 0, so they skip it (reference segtran_shared.py:846-850)
         pos_biases = pos_code if cfg.pos_code_type == "bias" else None
+        mince = (not cfg.use_squeezed_transformer
+                 and cfg.use_mince_transformer)
+        if mince:
+            mince_pos = None
+            if hasattr(self, "pos_code_layers"):
+                mince_pos = [enc(scaled_shape(spatial_shape, sc), voxels_pos)
+                             for enc, sc in zip(self.pos_code_layers,
+                                                cfg.mince_scales)]
         for i, layer in enumerate(self.translayers):
             dim_i = cfg.translayer_dims[i]
             feat_normed = self.vfeat_norm_layers[i](vfeat)
@@ -112,5 +138,9 @@ class SegtranFusionEncoder(nn.Module):
                 feat_normed = self.comb_norm_layers[i](feat_comb)
             if i == 0:
                 feat_normed = self.dropout(feat_normed)
-            vfeat = layer(feat_normed * vmask, pos_biases=pos_biases)
+            if mince:
+                vfeat = layer(feat_normed * vmask, spatial_shape,
+                              pos_biases=mince_pos)
+            else:
+                vfeat = layer(feat_normed * vmask, pos_biases=pos_biases)
         return vfeat

@@ -75,14 +75,16 @@ def apply_reference_init_schemes(model: nn.Module, base_range: float,
     return model
 
 
-def init_with_reference_schemes(model: nn.Module, cfg,
+def init_with_reference_schemes(model: nn.Module, cfg=None,
                                 seed: int = 0) -> nn.Module:
-    """The seeded family init that Segtran2d and Segtran3d share
+    """The seeded family init that every model of the port shares
     (``init_segtran2d``) + the reference passes with the scales of
-    ``cfg``: where JAX ``init_with_reference_schemes`` starts a model
-    trained from scratch."""
+    ``cfg``, or without one (the U-Net and its Polyformer, the
+    discriminator) JAX ``TransLayerSpec``'s defaults: where JAX
+    ``init_with_reference_schemes`` starts a model trained from scratch."""
     from ..models.segtran2d import init_segtran2d
     init_segtran2d(model, seed)
     return apply_reference_init_schemes(
-        model, cfg.base_initializer_range, cfg.query_idbias_scale,
-        cfg.feattrans_lin1_idbias_scale)
+        model, getattr(cfg, "base_initializer_range", 0.02),
+        getattr(cfg, "query_idbias_scale", 10.0),
+        getattr(cfg, "feattrans_lin1_idbias_scale", 10.0))

@@ -114,3 +114,32 @@ def batch_norm_train(x: torch.Tensor, bn: nn.Module, momentum: float,
     y = (xs - mean.view(shape)) * mul.view(shape) \
         + bn.bias.to(xs.dtype).view(shape)
     return y.to(dtype)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum, epsilon, dtype)`` over dim 1 of a
+    channels-first [B, C, *spatial] tensor: in training the batch's
+    statistics (``batch_norm_train``, which moves the running ones), in
+    eval, or always with ``use_running_average``, the running ones, with
+    the normalize in fp32 and the result in ``dtype``. Parameter and buffer
+    names are torch's (``weight``, ``bias``, ``running_mean``,
+    ``running_var``)."""
+
+    def __init__(self, feats: int, eps: float = 1e-5, momentum: float = 0.9,
+                 use_running_average: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(feats))
+        self.bias = nn.Parameter(torch.zeros(feats))
+        self.register_buffer("running_mean", torch.zeros(feats))
+        self.register_buffer("running_var", torch.ones(feats))
+        self.eps, self.momentum = eps, momentum
+        self.use_running_average = use_running_average
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if self.training and not self.use_running_average:
+            return batch_norm_train(x, self, self.momentum, dtype)
+        shape = (-1,) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(self.running_var.float() + self.eps) \
+            * self.weight.float()
+        return ((x.float() - self.running_mean.float().view(shape))
+                * mul.view(shape) + self.bias.float().view(shape)).to(dtype)

@@ -4,8 +4,10 @@
 align_corners=False, antialias=False)``: half-pixel centres, no
 antialiasing filter -- the sampling the JAX package's
 ``jax.image.resize(method='linear', antialias=False)`` implements.
-``max_pool_same`` is ``reduce_window`` with TF-SAME padding: the pad is
-split with the odd element at the end and filled with -inf.
+``resize_linear_align_corners`` is the same with ``align_corners=True``
+(the vanilla U-Net's upsampling); ``max_pool_nhwc`` is a max pool with
+VALID or explicit padding, ``max_pool_same`` one with TF-SAME padding: the
+pad is split with the odd element at the end and filled with -inf.
 """
 from __future__ import annotations
 
@@ -44,12 +46,50 @@ def resize_to(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return resize_linear(x, like.shape[1:-1])
 
 
+def interpolate_channels_last(x: torch.Tensor, scale) -> torch.Tensor:
+    """Scale-factor form of ``resize_linear``: each spatial size becomes
+    ``int(size * scale)`` (torch's floor), ``scale`` one number or one per
+    spatial dim."""
+    n_sp = x.dim() - 2
+    if isinstance(scale, (int, float)):
+        scale = (scale,) * n_sp
+    return resize_linear(x, tuple(int(s * f) for s, f in
+                                  zip(x.shape[1:-1], scale)))
+
+
+def resize_linear_align_corners(x: torch.Tensor,
+                                spatial_size: Sequence[int]) -> torch.Tensor:
+    """``resize_linear`` with ``align_corners=True`` sampling (src = i *
+    (n_in - 1) / (n_out - 1)); x [B, *spatial, C]."""
+    spatial_size = tuple(int(s) for s in spatial_size)
+    assert x.dim() == len(spatial_size) + 2, (x.shape, spatial_size)
+    if tuple(x.shape[1:-1]) == spatial_size:
+        return x
+    y = F.interpolate(_channels_first(x), size=spatial_size,
+                      mode=_MODES[len(spatial_size)], align_corners=True)
+    return _channels_last(y)
+
+
 def avg_pool_nhwc(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
     """Non-overlapping average pool (stride == window) of [B, *spatial, C]."""
     window = tuple(int(w) for w in window)
     pool = F.avg_pool2d if len(window) == 2 else F.avg_pool3d
     return _channels_last(pool(_channels_first(x), kernel_size=window,
                                stride=window))
+
+
+def max_pool_nhwc(x: torch.Tensor, window: Sequence[int],
+                  strides: Sequence[int] | None = None,
+                  padding="VALID") -> torch.Tensor:
+    """Max pool of [B, *spatial, C] (2 or 3 spatial dims); ``padding``
+    "VALID" or (lo, hi) per spatial dim, filled with -inf."""
+    window = tuple(int(w) for w in window)
+    strides = tuple(int(s) for s in (strides or window))
+    xc = _channels_first(x)
+    if not isinstance(padding, str):
+        xc = F.pad(xc, pad_arg(padding), value=float("-inf"))
+    pool = F.max_pool2d if len(window) == 2 else F.max_pool3d
+    return _channels_last(pool(xc, window, strides))
 
 
 def same_pads(size: Sequence[int], kernel: Sequence[int],

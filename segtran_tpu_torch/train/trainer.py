@@ -122,7 +122,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     grad_clip: float = 0.0,
                     aux_loss_fn: Optional[Callable] = None) -> Callable:
     """train_step(batch {'image', 'mask'}) -> metrics {name: 0-d tensor},
-    one optimizer update; ``loss_fn(logits, mask) -> (loss, metrics)``.
+    one optimizer update (none with ``optimizer=None``, and no backward
+    where no parameter takes a gradient: train2d's --tunebn);
+    ``loss_fn(logits, mask) -> (loss, metrics)``.
     ``aux_loss_fn(model, mask) -> (extra loss, metrics)``, where given, is
     read after each forward (the model keeps what it needs, e.g. the
     attention scores) and its loss added before the backward (JAX
@@ -132,7 +134,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
 
     def train_step(batch):
         model.train()
-        optimizer.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)
         sums: Dict[str, torch.Tensor] = {}
         for image, mask in zip(batch["image"].chunk(grad_accum),
                                batch["mask"].chunk(grad_accum)):
@@ -141,7 +143,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                 extra, extra_metrics = aux_loss_fn(model, mask)
                 loss = loss + extra
                 metrics = dict(metrics, **extra_metrics, loss=loss)
-            loss.backward()
+            if loss.requires_grad:
+                loss.backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0) + v.detach()
         if grad_accum > 1:
@@ -150,7 +153,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     p.grad.div_(grad_accum)
         if grad_clip and grad_clip > 0:
             clip_by_global_norm_(params, grad_clip)
-        optimizer.step()
+        if optimizer is not None:
+            optimizer.step()
         return {k: v / grad_accum for k, v in sums.items()}
 
     return train_step

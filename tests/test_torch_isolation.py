@@ -15,7 +15,9 @@ import segtran_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for want in ("kernels.mbconv", "nn.remat", "nn.backbones.efficientnet",
              "train.trainer", "cli.train2d", "cli.test2d", "data.datasets2d",
-             "data.augment"):
+             "data.augment", "adapt.revgrad", "adapt.polyformer",
+             "models.discriminator", "models.unet2d", "nn.mince",
+             "train.da", "train.contrast"):
     assert "segtran_tpu_torch." + want in names, want
 for n in names:
     importlib.import_module(n)

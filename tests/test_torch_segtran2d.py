@@ -132,14 +132,24 @@ def test_later_slice_flags_raise():
     from segtran_tpu_torch.cli.serve import (build_argparser,
                                              build_model_and_config,
                                              task_settings)
-    for extra, item in ((["--mince"], "item 5"), (["--net", "unet"], "item 6"),
-                        (["--polyformer", "source"], "item 5")):
-        args = build_argparser().parse_args(
-            ["--cpdir", "x", "--iter", "1", *extra])
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build_model_and_config(args, task_settings(args))
-        with pytest.raises(NotImplementedError, match=item):
-            build_model_and_config(args, task_settings(args))
+    from segtran_tpu_torch.nn.mince import CrossMinceAttFeatTrans
+    args = build_argparser().parse_args(["--cpdir", "x", "--iter", "1",
+                                         "--net", "unet"])
+    with pytest.raises(NotImplementedError, match="later slice.*item 6"):
+        build_model_and_config(args, task_settings(args))
+    # item 5's --mince and --net unet-scratch --polyformer are served
+    args = build_argparser().parse_args(
+        ["--cpdir", "x", "--iter", "1", "--mince", "--nosqueeze",
+         "--mincescales", "2,1", "--minceprops", "1,1", "--bb", "eff-tiny",
+         "--translayers", "1"])
+    model, _ = build_model_and_config(args, task_settings(args))
+    assert isinstance(model.voxel_fusion.translayers[0],
+                      CrossMinceAttFeatTrans)
+    args = build_argparser().parse_args(
+        ["--cpdir", "x", "--iter", "1", "--net", "unet-scratch",
+         "--polyformer", "source", "--attractors", "8"])
+    model, cfg = build_model_and_config(args, task_settings(args))
+    assert cfg is None and model.polyformer_mode == "source"
     # --pos bias is served, but only without the squeezed layers (JAX's
     # ValueError)
     args = build_argparser().parse_args(

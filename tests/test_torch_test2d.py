@@ -154,13 +154,35 @@ def test_parse_iters_matches_jax():
     (["--vis", "rf"], "item 6"), (["--robust"], "item 6"),
     (["--robustcp", "x"], "item 6"), (["--savefeat", "2"], "item 6"),
     (["--removefrag"], "item 6"), (["--testinterp", "32"], "item 6"),
-    (["--flop"], "item 6"), (["--polyformer", "target"], "item 5"),
-    (["--mince"], "item 5"),
+    (["--flop"], "item 6"), (["--net", "unet"], "item 6"),
     (["--net", "setr"], "item 6"), (["--scanblocks"], "Leave out")])
 def test_later_slice_flags_raise(tmp_path, flags, item):
     from segtran_tpu_torch.cli import test2d
     with pytest.raises(NotImplementedError, match=item):
         test2d.main(["--device", "cpu", "--cpdir", str(tmp_path)] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--net", "unet-scratch", "--polyformer", "target"],
+    ["--mince", "--nosqueeze", "--mincescales", "2,1", "--minceprops",
+     "1,1"]])
+def test_item5_flags_build(tmp_path, flags):
+    """--net unet-scratch with --polyformer, and --mince, build as JAX's
+    build_model builds them, in eval form."""
+    from segtran_tpu_torch.cli import test2d, train2d
+    from segtran_tpu_torch.nn.mince import CrossMinceAttFeatTrans
+    args = test2d.build_argparser().parse_args(
+        ["--bb", "eff-tiny", "--translayers", "1", "--attractors", "8",
+         "--device", "cpu", "--cpdir", str(tmp_path)] + flags)
+    test2d._refuse_later_slices(args)
+    model, cfg = test2d.build_model(args, train2d.task_settings(args))
+    if cfg is None:
+        layer = model.polyformer.polyformer_layers[0].in_ator_trans
+        assert layer.spec.tie_qk_scheme == "loose"
+    else:
+        assert all(isinstance(m, CrossMinceAttFeatTrans)
+                   for m in model.voxel_fusion.translayers)
+        assert cfg.hidden_dropout_prob == 0.0
 
 
 @pytest.mark.parametrize("flags,field,value", [

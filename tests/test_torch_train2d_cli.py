@@ -12,7 +12,8 @@
 * ``main`` on a PNG tree writes ``iter_2.pt`` and its sidecar, and
   ``--cp`` starts from it;
 * every flag of a later slice raises NotImplementedError naming its
-  ROADMAP item; the model-option flags build their models.
+  ROADMAP item; the model-option flags and item 5's (DA, Polyformer,
+  mince) build what they name.
 """
 import os
 
@@ -244,13 +245,53 @@ def test_main_writes_a_checkpoint_and_resumes(tmp_path):
         (fresh[name] - first[name]).abs().max()
 
 
+@pytest.mark.parametrize("flags,check", [
+    (["--adv", "feat"], lambda p: p["aux"]["discriminator"].do_revgrad),
+    (["--adv", "mask", "--sourceds", "rim", "--sourcebs", "3"],
+     lambda p: p["args"].source_ds_name == "rim"
+     and p["aux"]["discriminator"].model["1"].in_channels == 3),
+    (["--adv", "feat", "--adda"],
+     lambda p: not p["aux"]["discriminator"].do_revgrad),
+    (["--reconweight", "0.1"],
+     lambda p: p["aux"]["recon"].conv.in_channels == 448),
+    (["--vcdr", "single"], lambda p: set(p["aux"]) == {"vcdr_estim"}),
+    (["--contrastweight", "0.1"], lambda p: p["args"].contrast_loss_w == 0.1),
+    (["--reffeatcp", "BANK"], lambda p: p["bank"][0].shape == (3, 30, 448)),
+    (["--attnconsist"], lambda p: p["cfg"].use_attn_consist_loss),
+    (["--attndiag", "10"], lambda p: p["cfg"].attn_diag),
+    (["--net", "unet-scratch", "--polyformer", "source"],
+     lambda p: p["model"].polyformer.polyformer_layers[0].in_ator_trans.spec
+     .tie_qk_scheme == "shared" and p["opt"] is not None),
+    (["--tunebn"], lambda p: p["opt"] is None),
+    (["--mince", "--nosqueeze", "--mincescales", "2,1", "--minceprops",
+      "1,1"], lambda p: p["cfg"].mince_scales == (2, 1))])
+def test_item5_flags_build(tmp_path, flags, check):
+    """Each flag of ROADMAP item 5, once refused, builds what train()
+    runs: the model and config, the aux modules, the optimizer, the
+    contrast bank."""
+    from segtran_tpu_torch.cli import train2d
+    bank = str(tmp_path / "bank.npz")
+    rng = np.random.RandomState(0)
+    np.savez(bank, features=rng.randn(90, 448).astype(np.float32),
+             labels=np.repeat([0, 1, 2], 30))
+    args = train2d.build_argparser().parse_args(
+        ["--bb", "eff-tiny", "--translayers", "1", "--attractors", "8",
+         "--numreffeat", "30", "--device", "cpu"]
+        + [bank if f == "BANK" else f for f in flags])
+    task = train2d.task_settings(args)
+    model, cfg = train2d.build_model_and_config(args, task)
+    aux = train2d.build_aux_modules(args, task, cfg)
+    wrapped = torch.nn.ModuleDict({"net": model, **aux}) if len(aux) \
+        else model
+    opt, _ = train2d.build_train_optimizer(wrapped, model, args)
+    parts = dict(args=args, model=model, cfg=cfg, aux=aux, opt=opt,
+                 bank=(train2d.load_contrast_bank(args, task,
+                                                  torch.device("cpu"))
+                       if args.ref_feat_cp_path else None))
+    assert check(parts)
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--adv", "feat"], "item 5"), (["--sourceds", "rim"], "item 5"),
-    (["--adda"], "item 5"), (["--reconweight", "0.1"], "item 5"),
-    (["--vcdr", "single"], "item 5"), (["--contrastweight", "0.1"], "item 5"),
-    (["--reffeatcp", "x.npz"], "item 5"), (["--attnconsist"], "item 5"),
-    (["--attndiag", "10"], "item 5"), (["--polyformer", "source"], "item 5"),
-    (["--tunebn"], "item 5"), (["--mince"], "item 5"),
     (["--opt", "sgd"], "item 6"), (["--opt", "adam"], "item 6"),
     (["--optfilter", "backbone"], "item 6"), (["--tp", "2"], "item 6"),
     (["--ep"], "item 6"), (["--ndevices", "2"], "item 6"),
