@@ -153,6 +153,28 @@ Phases, each of which fails the run:
    --mincescales 2,1 --minceprops 1,1: test2d with --fused (no flash) and
    two train steps.
 
+12. zoo -- the kernels at the shapes of Segtran2d on ResNet-101 (--bb
+   resnet101, translayers 2048 -> 2048 -> 1024 -> 512, 4 modes, 256
+   attractors, batch 8 of 288^2 patches, N = 1296): the flash forward at
+   its six calls' shapes (in-squeeze D = F = 2048 and 1024; out-squeeze
+   D = 512, 512, 256 with F = 2048, 1024, 512), the full tier (per-mode at
+   F = 2048 and 1024, all modes at 512) and the private tier (F = 1024,
+   512) against their plain versions in bf16 and fp32, with plans, timed
+   beside SDPA / the unfused chain and their bounds; (b) that model at full
+   width through test2d's factory (bf16, seeded, a batch of 8) with
+   --fusedepi (2 per-mode + 1 all-modes launches) and --fused --fusedepi
+   (6 flash + 2 private-tier launches) against the unfused modules, timed,
+   one forward profiled; (c) train2d.train() --bb resnet101 --fused
+   --dropout 0 at bs 6 on synthetic 576^2 frames, 3 steps (6 flash
+   forwards each, no flash backward), ms per step and peak memory; (d)
+   every zoo net at its published width through the CLIs (unet on eff-b4
+   and resnet34, nestedunet, unet3plus, attunet, r2attunet, dunet,
+   transunet R50-ViT-B/16, setr ViT-L, deeplabv3 and deeplabv3plus on
+   resnet101, pranet, nnunet): 2 train2d.train() steps at bs 6 (bf16), ms
+   per step and peak memory, test2d.evaluate_checkpoint on 8 frames, and
+   the checkpoint's fp32 eval forward on the card against the CPU (max
+   |probability diff| <= 1e-3, TF32 off); no kernel launches.
+
 Before the last line it prints a JSON object with the fundus train step's
 and the fused backbone's numbers, one with the per-kernel numbers, and the
 card's ``name, power.limit``; the last line is
@@ -3266,6 +3288,294 @@ def da_phase(torch, np, epi, sa, ckdir, logger):
     return perf
 
 
+# ----------------------------------------------------------- phase 12 ----
+
+# The kernels at the shapes of the recipe on ResNet-101 (--bb resnet101,
+# --infpn 34, translayers 2048 -> 2048 -> 1024 -> 512, 4 modes, 256
+# attractors, batch 8 of 288^2 patches: N = 36^2 = 1296 tokens at stride
+# 8): the six flash calls of a --fused forward (the in-squeezes, 256
+# attractors <- 1296 tokens at D = F = 2048, 2048, 1024; the out-squeezes,
+# 4 modes of D = 512, 512, 256 with V W1 at F = 2048, 1024, 512), the full
+# tier of --fusedepi (per-mode at F = 2048 and 1024, all modes at 512) and
+# the private tier of --fused --fusedepi (F = 1024 and 512; F = 2048 runs
+# the modules, as in JAX). D = F = 2048 is a cluster of 8 CTAs of 256
+# columns for both kernels.
+ZOO_FLASH_CASES = [
+    ("resnet101 in-squeeze D=F=2048", 8, 256, 1296, 2048, 2048, 1.0),
+    ("resnet101 in-squeeze D=F=1024", 8, 256, 1296, 1024, 1024, 1.0),
+    ("resnet101 out-squeeze D=512 F=2048", 32, 1296, 256, 512, 2048, 1.0),
+    ("resnet101 out-squeeze D=512 F=1024", 32, 1296, 256, 512, 1024, 1.0),
+    ("resnet101 out-squeeze D=256 F=512", 32, 1296, 256, 256, 512, 1.0)]
+ZOO_EPILOGUE_CASES = [
+    ("fused_mid_output_pool_permode", "mid", 8, 4, 1296, 256, 2048),
+    ("fused_mid_output_pool_permode", "mid", 8, 4, 1296, 256, 1024),
+    ("fused_mid_output_pool", "mid", 8, 4, 1296, 256, 512),
+    ("fused_private_output_pool", "private", 8, 4, 1296, 0, 1024),
+    ("fused_private_output_pool", "private", 8, 4, 1296, 0, 512)]
+ZOO_SEGTRAN_ARGV = ["--task", "fundus", "--bb", "resnet101", "--infpn",
+                    "34", "--translayers", "3", "--layercompress",
+                    "1,1,2,2", "--attractors", "256", "--bf16", "--device",
+                    "cuda"]
+# (label, flags, launches of one batch-8 forward: flash forward, private
+# tier, full tier)
+ZOO_SEGTRAN_CASES = [("fusedepi", ["--fusedepi"], (0, 0, 3)),
+                     ("fused fusedepi", ["--fused", "--fusedepi"],
+                      (6, 2, 0))]
+ZOO_BS, ZOO_SEG_STEPS, ZOO_STEPS, ZOO_EVAL_FRAMES = 6, 3, 2, 8
+# every zoo net at its published width through the CLIs
+ZOO_NETS = [("unet eff-b4", ["--net", "unet", "--bb", "eff-b4"]),
+            ("unet resnet34", ["--net", "unet", "--bb", "resnet34"]),
+            ("nestedunet", ["--net", "nestedunet"]),
+            ("unet3plus", ["--net", "unet3plus"]),
+            ("attunet", ["--net", "attunet"]),
+            ("r2attunet", ["--net", "r2attunet"]),
+            ("dunet", ["--net", "dunet"]),
+            ("transunet", ["--net", "transunet", "--bb", "resnet50"]),
+            ("setr", ["--net", "setr"]),
+            ("deeplabv3", ["--net", "deeplabv3", "--bb", "resnet101"]),
+            ("deeplabv3plus", ["--net", "deeplabv3plus", "--bb",
+                               "resnet101"]),
+            ("pranet", ["--net", "pranet"]),
+            ("nnunet", ["--net", "nnunet"])]
+# card against CPU, fp32 probabilities of one eval forward (TF32 off)
+ZOO_CPU_TOL = 1e-3
+
+
+def zoo_segtran_forwards(torch, np, epi, sa, card):
+    """(b): Segtran2d --bb resnet101 at full width through test2d's
+    factory, a padded batch of 8 288^2 patches, with --fusedepi and with
+    --fused --fusedepi against the unfused modules on the same seeded
+    weights; launches asserted; each forward timed, the fused one
+    profiled."""
+    from segtran_tpu_torch.cli import test2d, train2d
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    x = fundus_batch(torch, 8, seed=21)["image"]
+    state, perf, ref = None, {}, None
+    for label, flags, want in [("unfused", [], (0, 0, 0))] \
+            + ZOO_SEGTRAN_CASES:
+        args = test2d.build_argparser().parse_args(
+            ZOO_SEGTRAN_ARGV + flags + ["--cpdir", "unused"])
+        model, cfg = test2d.build_model(args, train2d.task_settings(args))
+        if cfg.translayer_dims != (2048, 2048, 1024, 512):
+            fail(f"unexpected resnet101 config {cfg.translayer_dims}")
+        if state is None:
+            init_with_reference_schemes(model, cfg, seed=21)
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state, strict=True)
+        model = model.cuda().eval()
+        reset_counts(epi, sa)
+        with torch.inference_mode():
+            out = model(x)
+            torch.cuda.synchronize()
+            launches = option_launches(epi, sa)
+            probs = torch.sigmoid(out.float()).cpu().numpy()
+            ms = cuda_ms(torch, lambda: model(x), iters=3)
+        row = dict(launches=list(launches), ms_batch8=ms)
+        if ref is None:
+            ref = probs
+        else:
+            mx, mean = compare(probs, ref)
+            row.update(max_abs=mx, mean_abs=mean)
+            if not (np.isfinite(probs).all() and mx <= MODEL_TOL[0]
+                    and mean <= MODEL_TOL[1]):
+                fail(f"resnet101 {label} disagrees with the unfused modules "
+                     f"(max {mx:.3e}, mean {mean:.3e})")
+        if launches != want:
+            fail(f"resnet101 {label}: launches (flash, private, full tier) "
+                 f"{launches}, want {want}")
+        if label == "fused fusedepi":
+            with torch.inference_mode():
+                row.update(profile_forward(
+                    torch, lambda: (model(x), torch.cuda.synchronize()),
+                    "one resnet101 --fused --fusedepi batch-8 forward",
+                    {"flash forward": ("fwd_kernel", "fwd_merge_kernel"),
+                     "epilogue kernels": EPILOGUE_KERNELS,
+                     "convolutions": ("conv", "xmma", "cudnn", "implicit")}))
+        log(f"[zoo] resnet101 {label}: launches (flash, private, full tier) "
+            f"{launches} (want {want}); batch-8 forward {ms:.2f} ms"
+            + (f"; probabilities vs unfused max {row['max_abs']:.3e} mean "
+               f"{row['mean_abs']:.3e} (tol {MODEL_TOL[0]:g}/"
+               f"{MODEL_TOL[1]:g})" if "max_abs" in row else "")
+            + f" on {card}")
+        perf[label] = row
+        del model
+        torch.cuda.empty_cache()
+    return perf
+
+
+def zoo_segtran_training(torch, np, epi, sa, ckdir, logger, card):
+    """(c): train2d.train() with --net segtran --bb resnet101 --fused
+    --dropout 0 at bs 6 on synthetic 576^2 frames, 3 steps of 6 flash
+    forwards each and no flash backward (N = 1296 < FLASH_BWD_MIN_N); then
+    the CLI step's ms per step (host clock, ending in a synchronise) and
+    peak memory."""
+    from segtran_tpu_torch.cli import train2d
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    from segtran_tpu_torch.train.trainer import build_optimizer
+    dev = torch.device("cuda")
+    frames = synthetic_fundus(np, 2 * ZOO_BS, seed=22)
+    args = train2d.build_argparser().parse_args(
+        ZOO_SEGTRAN_ARGV + ["--fused", "--dropout", "0", "--seed", "0",
+                            "--bs", str(ZOO_BS), "--maxiter",
+                            str(ZOO_SEG_STEPS), "--saveiter",
+                            str(ZOO_SEG_STEPS), "--logiter", "1",
+                            "--ckptdir", ckdir])
+    task = train2d.task_settings(args)
+    model, cfg = train2d.build_model_and_config(args, task)
+    init_with_reference_schemes(model, cfg, seed=0)
+    model = model.to(dev)
+    reset_counts(epi, sa)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ckpt = train2d.train(model, frames, args, task, dev, cfg,
+                         os.path.join(ckdir, "zoo_segtran"), logger)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches(epi, sa)
+    want = (6 * ZOO_SEG_STEPS, 0, 0)
+    wrote = os.path.isfile(os.path.join(ckpt, f"iter_{ZOO_SEG_STEPS}.pt"))
+    if tuple(launches[:3]) != want or not wrote:
+        fail(f"resnet101 --fused train(): (flash forward, dK/dV, dQ) "
+             f"{tuple(launches[:3])}, want {want}; checkpoint {wrote}")
+    opt = build_optimizer(model, lr=2e-4, decay=1e-4, t_total=100,
+                          warmup_ratio=0.05)
+    step = train2d.make_step(model, opt, args, task, dev)
+    batch = {k: torch.from_numpy(np.stack([f[k] for f in frames[:ZOO_BS]]))
+             .to(dev) for k in ("image", "mask")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(step(batch)["loss"]) for _ in range(2)]
+    ms = (time.perf_counter() - t0) / 2 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[zoo] train2d.train() --bb resnet101 --fused --dropout 0: "
+        f"{ZOO_SEG_STEPS} steps at bs {ZOO_BS} in {wall:.2f} s (first step "
+        f"included), launches (flash forward, dK/dV, dQ, recompute "
+        f"backward, private, full tier) {launches}; the CLI step {ms:.1f} "
+        f"ms per step on the host clock (losses {losses}), peak "
+        f"{peak:.2f} GB on {card}")
+    if not all(math.isfinite(v) for v in losses):
+        fail("the resnet101 train steps gave a non-finite loss")
+    del model, step, opt
+    torch.cuda.empty_cache()
+    return dict(train_wall_s=wall, launches=list(launches), ms_per_step=ms,
+                peak_mem_gb=peak, losses=losses)
+
+
+def zoo_net(torch, np, epi, sa, label, flags, frames, eval_frames, ckdir,
+            logger, card):
+    """(d) for one net: 2 train2d.train() steps at bs 6 (bf16), the CLI
+    step's ms per step and peak memory, test2d.evaluate_checkpoint on 8
+    frames, and the fp32 eval forward of the checkpoint on the card
+    against the same forward on CPU tensors (TF32 off)."""
+    from segtran_tpu_torch.cli import test2d, train2d
+    from segtran_tpu_torch.train.checkpoint import load_checkpoint
+    dev = torch.device("cuda")
+    base = ["--task", "fundus", "--device", "cuda"] + flags
+    args = train2d.build_argparser().parse_args(
+        base + ["--bf16", "--seed", "0", "--bs", str(ZOO_BS), "--maxiter",
+                str(ZOO_STEPS), "--saveiter", str(ZOO_STEPS), "--logiter",
+                "1", "--ckptdir", ckdir])
+    task = train2d.task_settings(args)
+    model, cfg = train2d.build_model_and_config(args, task)
+    n_params = sum(p.numel() for p in model.parameters())
+    model = model.to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ckpt = train2d.train(model, frames, args, task, dev, cfg,
+                         os.path.join(ckdir, label.replace(" ", "_")),
+                         logger)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    opt, clip = train2d.build_train_optimizer(model, model, args)
+    step = train2d.make_step(model, opt, args, task, dev, grad_clip=clip)
+    batch = {k: torch.from_numpy(np.stack([f[k] for f in frames[:ZOO_BS]]))
+             .to(dev) for k in ("image", "mask")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(step(batch)["loss"]) for _ in range(2)]
+    ms = (time.perf_counter() - t0) / 2 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, step, opt
+    torch.cuda.empty_cache()
+    # test2d on the checkpoint, then fp32 on the card against the CPU
+    targs = test2d.build_argparser().parse_args(
+        base + ["--cpdir", ckpt, "--iters", str(ZOO_STEPS), "--bs",
+                str(ZOO_EVAL_FRAMES)])
+    model, cfg = test2d.build_model(targs, task)
+    model.load_state_dict(load_checkpoint(os.path.join(
+        ckpt, f"iter_{ZOO_STEPS}"), cfg), strict=True)
+    model = model.eval()
+    mean, std = train2d.load_stats(targs, "train")
+    x = torch.from_numpy(np.stack([f["image"] for f in eval_frames[:1]]))
+    x = torch.nn.functional.interpolate(
+        x.permute(0, 3, 1, 2), size=tuple(task["patch_size"]),
+        mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fn = test2d.make_model_fn(model, mean, std, targs.gray_alpha,
+                              torch.device("cpu"))
+    with torch.inference_mode():
+        cpu = torch.sigmoid(fn(x)).numpy()
+    model = model.to(dev)
+    fn = test2d.make_model_fn(model, mean, std, targs.gray_alpha, dev)
+    with torch.inference_mode():
+        gpu = torch.sigmoid(fn(x.to(dev))).cpu().numpy()
+    torch.backends.cudnn.allow_tf32 = True
+    cpu_diff = float(np.abs(gpu - cpu).max())
+    res = test2d.evaluate_checkpoint(model, eval_frames, task, targs, logger,
+                                     mean, std, dev)
+    t0 = time.perf_counter()
+    test2d.evaluate_checkpoint(model, eval_frames, task, targs, logger,
+                               mean, std, dev)
+    s_per_frame = (time.perf_counter() - t0) / len(eval_frames)
+    del model
+    torch.cuda.empty_cache()
+    row = dict(params_m=n_params / 1e6, train_wall_s=wall, ms_per_step=ms,
+               peak_mem_gb=peak, losses=losses,
+               dice=[float(d) for d in res[:2]], s_per_frame=s_per_frame,
+               card_vs_cpu_max_abs=cpu_diff)
+    log(f"[zoo] {label}: {n_params / 1e6:.1f} M parameters; "
+        f"train2d.train() {ZOO_STEPS} steps at bs {ZOO_BS} in {wall:.2f} s, "
+        f"the CLI step {ms:.1f} ms (losses {losses}), peak {peak:.2f} GB; "
+        f"test2d {s_per_frame:.4f} s per 576^2 frame, Dice "
+        f"{row['dice']}; fp32 card vs CPU max |probability diff| "
+        f"{cpu_diff:.3e} (tol {ZOO_CPU_TOL:g}) on {card}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"zoo {label}: non-finite loss")
+    if not np.isfinite(res).all():
+        fail(f"zoo {label}: test2d gave a non-finite Dice")
+    if not cpu_diff <= ZOO_CPU_TOL:
+        fail(f"zoo {label}: the card's fp32 forward disagrees with the CPU")
+    return row
+
+
+def zoo_phase(torch, np, epi, sa, ckdir, logger, card):
+    """Phase 12: the 2-D zoo, and Segtran2d on ResNet-101."""
+    t0 = time.perf_counter()
+    perf = {"flash": check_flash(torch, sa, ZOO_FLASH_CASES),
+            "epilogue": check_kernels(torch, epi, cases=ZOO_EPILOGUE_CASES)}
+    perf["resnet101_forwards"] = zoo_segtran_forwards(torch, np, epi, sa,
+                                                      card)
+    perf["resnet101_train"] = zoo_segtran_training(torch, np, epi, sa, ckdir,
+                                                   logger, card)
+    frames = synthetic_fundus(np, 2 * ZOO_BS, seed=23)
+    eval_frames = synthetic_fundus(np, ZOO_EVAL_FRAMES, seed=24)
+    reset_counts(epi, sa)
+    nets = {}
+    for label, flags in ZOO_NETS:
+        nets[label] = zoo_net(torch, np, epi, sa, label, flags, frames,
+                              eval_frames, ckdir, logger, card)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    launches = kernel_launches(epi, sa)
+    if any(launches):
+        fail(f"the zoo nets launched kernels {launches}; they run none")
+    perf["nets"] = nets
+    perf["phase_s"] = time.perf_counter() - t0
+    log(f"[zoo] phase in {perf['phase_s']:.1f} s on {card}")
+    return perf
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
@@ -3276,7 +3586,7 @@ def main(argv=None) -> int:
                                        "training", "mbconv",
                                        "fundus_training", "fundus_cli",
                                        "fundus_options", "volume_options",
-                                       "da"],
+                                       "da", "zoo"],
                     default=None,
                     help="build and run only this check, print no result")
     only = ap.parse_args(argv).only
@@ -3362,6 +3672,13 @@ def main(argv=None) -> int:
             shutil.rmtree(ckdir, ignore_errors=True)
         print(json.dumps({"da": perf, "card": card}), flush=True)
         return 0
+    if only == "zoo":
+        try:
+            perf = zoo_phase(torch, np, epi, sa, ckdir, logger, card)
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        print(json.dumps({"zoo": perf, "card": card}), flush=True)
+        return 0
     if only == "training":
         try:
             train_perf, _ = training(torch, np, sa, ckdir, logger)
@@ -3414,6 +3731,11 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     log(f"[da] {json.dumps(da_perf)} on {card}")
+    try:
+        zoo_perf = zoo_phase(torch, np, epi, sa, ckdir, logger, card)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"[zoo] {json.dumps(zoo_perf)} on {card}")
 
     replaces = {
         "fused_mid_output_pool": "segtran_tpu/kernels/expansion_epilogue.py:333",

@@ -12,7 +12,7 @@ Every request is resized to the task's ``orig_input_size`` and batches are
 padded to ``--maxbatch``, so the model always sees one shape. Weights move
 to the device once, at startup; one worker thread runs the batches under
 ``torch.inference_mode()``. The model comes from test2d's factory, as in
-JAX (``--net segtran`` or ``unet-scratch``, ``--polyformer``,
+JAX (``--net segtran``, ``unet-scratch`` with ``--polyformer``, the zoo;
 ``--mince``); a DA run's checkpoint gives its net. Flags whose modules
 belong to a later slice of the port raise NotImplementedError.
 

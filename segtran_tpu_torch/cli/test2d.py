@@ -1,11 +1,12 @@
-"""2-D evaluation of Segtran2d and U-Net checkpoints on a CUDA GPU:
+"""2-D evaluation of Segtran2d, U-Net and zoo checkpoints on a CUDA GPU:
 checkpoint sweeps, batched sliding-window inference, per-class Dice and
 vCDR, prediction export.
 
-Counterpart of ``segtran_tpu/cli/test2d.py`` for ``--net segtran`` and
-``--net unet-scratch`` (with ``--polyformer``), built by train2d's
-factory as JAX builds them. A DA run's checkpoint gives its net (JAX
-evaluates a fresh net from one: its tolerant merge finds no key). Per
+Counterpart of ``segtran_tpu/cli/test2d.py`` for every ``--net`` of
+train2d (``segtran``, ``unet-scratch`` with ``--polyformer``, the zoo),
+built by train2d's factory as JAX builds them. A DA run's checkpoint
+gives its net (JAX evaluates a fresh net from one: its tolerant merge
+finds no key). Per
 batch of frames (``evaluate_checkpoint``), walked in order with the last
 partial batch kept: the gray blend and mean/std normalisation, overlapping
 ``orig_input_size`` windows resized to the patch size
@@ -15,9 +16,11 @@ per-class Dice of classes 1..C-1 (reference calc_batch_metric) and with
 masks (``--outorigsize``: resized back and pasted into the uncropped
 frame), ``--saveprobs`` and ``pred.zip``. ``--iters`` sweeps
 ``iter_N.pt`` files; a missing one fails before the model is built.
-Writing masks and reading frames need Pillow. Flags whose modules belong
-to a later slice of the port raise NotImplementedError naming the
-ROADMAP item that will port them.
+Writing masks and reading frames need Pillow. The analysis flags
+(``--vis``, ``--robust*``, ``--savefeat``, ``--removefrag``,
+``--testinterp``, ``--flop``) and train2d's ``--tp/--ep/--ndevices`` belong
+to later slices of the port and raise NotImplementedError naming their
+ROADMAP item.
 
 Example (GPU):
   python -m segtran_tpu_torch.cli.test2d --task fundus --ds valid \\
@@ -154,7 +157,7 @@ def build_argparser():
     return p
 
 
-_TOOLS = "ROADMAP Queue 1 item 6: the zoo, parallel/ and tools"
+_TOOLS = "ROADMAP Queue 1 item 6c: the tools"
 
 
 def _train_args(args):

@@ -11,8 +11,8 @@ with ``--outdir`` the raw-label prediction (BraTS: ET written back as 4)
 as ``.npz`` (and ``.nii.gz`` when nibabel is installed), tarred into
 ``pred.tar``. ``--testinterp`` scores the ground truth down- and
 upsampled instead of a model. The flags of a later slice of the port (the
-model zoo, multi-GPU, ``--flop``) raise NotImplementedError naming their
-ROADMAP item.
+3-D zoo nets, multi-GPU, ``--flop``) raise NotImplementedError naming
+their ROADMAP item.
 
 Example (GPU; h5 files need h5py):
   python -m segtran_tpu_torch.cli.test3d --task brats --ds 2019valid \\
@@ -48,9 +48,9 @@ from ..train.checkpoint import load_checkpoint
 # the strides of every 3D variant: x/y by 16, depth by 8
 WHOLEVOL_MULTIPLES = (16, 16, 8)
 
-_ZOO = "ROADMAP Queue 1 item 6, the model zoo"
-_MULTI_GPU = "ROADMAP Queue 1 item 6, the multi-GPU slice (parallel/)"
-_TOOLS = "ROADMAP Queue 1 item 6, tools/flops"
+_ZOO = "ROADMAP Queue 1 item 6a-ii: the 3-D nets vnet and unet3d"
+_MULTI_GPU = "ROADMAP Queue 1 item 6b: parallel/"
+_TOOLS = "ROADMAP Queue 1 item 6c: the tools"
 
 
 def add_model_args(p) -> None:
@@ -155,20 +155,20 @@ def build_argparser():
 
 def refuse_later_slices(args, extra=()) -> None:
     """NotImplementedError naming the ROADMAP item of a flag whose modules
-    are not ported yet."""
-    bb = args.backbone_type
-    bb_ok = bb is None or (bb.startswith("eff") if args.segtran_type == "25d"
-                           else bb == "i3d")
-    later = [
-        (args.net != "segtran", f"--net {args.net}", _ZOO),
-        (not bb_ok, f"--bb {bb}", _ZOO),
-        *extra,
-    ]
+    are not ported yet; ValueError for a backbone the model does not
+    take."""
+    later = [(args.net != "segtran", f"--net {args.net}", _ZOO), *extra]
     for bad, flag, where in later:
         if bad:
             raise NotImplementedError(
                 f"{flag} is not ported yet: it belongs to a later slice of "
                 f"the PyTorch port ({where})")
+    bb = args.backbone_type
+    if bb is not None and not (bb.startswith(("eff-", "resnet"))
+                               if args.segtran_type == "25d"
+                               else bb == "i3d"):
+        raise ValueError(f"--bb {bb}: the 3-D Segtran takes i3d, the 2.5D "
+                         f"one an eff-* or resnet backbone")
 
 
 def _refuse_later_slices(args) -> None:

@@ -1,9 +1,15 @@
-"""2-D training of Segtran2d and the Polyformer's U-Net on a CUDA GPU
-(REFUGE fundus, polyp, OCT), supervised or with domain adaptation.
+"""2-D training of Segtran2d, the Polyformer's U-Net and the baseline zoo
+on a CUDA GPU (REFUGE fundus, polyp, OCT), supervised or with domain
+adaptation.
 
-Counterpart of ``segtran_tpu/cli/train2d.py`` for ``--net segtran`` and
-``--net unet-scratch``. Per step (``make_step``) on the device: the
-task's label map of the raw masks, the batched 2-D augmentation
+Counterpart of ``segtran_tpu/cli/train2d.py``: ``--net segtran`` (``--bb``
+eff-*, effv2s/m/l or resnet34/50/101), ``unet-scratch`` and the zoo
+(``build_zoo_model``: unet / unet-smp on a ResNet or EfficientNet
+encoder, nestedunet, unet3plus, attunet, r2attunet, dunet, transunet,
+setr, deeplabv3, deeplabv3plus / deeplab-smp, pranet, nnunet), with
+``--opt bertadam|adamw|sgd|adam`` and ``--optfilter``. Per step
+(``make_step``) on the device: the task's label map of the raw masks,
+the batched 2-D augmentation
 (``data/augment.py``: crop-and-pad ``--randscale``, flips, quarter
 turns, ``--affine``, the gray blend ``--gray``, the colour jitter,
 ``--robustaug``, normalisation by the dataset's mean/std table, per
@@ -35,8 +41,8 @@ as JAX keeps them. Checkpoints ``iter_N.pt`` with their sidecar every
 ``--saveiter`` iterations and at the end (a DA run's under ``net.``,
 ``discriminator.``, ...); ``--cp`` starts from one, parameters it lacks
 keeping their fresh values as JAX's ``merge_params`` keeps them.
-Flags whose modules belong to a later slice of the port raise
-NotImplementedError naming the ROADMAP item that will port them.
+``--tp/--ep/--ndevices`` and ``--profile`` belong to later slices of the
+port and raise NotImplementedError naming their ROADMAP item.
 
 Example (GPU; reading the PNG frames needs Pillow):
   python -m segtran_tpu_torch.cli.train2d --task fundus --translayers 3 \\
@@ -64,9 +70,19 @@ from ..data.augment import Aug2dConfig, augment_batch_2d, draw_2d
 from ..data.labelmaps import fundus_map_mask, index_to_onehot, polyp_map_mask
 from ..data.pipeline import DevicePrefetcher, batch_iterator
 from ..data.stats import load_dataset_stats
+from ..models.att_unet import AttUNet
+from ..models.deeplab import DeepLabV3, DeepLabV3Plus
 from ..models.discriminator import Discriminator
+from ..models.dunet import DUNetV1V2
+from ..models.generic_unet import GenericUNet
+from ..models.nested_unet import NestedUNet
+from ..models.pranet import PraNetForTraining
 from ..models.segtran2d import Segtran2d
+from ..models.setr import SETR_PUP
+from ..models.transunet import TransUNet
 from ..models.unet2d import VanillaUNet
+from ..models.unet_3plus import UNet3Plus
+from ..models.unet_smp import UnetSMP
 from ..nn.attention import set_dropout_generator
 from ..nn.init import init_with_reference_schemes
 from ..ops.norm import frozen_running_stats
@@ -165,10 +181,17 @@ def build_argparser() -> argparse.ArgumentParser:
                    default=1.0)
     p.add_argument("--sourcebs", dest="source_batch_size", type=int,
                    default=-1)
-    p.add_argument("--optfilter", dest="opt_filters", default=None)
+    p.add_argument("--optfilter", dest="opt_filters", default=None,
+                   help="comma-separated substrings: only parameters whose "
+                        "name holds one train. Names are the port's dotted "
+                        "state_dict names (backbone.layer4.0.conv1.weight); "
+                        "JAX matches its '/'-joined paths "
+                        "(backbone/layer4_0/conv1/kernel), so a filter that "
+                        "spells a separator or a leaf name differs")
     p.add_argument("--opt", dest="opt_name", default="bertadam",
                    choices=["bertadam", "adamw", "sgd", "adam"],
-                   help="optimizer (adamw == bertadam)")
+                   help="optimizer (adamw == bertadam); sgd: momentum "
+                        "0.9, decay 1e-4; adam: decay 1e-4; neither clips")
     p.add_argument("--tunebn", dest="tune_bn_only", action="store_true")
     p.add_argument("--robustaug", dest="robust_aug_types", default=None,
                    help="'brightness' and/or 'contrast', comma-separated")
@@ -241,25 +264,28 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-_ZOO = "ROADMAP Queue 1 item 6: the zoo, parallel/ and tools"
-NETS = ("segtran", "unet-scratch")
+_PARALLEL = "ROADMAP Queue 1 item 6b: parallel/"
+_TOOLS = "ROADMAP Queue 1 item 6c: the tools"
+ZOO = ("unet", "unet-smp", "nestedunet", "unet3plus", "attunet",
+       "r2attunet", "dunet", "transunet", "setr", "deeplabv3",
+       "deeplabv3plus", "deeplab-smp", "pranet", "nnunet")
+NETS = ("segtran", "unet-scratch") + ZOO
 VCDR_NAMES = {"single": ("vcdr_estim",), "sep": ("vc_estim", "vd_estim")}
 
 
 def _refuse_later_slices(args) -> None:
     later = [
-        (args.opt_name in ("sgd", "adam"), f"--opt {args.opt_name}", _ZOO),
-        (args.opt_filters is not None, "--optfilter", _ZOO),
         (args.tensor_parallel > 1 or args.expert_parallel
-         or args.ndevices > 1, "--tp/--ep/--ndevices above 1", _ZOO),
-        (args.net not in NETS, f"--net {args.net}", _ZOO),
-        (args.profile, "--profile", _ZOO),
+         or args.ndevices > 1, "--tp/--ep/--ndevices above 1", _PARALLEL),
+        (args.profile, "--profile", _TOOLS),
     ]
     for bad, flag, where in later:
         if bad:
             raise NotImplementedError(
                 f"{flag} is not ported yet: it belongs to a later slice of "
                 f"the PyTorch port ({where})")
+    if args.net not in NETS:
+        raise ValueError(f"unknown --net {args.net}")
     if args.scan_blocks:
         raise NotImplementedError(
             "--scanblocks is not ported: it is a TPU compile-time "
@@ -290,11 +316,18 @@ def load_stats(args, ds_name):
 
 
 def build_model_and_config(args, task):
-    """The --net in training form (JAX train2d.py:313-365): Segtran2d and
-    its config, or the U-Net (with ``--polyformer``) and None. An unset
-    --rematblocks/--norematblocks takes ``resolve_remat_blocks``."""
+    """The --net in training form (JAX train2d.py:295-405): Segtran2d and
+    its config, or the U-Net (with ``--polyformer``) or a zoo net and
+    None. An unset --rematblocks/--norematblocks takes
+    ``resolve_remat_blocks``."""
     _refuse_later_slices(args)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
+    if args.net in ZOO:
+        # the zoo nets start from PyTorch's default inits (nn/init.py's
+        # torch_conv_kernel_init), drawn from --seed
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(args.seed)
+            return build_zoo_model(args, task, dtype), None
     if args.net == "unet-scratch":
         return VanillaUNet(
             3, task["num_classes"], polyformer_mode=args.polyformer_mode,
@@ -360,6 +393,48 @@ def build_model_and_config(args, task):
     return Segtran2d(cfg, patch_size=task["patch_size"]), cfg
 
 
+def build_zoo_model(args, task, dtype):
+    """The baseline zoo (JAX train2d.py:366-405, reference --net dispatch
+    train2d.py:933-1032). The resnet-hybrid nets keep a resnet --bb, else
+    take resnet50 and say so; TransUNet and SETR fix their position
+    tables at --patchsize."""
+    net, nc, bb = args.net, task["num_classes"], args.backbone_type
+
+    def resnet_bb():
+        if bb.startswith("resnet"):
+            return bb
+        logger.info("--net %s needs a resnet backbone; ignoring --bb %s and "
+                    "using resnet50", net, bb)
+        return "resnet50"
+
+    patch = tuple(task["patch_size"])
+    if net in ("unet", "unet-smp"):
+        return UnetSMP(nc, encoder=bb, dtype=dtype)
+    if net == "nestedunet":
+        return NestedUNet(nc, dtype=dtype)
+    if net == "unet3plus":
+        return UNet3Plus(nc, dtype=dtype)
+    if net in ("attunet", "r2attunet"):
+        return AttUNet(nc, recurrent=net == "r2attunet", dtype=dtype)
+    if net == "dunet":
+        return DUNetV1V2(n_classes=nc, dtype=dtype)
+    if net == "transunet":
+        resnet_bb()            # the hybrid stem is fixed; JAX says so too
+        if patch[0] != patch[1]:
+            raise ValueError(f"--net transunet takes a square --patchsize, "
+                             f"not {patch}")
+        return TransUNet(nc, img_size=patch[0], dtype=dtype)
+    if net == "setr":
+        return SETR_PUP(nc, img_size=patch, dtype=dtype)
+    if net == "deeplabv3":
+        return DeepLabV3(nc, backbone=resnet_bb(), dtype=dtype)
+    if net in ("deeplabv3plus", "deeplab-smp"):
+        return DeepLabV3Plus(nc, backbone=resnet_bb(), dtype=dtype)
+    if net == "pranet":
+        return PraNetForTraining(nc, dtype=dtype)
+    return GenericUNet(nc, deep_supervision=False, dtype=dtype)
+
+
 def optimizer_settings(args):
     """(lr, decay, grad_clip): the flags where set, else --net's preset."""
     net_set = NET_SETTINGS.get(args.net, NET_SETTINGS["unet-like"])
@@ -412,7 +487,9 @@ def build_aux_modules(args, task, cfg) -> nn.ModuleDict:
     (--reconweight), the vCDR estimators (--vcdr on fundus: the
     discriminator CNN on the predicted probabilities)."""
     aux = nn.ModuleDict()
-    if args.adversarial_mode == "mask":
+    if args.adversarial_mode == "mask" or args.net in ZOO:
+        # a zoo net keeps no feature: --adv feat and --reconweight fail on
+        # it at the first step, as in JAX
         ch = task["num_classes"]
     else:
         ch = 64 if args.net == "unet-scratch" else cfg.trans_out_dim
@@ -463,6 +540,20 @@ def build_train_optimizer(wrapped, net, args):
         return BertAdam([dict(params=trained, lr=lr, weight_decay=0.0)],
                         lr=lr, warmup=warmup_ratio,
                         t_total=args.maxiter), 0.0
+    if args.opt_filters:
+        # --optfilter: the other parameters freeze; the clip sees the
+        # trained ones only, as JAX's masked chain does
+        filters = [f for f in str(args.opt_filters).split(",") if f]
+        for n, p in wrapped.named_parameters():
+            p.requires_grad_(any(f in n for f in filters))
+    params = [p for p in wrapped.parameters() if p.requires_grad]
+    if args.opt_name == "sgd":
+        # JAX: add_decayed_weights(1e-4), then sgd(momentum 0.9); no clip
+        return torch.optim.SGD(params, lr=lr, momentum=0.9,
+                               weight_decay=1e-4), 0.0
+    if args.opt_name == "adam":
+        # JAX: add_decayed_weights(1e-4), scale_by_adam, scale(-lr)
+        return torch.optim.Adam(params, lr=lr, weight_decay=1e-4), 0.0
     return build_optimizer(wrapped, lr=lr, decay=decay,
                            t_total=args.maxiter,
                            warmup_ratio=warmup_ratio), clip
@@ -945,7 +1036,8 @@ def main(argv=None):
     model, cfg = build_model_and_config(args, task)
     dataset = build_datasets(args, task)
     log.info("%d training samples on %s", len(dataset), device)
-    init_with_reference_schemes(model, cfg, seed=args.seed)
+    if args.net not in ZOO:
+        init_with_reference_schemes(model, cfg, seed=args.seed)
     if args.checkpoint_path:
         path = args.checkpoint_path
         path = path[:-3] if path.endswith(".pt") else path

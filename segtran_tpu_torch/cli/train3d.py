@@ -13,7 +13,7 @@ BertAdam with warmup-linear over the reference's parameter groups.
 fusion layers when ``--dropout 0``. Checkpoints ``iter_N.pt`` (BatchNorm
 statistics included) with their sidecar every ``--saveiter`` iterations;
 ``--cp`` resumes from one. The flags of a later slice of the port (the
-model zoo, multi-GPU) raise NotImplementedError naming their ROADMAP
+3-D zoo nets, multi-GPU) raise NotImplementedError naming their ROADMAP
 item.
 
 Example (GPU; h5 files need h5py):

@@ -35,6 +35,17 @@ BACKBONE_FEAT_DIMS = {
 }
 
 
+def feat_dims(backbone_type: str) -> Tuple[int, ...]:
+    """The pyramid widths of a Segtran backbone; a backbone without them
+    (resnet18 / resnet152, as in the JAX package) is refused."""
+    if backbone_type not in BACKBONE_FEAT_DIMS:
+        raise ValueError(
+            f"Segtran has no feature widths for backbone {backbone_type!r}; "
+            f"it takes one of {sorted(BACKBONE_FEAT_DIMS)} (resnet18 and "
+            f"resnet152 serve only the zoo nets)")
+    return BACKBONE_FEAT_DIMS[backbone_type]
+
+
 def _derive_translayer_dims(orig_in_feat_dim: int,
                             compress_ratios: Tuple[float, ...]) -> Tuple[int, ...]:
     """Adjacent compression ratios -> per-layer dims via cumulative product
@@ -147,7 +158,7 @@ class Segtran2dConfig(TransformerConfig):
 
     @property
     def bb_feat_dims(self) -> Tuple[int, ...]:
-        return BACKBONE_FEAT_DIMS[self.backbone_type]
+        return feat_dims(self.backbone_type)
 
     @property
     def orig_in_feat_dim(self) -> int:
@@ -193,7 +204,7 @@ class Segtran3dConfig(TransformerConfig):
 
     @property
     def bb_feat_dims(self) -> Tuple[int, ...]:
-        return BACKBONE_FEAT_DIMS[self.backbone_type]
+        return feat_dims(self.backbone_type)
 
     @property
     def orig_in_feat_dim(self) -> int:

@@ -1,6 +1,6 @@
 """Per-task and per-net defaults (reference train2d.py:245-385 and
 train3d.py:218-255; the fundus, polyp, oct, brats, atria and msd entries,
-``--net segtran`` and ``unet-scratch``) and the CLI-override rule ``get_default``
+every --net of train2d) and the CLI-override rule ``get_default``
 (reference common_util.py:6-13)."""
 from __future__ import annotations
 
@@ -13,7 +13,13 @@ NET_SETTINGS: Dict[str, Dict[str, Any]] = {
                 "dropout_prob": {"234": 0.3, "34": 0.2, "4": 0.2},
                 "num_modes": {"234": 2, "34": 4, "4": 4}},
 }
-NET_SETTINGS["unet-scratch"] = NET_SETTINGS["unet-like"]
+for _n in ("unet", "unet-scratch", "nestedunet", "unet3plus", "deeplabv3plus",
+           "deeplab-smp", "pranet", "attunet", "r2attunet", "dunet", "nnunet"):
+    NET_SETTINGS[_n] = NET_SETTINGS["unet-like"]
+# the ViT baselines train with segtran's settings; --net deeplabv3 has no
+# entry (train2d falls back to unet-like), as in the reference
+for _n in ("setr", "transunet"):
+    NET_SETTINGS[_n] = NET_SETTINGS["segtran"]
 
 TASK_SETTINGS: Dict[str, Dict[str, Any]] = {
     "fundus": {

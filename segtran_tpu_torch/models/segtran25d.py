@@ -1,5 +1,5 @@
-"""Segtran25d: depth folded into the batch, a per-slice 2-D EfficientNet
-pyramid, re-assembled into volumes and fused by the 3-D position-coded
+"""Segtran25d: depth folded into the batch, a per-slice 2-D EfficientNet or
+ResNet pyramid, re-assembled into volumes and fused by the 3-D position-coded
 transformer, then a 3-D output FPN on depth-last volumes.
 
 Counterpart of ``segtran_tpu/models/segtran25d.py`` (reference
@@ -8,7 +8,7 @@ out_fpn_forward :318-377). What differs from Segtran3d, as in JAX:
 
 * ``D_groupsize`` G > 1 merges G consecutive slices into the channels
   before the bridge and the backbone (channel ``c*G + g``);
-* ``stemconv``: the EfficientNet stem takes the (grouped) channels as they
+* ``stemconv``: the backbone's stem takes the (grouped) channels as they
   are; ``bridgeconv`` maps them to 3 with a 1x1x1 conv, ``dup3`` repeats
   one channel three times;
 * coordinates in (H, W, D) order, the depth scale taken from the depth
@@ -32,14 +32,13 @@ from torch import nn
 
 from ..configs.base import Segtran25dConfig
 from ..nn.attention import Dropout
-from ..nn.backbones.efficientnet import EfficientNetFeatures
 from ..nn.encoder import SegtranFusionEncoder
 from ..nn.heads import (Conv1x1Params, apply_pointwise, compose_1x1,
                         compose_fold_head)
 from ..nn.poscode import gen_all_indices
 from ..nn.remat import remat
 from ..ops.resize import avg_pool_nhwc, resize_linear
-from .segtran2d import _conv1x1, _GroupNorm
+from .segtran2d import _conv1x1, _GroupNorm, make_backbone
 
 
 class Segtran25d(nn.Module):
@@ -53,11 +52,10 @@ class Segtran25d(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.input_scale = tuple(float(s) for s in input_scale)
-        if not cfg.backbone_type.startswith("eff"):
-            raise NotImplementedError(
-                f"backbone {cfg.backbone_type} is not ported yet: it belongs "
-                f"to a later slice of the port (ROADMAP Queue 1 item 6, the "
-                f"model zoo)")
+        if not cfg.backbone_type.startswith(("eff-", "resnet")):
+            # JAX's Segtran25d builds EfficientNet or ResNet only
+            raise ValueError(f"Segtran25d takes an eff-* or resnet "
+                             f"backbone, not {cfg.backbone_type}")
         c = cfg.orig_in_channels * cfg.D_groupsize
         scheme = cfg.inchan_to3_scheme
         stem_in = 3
@@ -69,10 +67,7 @@ class Segtran25d(nn.Module):
             elif not (scheme == "dup3" and c == 1):
                 raise ValueError(scheme)
         dims = cfg.bb_feat_dims
-        self.backbone = EfficientNetFeatures(
-            cfg.backbone_type, stem_stride=1 if cfg.bb_feat_upsize else 2,
-            in_channels=stem_in, remat_blocks=cfg.remat_blocks,
-            dtype=cfg.dtype)
+        self.backbone = make_backbone(cfg, in_channels=stem_in)
         for layer in cfg.in_fpn_layers[:-1]:
             setattr(self, f"in_fpn{layer}{layer + 1}_conv",
                     nn.Conv2d(dims[layer], dims[layer + 1], 1))

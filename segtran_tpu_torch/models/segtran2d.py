@@ -1,7 +1,7 @@
-"""Segtran2d: EfficientNet backbone -> input FPN -> fusion transformer ->
-factored output-FPN tail (or, with ``out_fpn_layers == in_fpn_layers``,
-a 1x1 head or a 2x2 stride-2 transposed-conv head on the fused grid) ->
-bilinear resize. The FPNs normalise with GroupNorm or, with
+"""Segtran2d: EfficientNet, EfficientNetV2 or ResNet backbone -> input
+FPN -> fusion transformer -> factored output-FPN tail (or, with
+``out_fpn_layers == in_fpn_layers``, a 1x1 head or a 2x2 stride-2
+transposed-conv head on the fused grid) -> bilinear resize. The FPNs normalise with GroupNorm or, with
 ``in_fpn_use_bn`` / ``out_fpn_use_bn``, BatchNorm (momentum 0.9, eps
 1e-5; ``in_bn{l}b`` / ``out_bn{l}b``). ``num_modalities > 0`` takes
 [B, H, W, C, MOD] inputs: the modality folds into the batch, and is
@@ -42,6 +42,8 @@ from torch import nn
 from ..configs.base import Segtran2dConfig
 from ..nn.attention import Dropout
 from ..nn.backbones.efficientnet import EfficientNetFeatures
+from ..nn.backbones.efficientnetv2 import EfficientNetV2Features
+from ..nn.backbones.resnet import ResNetFeatures
 from ..nn.encoder import SegtranFusionEncoder
 from ..nn.heads import Conv1x1Params, apply_pointwise, compose_1x1
 from ..nn.poscode import gen_all_indices
@@ -78,6 +80,26 @@ def _conv1x1(x, conv: nn.Module, dtype):
     return apply_pointwise(x.to(dtype), w, conv.bias)
 
 
+def make_backbone(cfg, in_channels: int = 3) -> nn.Module:
+    """The backbone of ``cfg.backbone_type`` (JAX ``Segtran2d._backbone``):
+    EfficientNet (stem stride 1 under ``bb_feat_upsize``), EfficientNetV2
+    (likewise) or ResNet (``bb_feat_upsize`` drops the stem's max pool)."""
+    bb, up = cfg.backbone_type, cfg.bb_feat_upsize
+    if bb.startswith("eff-"):
+        return EfficientNetFeatures(bb, stem_stride=1 if up else 2,
+                                    in_channels=in_channels,
+                                    remat_blocks=cfg.remat_blocks,
+                                    dtype=cfg.dtype)
+    if bb.startswith("effv2"):
+        return EfficientNetV2Features(bb, stem_stride=1 if up else 2,
+                                      in_channels=in_channels,
+                                      dtype=cfg.dtype)
+    if bb.startswith("resnet"):
+        return ResNetFeatures(bb, do_pool1=not up, in_channels=in_channels,
+                              dtype=cfg.dtype)
+    raise ValueError(f"unknown backbone {bb}")
+
+
 class Segtran2d(nn.Module):
     """``patch_size`` (H, W) of the model's input: needed only by the
     ``rand`` position code, whose table has one row per token."""
@@ -86,14 +108,8 @@ class Segtran2d(nn.Module):
                  patch_size: Optional[Sequence[int]] = None):
         super().__init__()
         self.cfg = cfg
-        if not cfg.backbone_type.startswith("eff-"):
-            raise NotImplementedError(
-                f"backbone {cfg.backbone_type} belongs to a later slice of "
-                f"the port (this slice has the EfficientNet backbones)")
         dims = cfg.bb_feat_dims
-        self.backbone = EfficientNetFeatures(
-            cfg.backbone_type, stem_stride=1 if cfg.bb_feat_upsize else 2,
-            remat_blocks=cfg.remat_blocks, dtype=cfg.dtype)
+        self.backbone = make_backbone(cfg)
         for layer in cfg.in_fpn_layers[:-1]:
             self._add_fpn_level("in", layer)
         if dims[cfg.in_fpn_layers[-1]] != cfg.trans_in_dim:

@@ -14,8 +14,16 @@ segtran_shared.py:392-402, 522-546). After the seeded family init
 
 Weights are torch Linear layouts ``[out, in]`` (the JAX kernels are
 ``[in, out]``).
+
+``torch_conv_kernel_init`` / ``torch_conv_bias_init_for`` (JAX
+nn/init.py:124-137) are PyTorch's own default conv init, U(-b, b) with b =
+1 / sqrt(fan in), for torch-layout ``[O, I, *k]`` kernels: the init the
+2-D zoo's convs keep (train2d builds a zoo net under ``--seed`` and
+leaves its modules' defaults).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -88,3 +96,22 @@ def init_with_reference_schemes(model: nn.Module, cfg=None,
         model, getattr(cfg, "base_initializer_range", 0.02),
         getattr(cfg, "query_idbias_scale", 10.0),
         getattr(cfg, "feattrans_lin1_idbias_scale", 10.0))
+
+
+def torch_conv_kernel_init(shape, generator=None,
+                           dtype=torch.float32) -> torch.Tensor:
+    """A conv kernel [O, I, *k] as ``nn.Conv2d`` draws it
+    (``kaiming_uniform_(a=sqrt(5))``: U(-b, b), b = 1 / sqrt(I * prod(k)))."""
+    w = torch.empty(tuple(shape), dtype=dtype)
+    return nn.init.kaiming_uniform_(w, a=math.sqrt(5), generator=generator)
+
+
+def torch_conv_bias_init_for(fan_in: int):
+    """``init(shape, generator=None)``: U(-b, b), b = 1 / sqrt(fan_in), the
+    bias of a default conv with that fan in."""
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+
+    def init(shape, generator=None, dtype=torch.float32):
+        return torch.empty(tuple(shape), dtype=dtype).uniform_(
+            -bound, bound, generator=generator)
+    return init

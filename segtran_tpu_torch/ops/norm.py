@@ -121,7 +121,8 @@ class BatchNorm(nn.Module):
     channels-first [B, C, *spatial] tensor: in training the batch's
     statistics (``batch_norm_train``, which moves the running ones), in
     eval, or always with ``use_running_average``, the running ones, with
-    the normalize in fp32 and the result in ``dtype``. Parameter and buffer
+    the normalize in fp32 (fp64 for an fp64 ``x``) and the result in
+    ``dtype``. Parameter and buffer
     names are torch's (``weight``, ``bias``, ``running_mean``,
     ``running_var``)."""
 
@@ -139,7 +140,8 @@ class BatchNorm(nn.Module):
         if self.training and not self.use_running_average:
             return batch_norm_train(x, self, self.momentum, dtype)
         shape = (-1,) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(self.running_var.float() + self.eps) \
-            * self.weight.float()
-        return ((x.float() - self.running_mean.float().view(shape))
-                * mul.view(shape) + self.bias.float().view(shape)).to(dtype)
+        ct = torch.promote_types(x.dtype, torch.float32)
+        mul = torch.rsqrt(self.running_var.to(ct) + self.eps) \
+            * self.weight.to(ct)
+        return ((x.to(ct) - self.running_mean.to(ct).view(shape))
+                * mul.view(shape) + self.bias.to(ct).view(shape)).to(dtype)

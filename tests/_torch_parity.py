@@ -1,8 +1,23 @@
 """Shared helpers of the tests that hold segtran_tpu_torch against the JAX
-package: seeded JAX variables, converted into the port's state_dict."""
+package: seeded JAX variables, converted into the port's state_dict, and
+the fixture that runs a test module on one intra-op PyTorch thread."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """A test module that imports this fixture runs on one intra-op
+    PyTorch thread: the xdist workers share the host's cores, and
+    PyTorch's default pool (a thread per core in each worker)
+    oversubscribes them. The count is restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_numpy(tree):

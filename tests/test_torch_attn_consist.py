@@ -12,6 +12,7 @@ import torch
 
 from _torch_parity import jvars
 from _torch_volume import fast_variables
+from _torch_parity import one_torch_thread  # noqa: F401
 
 SIZE = (32, 32, 16)
 

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from _torch_data2d import jax_draws
+from _torch_parity import one_torch_thread  # noqa: F401
 
 IMG_TOL = dict(rtol=0, atol=1e-5)
 RESIZE_TOL = dict(rtol=0, atol=1e-4)

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_parity import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

@@ -14,6 +14,7 @@ import torch
 
 from _torch_options import _pair
 from _torch_parity import jax_variables, jvars
+from _torch_parity import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-6)
 VCDR_ARGV = ["--task", "fundus", "--net", "unet-scratch", "--vcdr", "sep",
@@ -37,8 +38,9 @@ def test_attn_diag_matches_jax(fused):
     jm, params, bstats, tm = _pair(attn_diag=True, use_fused_attention=fused,
                                    attn_clip=0.01)
     x = np.random.RandomState(1).randn(2, 64, 64, 3).astype(np.float32)
-    _, st = jm.apply(jvars(params, bstats), jnp.asarray(x), train=False,
-                     mutable=["intermediates"])
+    _, st = jax.jit(lambda v, xx: jm.apply(
+        v, xx, train=False, mutable=["intermediates"]))(
+        jvars(params, bstats), jnp.asarray(x))
     want = jcollect(st)
     with torch.inference_mode():
         tm.eval()(torch.from_numpy(x))

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from _torch_data2d import FRAMES, raw_mask, write_tree
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 def _assert_same_sample(got, want):

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_parity import one_torch_thread  # noqa: F401
 
 h5py = pytest.importorskip("h5py")
 

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_parity import one_torch_thread  # noqa: F401
 
 # fp32: the JAX kernels' own oracle tolerance
 F32 = dict(rtol=2e-4, atol=2e-5)

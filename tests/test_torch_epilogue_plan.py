@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from segtran_tpu_torch.kernels import expansion_epilogue as epi
+from _torch_parity import one_torch_thread  # noqa: F401
 
 SMS = 132
 # chip_smoke's full-fusion cases: B=8, M=4, N=1296, A=256 at the fundus

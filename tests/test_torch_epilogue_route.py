@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_variables
+from _torch_parity import one_torch_thread  # noqa: F401
 
 # tests/test_torch_epilogue.py's bf16 bound: XLA on the CPU drops the
 # intermediate bf16 roundings that the port's plain version keeps

@@ -15,6 +15,7 @@ import torch
 
 from segtran_tpu.kernels import squeezed_attention as jsa
 from segtran_tpu_torch.kernels import squeezed_attention as tsa
+from _torch_parity import one_torch_thread  # noqa: F401
 
 # fp32: only summation order differs; bf16 as tests/test_pallas_kernels.py
 # (XLA:CPU and PyTorch round the bf16 forward and cotangent differently)

@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from segtran_tpu_torch.kernels import squeezed_attention as sa
+from _torch_parity import one_torch_thread  # noqa: F401
 
 SMS = 132
 # (G, Q, N, D, F): the in-squeeze of the 160x192x144 and 240x240x160

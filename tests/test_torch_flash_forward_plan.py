@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from segtran_tpu_torch.kernels import squeezed_attention as sa
+from _torch_parity import one_torch_thread  # noqa: F401
 
 SMS = 132
 # (G, Q, N, D, F): chip_smoke's FLASH_CASES (the BraTS whole-volume in- and

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from _torch_options import _configs
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 def _count_flash(monkeypatch):

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_variables, jvars
+from _torch_parity import one_torch_thread  # noqa: F401
 
 # fp32; ~60 convolutions summed in other orders by XLA and PyTorch
 RTOL, ATOL = 1e-4, 1e-4

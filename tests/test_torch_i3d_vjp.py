@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from _torch_parity import jax_variables
+from _torch_parity import one_torch_thread  # noqa: F401
 
 SHAPE = (8, 32, 32)
 GRAD_TOL = 1e-6          # max |diff| / max |jax grad|, per gradient

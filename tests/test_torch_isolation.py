@@ -1,11 +1,14 @@
 """segtran_tpu_torch stands alone: importing every module of it pulls in
-neither JAX nor the JAX package, and its entry points refuse to run
-without a GPU unless the CPU is asked for."""
+neither JAX nor the JAX package, nor torchvision, timm or
+segmentation_models_pytorch (the zoo's backbones and decoders are the
+port's own), and its entry points refuse to run without a GPU unless the
+CPU is asked for."""
 import os
 import subprocess
 import sys
 
 import pytest
+from _torch_parity import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -17,12 +20,19 @@ for want in ("kernels.mbconv", "nn.remat", "nn.backbones.efficientnet",
              "train.trainer", "cli.train2d", "cli.test2d", "data.datasets2d",
              "data.augment", "adapt.revgrad", "adapt.polyformer",
              "models.discriminator", "models.unet2d", "nn.mince",
-             "train.da", "train.contrast"):
+             "train.da", "train.contrast", "nn.backbones.resnet",
+             "nn.backbones.res2net", "nn.backbones.efficientnetv2",
+             "nn.vit", "ops.deform_conv", "models.unet_smp",
+             "models.deeplab", "models.pranet", "models.nested_unet",
+             "models.unet_3plus", "models.att_unet", "models.generic_unet",
+             "models.dunet", "models.transunet", "models.setr"):
     assert "segtran_tpu_torch." + want in names, want
 for n in names:
     importlib.import_module(n)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "segtran_tpu"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "segtran_tpu",
+                                    "torchvision", "timm",
+                                    "segmentation_models_pytorch"))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -48,6 +58,20 @@ bad = sorted(k for k in sys.modules if k.split(".")[0] in
 print(bad)
 assert not bad, bad
 """
+
+
+def test_no_source_imports_a_model_library():
+    """No module of the port, nor chip_smoke.py, imports torchvision, timm
+    or segmentation_models_pytorch, not even inside a function (none is
+    on the GPU machine)."""
+    import re
+    pat = re.compile(r"^\s*(import|from)\s+(torchvision|timm|"
+                     r"segmentation_models_pytorch)\b", re.M)
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "segtran_tpu_torch")):
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    bad = [p for p in paths if pat.search(open(p).read())]
+    assert len(paths) > 60 and not bad, bad
 
 
 def test_chip_smoke_and_the_port_import_no_jax_and_no_pillow():

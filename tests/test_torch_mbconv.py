@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_variables, jvars
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 def _case(k, stride, expand, seed):

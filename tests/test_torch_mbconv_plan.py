@@ -20,6 +20,7 @@ from segtran_tpu_torch.kernels import _build
 from segtran_tpu_torch.kernels import mbconv as mb
 from segtran_tpu_torch.nn.backbones.efficientnet import build_block_specs
 from test_torch_mbconv import _both, _case
+from _torch_parity import one_torch_thread  # noqa: F401
 
 SMS = 132
 SMEM_MAX = 232448

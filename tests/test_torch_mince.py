@@ -13,6 +13,7 @@ import torch
 
 from _torch_options import ATOL, RTOL, _eval_pair, _pair
 from _torch_parity import jax_variables, jvars
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 def test_helpers_match_jax():

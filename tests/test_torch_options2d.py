@@ -17,6 +17,7 @@ import torch
 from _torch_options import (ATOL, RTOL, _configs, _eval_pair, _input_shape,
                             _pair)
 from _torch_parity import jvars, to_numpy
+from _torch_parity import one_torch_thread  # noqa: F401
 
 OPTIONS = {
     "nosqueeze": dict(use_squeezed_transformer=False),

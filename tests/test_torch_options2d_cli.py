@@ -10,6 +10,7 @@ import torch
 
 from _torch_options import ATOL, RTOL, _configs, _eval_pair, _pair
 from _torch_parity import jax_variables
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("code", ["rand", "sinu", "bias"])

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_variables, jvars
+from _torch_parity import one_torch_thread  # noqa: F401
 
 GRIDS = {2: (6, 5), 3: (4, 3, 5)}
 EMBED, RADIUS = 16, 2

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 from _torch_parity import jax_variables, jvars
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 def _frame(seed, h=200, w=256):

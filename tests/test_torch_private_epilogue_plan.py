@@ -20,6 +20,7 @@ from segtran_tpu_torch.kernels import _build
 from segtran_tpu_torch.kernels import expansion_epilogue as epi
 from test_torch_epilogue_plan import (DTYPES, F32, SMS, _inputs,
                                       emulate_steps)
+from _torch_parity import one_torch_thread  # noqa: F401
 
 # chip_smoke's private cases (B, M, N, F): the BraTS whole-volume layer at
 # 160x192x144 and 240x240x155, the non-reassociated fundus forward (batch

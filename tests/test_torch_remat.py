@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from _torch_train3d import ARGV, SHAPE
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 def _grads(model):

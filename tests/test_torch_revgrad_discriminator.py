@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_variables, jvars
+from _torch_parity import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 ADDA_ARGV = ["--task", "fundus", "--net", "unet-scratch", "--adv", "feat",
@@ -61,13 +62,15 @@ def test_discriminator_matches_jax(revgrad, avgpool):
     first = "model.1.weight" if revgrad else "model.0.weight"
     assert first in td.state_dict()
     x = np.random.RandomState(3).randn(2, 64, 64, 5).astype(np.float32)
-    ref = jd.apply(jvars(params, bstats), jnp.asarray(x), train=False)
+    ref = jax.jit(lambda v, xx: jd.apply(v, xx, train=False))(
+        jvars(params, bstats), jnp.asarray(x))
     with torch.no_grad():
         out = td.eval()(torch.from_numpy(x))
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
-    ref, st = jd.apply(jvars(params, bstats), jnp.asarray(x), train=True,
-                       mutable=["batch_stats"])
+    ref, st = jax.jit(lambda v, xx: jd.apply(
+        v, xx, train=True, mutable=["batch_stats"]))(
+        jvars(params, bstats), jnp.asarray(x))
     with torch.no_grad():
         out = td.train()(torch.from_numpy(x))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
@@ -102,8 +105,8 @@ def test_discriminator_train_vjp_fp64(revgrad):
             out, _ = jd.apply({"params": p, "batch_stats": s64}, xx,
                               train=True, mutable=["batch_stats"])
             return out.astype(jnp.float64)
-        _, vjp = jax.vjp(f, p64, jnp.asarray(x))
-        gp, gx = vjp(jnp.asarray(ct))
+        gp, gx = jax.jit(lambda p, xx, c: jax.vjp(f, p, xx)[1](c))(
+            p64, jnp.asarray(x), jnp.asarray(ct))
         want = {k: v.numpy() for k, v in state_dict_from_jax(
             jax.tree_util.tree_map(np.asarray, gp)).items()}
         want_x = np.asarray(gx)

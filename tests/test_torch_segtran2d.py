@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_variables, jvars
+from _torch_parity import one_torch_thread  # noqa: F401
 
 # fp32 end to end; the sums of a 60-conv backbone and two translayers
 # reorder between XLA and PyTorch, so logits agree to ~1e-5 relative
@@ -133,10 +134,15 @@ def test_later_slice_flags_raise():
                                              build_model_and_config,
                                              task_settings)
     from segtran_tpu_torch.nn.mince import CrossMinceAttFeatTrans
+    # the zoo is served since item 6a; a 3-D net is no 2-D --net
     args = build_argparser().parse_args(["--cpdir", "x", "--iter", "1",
-                                         "--net", "unet"])
-    with pytest.raises(NotImplementedError, match="later slice.*item 6"):
+                                         "--net", "vnet"])
+    with pytest.raises(ValueError, match="unknown --net vnet"):
         build_model_and_config(args, task_settings(args))
+    args = build_argparser().parse_args(["--cpdir", "x", "--iter", "1",
+                                         "--net", "unet", "--bb", "resnet18"])
+    model, cfg = build_model_and_config(args, task_settings(args))
+    assert cfg is None and type(model).__name__ == "UnetSMP"
     # item 5's --mince and --net unet-scratch --polyformer are served
     args = build_argparser().parse_args(
         ["--cpdir", "x", "--iter", "1", "--mince", "--nosqueeze",

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_variables, jvars
+from _torch_parity import one_torch_thread  # noqa: F401
 
 # fp32 end to end through I3D, the FPNs and one translayer
 RTOL, ATOL = 1e-4, 1e-4

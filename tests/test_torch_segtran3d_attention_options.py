@@ -9,6 +9,7 @@ import pytest
 
 from _torch_volume import ATOL, RTOL, eval_pair, model_pair
 from test_torch_segtran3d_options import SIZE, _cfgs, _volume
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("kw", [

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from _torch_volume import ATOL, RTOL, eval_pair, model_pair
+from _torch_parity import one_torch_thread  # noqa: F401
 
 SIZE = (32, 32, 16)
 

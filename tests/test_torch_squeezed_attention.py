@@ -4,6 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 def _inputs(seed, g, q, n, d, f, qk_scale):

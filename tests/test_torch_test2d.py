@@ -23,6 +23,7 @@ import torch
 
 from _torch_data2d import write_tree
 from _torch_parity import jax_variables
+from _torch_parity import one_torch_thread  # noqa: F401
 
 ARGV = ["--task", "fundus", "--ds", "train", "--split", "all", "--bb",
         "eff-tiny", "--translayers", "2", "--attractors", "8", "--origsize",
@@ -154,8 +155,8 @@ def test_parse_iters_matches_jax():
     (["--vis", "rf"], "item 6"), (["--robust"], "item 6"),
     (["--robustcp", "x"], "item 6"), (["--savefeat", "2"], "item 6"),
     (["--removefrag"], "item 6"), (["--testinterp", "32"], "item 6"),
-    (["--flop"], "item 6"), (["--net", "unet"], "item 6"),
-    (["--net", "setr"], "item 6"), (["--scanblocks"], "Leave out")])
+    (["--flop"], "item 6"), (["--savefeat", "4"], "item 6"),
+    (["--testinterp", "0.5"], "item 6"), (["--scanblocks"], "Leave out")])
 def test_later_slice_flags_raise(tmp_path, flags, item):
     from segtran_tpu_torch.cli import test2d
     with pytest.raises(NotImplementedError, match=item):

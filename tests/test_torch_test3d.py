@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_variables, jvars
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 def test_brats_label_maps_match_jax():
@@ -148,9 +149,13 @@ def test_test3d_cli_end_to_end_on_the_cpu(tmp_path):
 def test_later_slice_flags_raise():
     from segtran_tpu_torch.cli.test3d import (build_model_and_config,
                                               task_settings)
-    for extra in (["--net", "vnet"], ["--bb", "resnet34"],
-                  ["--segtran", "25d", "--bb", "i3d"], ["--spatialshard"],
+    for extra in (["--net", "vnet"], ["--net", "unet"], ["--spatialshard"],
                   ["--flop"]):
         args = _small_args(extra)
         with pytest.raises(NotImplementedError, match="later slice"):
+            build_model_and_config(args, task_settings(args))
+    # a backbone the model does not take is an error, not a later slice
+    for extra in (["--bb", "resnet34"], ["--segtran", "25d", "--bb", "i3d"]):
+        args = _small_args(extra)
+        with pytest.raises(ValueError, match="--bb"):
             build_model_and_config(args, task_settings(args))

@@ -26,6 +26,7 @@ import torch
 from _torch_data2d import jax_draws, raw_mask, write_tree
 from _torch_parity import jax_variables, to_numpy
 from _torch_train3d import GRAD_TOL, LOSS_RTOL, UPDATE_TOL, _fro_rel, _max_rel
+from _torch_parity import one_torch_thread  # noqa: F401
 
 ARGV = ["--task", "fundus", "--bb", "eff-tiny", "--translayers", "2",
         "--attractors", "8", "--origsize", "128", "--patchsize", "64",
@@ -292,10 +293,10 @@ def test_item5_flags_build(tmp_path, flags, check):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--opt", "sgd"], "item 6"), (["--opt", "adam"], "item 6"),
-    (["--optfilter", "backbone"], "item 6"), (["--tp", "2"], "item 6"),
+    (["--tp", "4"], "item 6"), (["--ndevices", "4"], "item 6"),
+    (["--net", "unet", "--ep"], "item 6"), (["--tp", "2"], "item 6"),
     (["--ep"], "item 6"), (["--ndevices", "2"], "item 6"),
-    (["--net", "unet"], "item 6"), (["--profile"], "item 6"),
+    (["--net", "setr", "--profile"], "item 6"), (["--profile"], "item 6"),
     (["--scanblocks"], "Leave out")])
 def test_later_slice_flags_raise(tmp_path, flags, item):
     from segtran_tpu_torch.cli import train2d

@@ -23,6 +23,7 @@ import torch
 
 from _torch_data2d import write_tree
 from _torch_parity import jvars
+from _torch_parity import one_torch_thread  # noqa: F401
 
 SEG_ARGV = ["--task", "fundus", "--bb", "eff-tiny", "--translayers", "1",
             "--attractors", "8", "--adv", "mask", "--attnconsist",

@@ -19,6 +19,7 @@ import torch
 from _torch_data2d import jax_draws, raw_mask
 from _torch_parity import jax_variables, to_numpy
 from _torch_train3d import GRAD_TOL, LOSS_RTOL, UPDATE_TOL, _fro_rel, _max_rel
+from _torch_parity import one_torch_thread  # noqa: F401
 
 BASE = ["--bb", "eff-tiny", "--translayers", "1", "--attractors", "8",
         "--bs", "2", "--dropout", "0", "--maxiter", "4", "--lrwarmup", "2",

@@ -20,6 +20,7 @@ import torch
 
 from _torch_parity import to_numpy
 from _torch_train3d import ARGV, SHAPE, check_two_train_steps, make_jax_side
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

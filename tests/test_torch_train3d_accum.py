@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from _torch_train3d import check_two_train_steps, make_jax_side
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,7 @@ import torch
 
 from _torch_volume import fast_variables
 from test_torch_attn_consist import _jax_cfg
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 def test_train3d_attnconsist_step_matches_jax():

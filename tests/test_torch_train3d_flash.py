@@ -7,6 +7,7 @@ tests/_torch_train3d.py for what is compared and the tolerances."""
 import pytest
 
 from _torch_train3d import check_two_train_steps, make_jax_side
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

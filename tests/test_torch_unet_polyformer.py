@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_variables, jvars
+from _torch_parity import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 DA_ARGV = ["--task", "fundus", "--net", "unet-scratch", "--polyformer",
@@ -81,12 +82,14 @@ def test_unet_matches_jax(mode):
         key = tm.polyformer.polyformer_layers[0].in_ator_trans
         assert hasattr(key, "key") == (mode == "target")
     x = np.random.RandomState(2).randn(2, 64, 64, 3).astype(np.float32)
-    ref = jm.apply(jvars(params, bstats), jnp.asarray(x), train=False)
+    ref = jax.jit(lambda v, xx: jm.apply(v, xx, train=False))(
+        jvars(params, bstats), jnp.asarray(x))
     with torch.inference_mode():
         out = tm.eval()(torch.from_numpy(x))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
-    ref, st = jm.apply(jvars(params, bstats), jnp.asarray(x), train=True,
-                       mutable=["batch_stats", "intermediates"])
+    ref, st = jax.jit(lambda v, xx: jm.apply(
+        v, xx, train=True, mutable=["batch_stats", "intermediates"]))(
+        jvars(params, bstats), jnp.asarray(x))
     tm.train().keep_features = True
     with torch.no_grad():
         out = tm(torch.from_numpy(x))
@@ -127,8 +130,8 @@ def test_unet_train_vjp_fp64():
             out, _ = jm.apply({"params": p, "batch_stats": s64}, xx,
                               train=True, mutable=["batch_stats"])
             return out.astype(jnp.float64)
-        _, vjp = jax.vjp(f, p64, jnp.asarray(x))
-        gp, gx = vjp(jnp.asarray(ct))
+        gp, gx = jax.jit(lambda p, xx, c: jax.vjp(f, p, xx)[1](c))(
+            p64, jnp.asarray(x), jnp.asarray(ct))
         want = {k: v.numpy() for k, v in state_dict_from_jax(
             jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64),
                                    gp)).items()}

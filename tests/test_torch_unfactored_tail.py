@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from _torch_volume import ATOL, RTOL, model_pair, train_pair
+from _torch_parity import one_torch_thread  # noqa: F401
 
 P_TINY = 1e-9
 
