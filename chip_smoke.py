@@ -173,7 +173,24 @@ Phases, each of which fails the run:
    resnet101, pranet, nnunet): 2 train2d.train() steps at bs 6 (bf16), ms
    per step and peak memory, test2d.evaluate_checkpoint on 8 frames, and
    the checkpoint's fp32 eval forward on the card against the CPU (max
-   |probability diff| <= 1e-3, TF32 off); no kernel launches.
+   |probability diff| <= 1e-3, TF32 off); no kernel launches; (e) the
+   3-D zoo at its published widths (VNet: 16 filters, group norm;
+   Modified3DUNet: 8 base filters; 4 modalities, the BraTS classes,
+   bf16): 2 train3d.train() steps at the recipe crop 112x112x96, bs 4, on
+   synthetic volumes (ms per step, peak memory), test3d's evaluate_volume
+   on a 160x192x144 volume with --wholevol and with the sliding window,
+   the fp32 eval forward on the card against the CPU on a 64x64x32 crop
+   (<= 1e-3, TF32 off); no kernel launches.
+
+13. import -- reference-format .pth files written from seeded port
+   weights (tests/_torch_refsd.py) through convert.cli --strict, each
+   import timed, the imported state_dict equal to the seeded one tensor
+   for tensor and its probabilities within 1e-6 of the seeded model's:
+   (a) the BraTS Segtran3d recipe, then test3d --wholevol --fused
+   --fusedepi --bf16 on a 160x192x144 volume (2 flash forwards, 1 private
+   tier); (b) the fundus flagship, then a batch of 8 288^2 patches with
+   --fusedepi --bf16 (1 per-mode, 2 all-modes launches); (c) the
+   importer's VNet and Modified3DUNet on a 112x112x96 crop.
 
 Before the last line it prints a JSON object with the fundus train step's
 and the fused backbone's numbers, one with the per-kernel numbers, and the
@@ -3550,8 +3567,133 @@ def zoo_net(torch, np, epi, sa, label, flags, frames, eval_frames, ckdir,
     return row
 
 
+# (e) the 3-D zoo at its published widths (the CLIs' VNet: 16 filters,
+# group norm; Modified3DUNet: 8 base filters), BraTS's 4 modalities and 4
+# classes, bf16
+ZOO3D_NETS = [("vnet", ["--net", "vnet"]), ("unet3d", ["--net", "unet"])]
+ZOO3D_STEPS, ZOO3D_BS = 2, 4
+ZOO3D_CPU_CROP = (64, 64, 32)
+
+
+def zoo3d_net(torch, np, epi, sa, label, flags, make_ds, ckdir, logger,
+              card):
+    """(e) for one 3-D net: 2 train3d.train() steps at the recipe crop
+    112x112x96, bs 4, on synthetic volumes, the CLI step's ms per step and
+    peak memory; test3d's evaluate_volume on one 160x192x144 volume with
+    --wholevol and with the sliding window; the fp32 eval forward on the
+    card against the CPU on a 64x64x32 crop (TF32 off). No kernel
+    launches."""
+    from segtran_tpu_torch.cli import test3d, train3d
+    from segtran_tpu_torch.train.trainer import build_optimizer
+    dev = torch.device("cuda")
+    reset_counts(epi, sa)
+    args = train3d.build_argparser().parse_args(
+        ["--task", "brats", "--bf16", "--device", "cuda", "--seed", "0",
+         "--bs", str(ZOO3D_BS), "--maxiter", str(ZOO3D_STEPS), "--saveiter",
+         str(ZOO3D_STEPS), "--ckptdir", ckdir] + flags)
+    task = train3d.task_settings(args)
+    model, cfg = train3d.build_model_and_config(args, task)
+    n_params = sum(p.numel() for p in model.parameters())
+    model = model.to(dev)
+    ds = make_ds(tuple(task["orig_patch_size"]))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt = train3d.train(model, ds, args, task, dev, cfg,
+                         os.path.join(ckdir, label), logger)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not os.path.isfile(os.path.join(ckpt, f"iter_{ZOO3D_STEPS}.pt")):
+        fail(f"zoo3d {label}: train() wrote no checkpoint")
+    opt = build_optimizer(model, lr=args.lr, decay=args.decay,
+                          t_total=100, warmup_ratio=0.05)
+    step = train3d.make_step(model, opt, args, task, dev)
+    batch = {k: torch.from_numpy(np.stack([ds[i][k] for i in range(
+        ZOO3D_BS)])).to(dev) for k in ("image", "label")}
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [float(step(batch)["loss"]) for _ in range(2)]
+    ms = (time.perf_counter() - t0) / 2 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del step, opt, batch
+    row = dict(params_m=n_params / 1e6, train_wall_s=wall, ms_per_step=ms,
+               peak_mem_gb=peak, losses=losses)
+    model.eval()
+    sample = synthetic_volume(np, VOLUMES[0], seed=30)
+    for how, extra in (("wholevol", ["--wholevol"]), ("sliding", [])):
+        targs = test3d.build_argparser().parse_args(
+            ["--task", "brats", "--bf16", "--device", "cuda", "--cpdir",
+             ckpt] + flags + extra)
+        test3d.evaluate_volume(model, sample, targs, task, dev)   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs, _, metrics = test3d.evaluate_volume(model, sample, targs,
+                                                   task, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if (tuple(probs.shape) != VOLUMES[0] + (4,)
+                or not bool(torch.isfinite(probs).all())
+                or not np.isfinite(metrics["dice"]).all()):
+            fail(f"zoo3d {label} {how}: probabilities {tuple(probs.shape)} "
+                 f"or Dice not finite")
+        row[f"{how}_s_per_volume"] = secs
+        row[f"{how}_dice"] = [float(d) for d in metrics["dice"]]
+        del probs
+    # fp32 on the card against the CPU, the trained weights
+    state = {k: v.float().cpu() for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    eargs = test3d.build_argparser().parse_args(
+        ["--task", "brats", "--device", "cpu", "--cpdir", ckpt] + flags)
+    model, _ = test3d.build_model_and_config(eargs, task)
+    model.load_state_dict(state, strict=True)
+    model.eval()
+    x = torch.from_numpy(synthetic_volume(np, ZOO3D_CPU_CROP, seed=31)[
+        "image"])[None]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        cpu = torch.sigmoid(model(x)).numpy()
+        model = model.to(dev)
+        gpu = torch.sigmoid(model(x.to(dev))).cpu().numpy()
+    torch.backends.cudnn.allow_tf32 = True
+    cpu_diff = float(np.abs(gpu - cpu).max())
+    row["card_vs_cpu_max_abs"] = cpu_diff
+    launches = kernel_launches(epi, sa)
+    del model
+    torch.cuda.empty_cache()
+    log(f"[zoo3d] {label}: {n_params / 1e6:.2f} M parameters; train3d.train() "
+        f"{ZOO3D_STEPS} steps at bs {ZOO3D_BS} (112x112x96) in {wall:.2f} s, "
+        f"the CLI step {ms:.1f} ms (losses {losses}), peak {peak:.2f} GB; "
+        f"test3d 160x192x144 --wholevol {row['wholevol_s_per_volume']:.3f} "
+        f"s, sliding window {row['sliding_s_per_volume']:.3f} s per volume; "
+        f"fp32 card vs CPU max |probability diff| {cpu_diff:.3e} (tol "
+        f"{ZOO_CPU_TOL:g}); kernel launches {launches} on {card}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"zoo3d {label}: non-finite loss")
+    if not cpu_diff <= ZOO_CPU_TOL:
+        fail(f"zoo3d {label}: the card's fp32 forward disagrees with the CPU")
+    if any(launches):
+        fail(f"zoo3d {label} launched kernels {launches}; it runs none")
+    return row
+
+
+def zoo3d_phase(torch, np, epi, sa, ckdir, logger, card):
+    """Phase 12 (e): VNet and Modified3DUNet through train3d and test3d."""
+    make_ds = synthetic_dataset(np, ZOO3D_BS, VOLUMES[0])
+    nets = {}
+    for label, flags in ZOO3D_NETS:
+        nets[label] = zoo3d_net(torch, np, epi, sa, label, flags, make_ds,
+                                ckdir, logger, card)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return nets
+
+
 def zoo_phase(torch, np, epi, sa, ckdir, logger, card):
-    """Phase 12: the 2-D zoo, and Segtran2d on ResNet-101."""
+    """Phase 12: the 2-D zoo, Segtran2d on ResNet-101, and (e) the 3-D
+    zoo."""
     t0 = time.perf_counter()
     perf = {"flash": check_flash(torch, sa, ZOO_FLASH_CASES),
             "epilogue": check_kernels(torch, epi, cases=ZOO_EPILOGUE_CASES)}
@@ -3571,8 +3713,216 @@ def zoo_phase(torch, np, epi, sa, ckdir, logger, card):
     if any(launches):
         fail(f"the zoo nets launched kernels {launches}; they run none")
     perf["nets"] = nets
+    perf["nets3d"] = zoo3d_phase(torch, np, epi, sa, ckdir, logger, card)
     perf["phase_s"] = time.perf_counter() - t0
     log(f"[zoo] phase in {perf['phase_s']:.1f} s on {card}")
+    return perf
+
+
+# ----------------------------------------------------------- phase 13 ----
+
+# Reference-format checkpoints (the reference's {'iter_num', 'model',
+# 'args'} .pth), written from seeded port weights by tests/_torch_refsd.py
+# and imported through convert.cli --strict: (a) the BraTS Segtran3d recipe
+# (I3D, 1 translayer 1024 -> 1024, 1024 attractors) evaluated with test3d
+# --wholevol --fused --fusedepi --bf16 (2 flash forwards, 1 private tier);
+# (b) the fundus flagship (eff-b4 at stem stride 1, 1792 -> 1792 -> 896 ->
+# 448, 256 attractors) on a batch of 8 288^2 patches with --fusedepi --bf16
+# (1 per-mode, 2 all-modes epilogue launches); (c) the importer's VNet
+# (batch norm, dropout) and Modified3DUNet. The imported state_dict must
+# equal the seeded one tensor for tensor, and its probabilities those of
+# the model that holds the seeded weights directly, within IMPORT_TOL (the
+# same tensors through the same kernels).
+IMPORT_TOL = 1e-6
+IMPORT_3D_ARGS = {"num_classes": 4, "orig_in_channels": 4}
+
+
+def import_checkpoint(torch, label, state, kind, args, ckdir, cfg=None):
+    """Write ``state`` as a reference .pth of ``kind``, import it with
+    ``convert.cli --strict``; (the imported state_dict, the import's wall
+    seconds). Fails unless it equals ``state`` tensor for tensor."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_refsd
+    from segtran_tpu_torch.convert import cli
+    from segtran_tpu_torch.train.checkpoint import load_checkpoint
+    os.makedirs(ckdir, exist_ok=True)
+    pth = _torch_refsd.write_reference_pth(
+        os.path.join(ckdir, f"{label}.pth"), state, kind, args)
+    t0 = time.perf_counter()
+    path = cli.main(["--pth", pth, "--out", os.path.join(ckdir, label),
+                     "--model", kind, "--strict"])
+    wall = time.perf_counter() - t0
+    sd = load_checkpoint(path, cfg)
+    same = set(sd) == set(state) and all(
+        torch.equal(sd[k], state[k].float()) for k in state)
+    n = sum(v.numel() for v in sd.values())
+    log(f"[import] {label}: {os.path.getsize(pth) / 1e6:.1f} MB reference "
+        f".pth, {n / 1e6:.2f} M values imported in {wall:.2f} s; equal to "
+        f"the seeded state_dict: {same}")
+    if not same:
+        fail(f"import {label}: the imported state_dict differs from the "
+             f"seeded one")
+    return sd, wall
+
+
+def _probs_diff(torch, a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def import_brats(torch, np, epi, sa, ckdir):
+    """(a)"""
+    from segtran_tpu_torch.cli import test3d
+    from segtran_tpu_torch.models.segtran3d import init_segtran3d
+    dev = torch.device("cuda")
+    args = test3d.build_argparser().parse_args(
+        WHOLEVOL_ARGV + ["--fused", "--fusedepi", "--cpdir", ckdir])
+    task = test3d.task_settings(args)
+    direct, cfg = test3d.build_model_and_config(args, task)
+    if (cfg.translayer_dims != (1024, 1024) or cfg.num_attractors != 1024
+            or cfg.backbone_type != "i3d"):
+        fail(f"unexpected BraTS config {cfg}")
+    state = init_segtran3d(direct, seed=40).state_dict()
+    pth_args = dict(IMPORT_3D_ARGS, num_attractors=cfg.num_attractors,
+                    num_translayers=1, num_modes=cfg.num_modes,
+                    input_patch_size=tuple(task["input_patch_size"]),
+                    tie_qk_scheme=cfg.tie_qk_scheme)
+    sd, wall = import_checkpoint(torch, "brats_segtran3d", state,
+                                 "segtran3d", pth_args, ckdir, cfg)
+    imported, _ = test3d.build_model_and_config(args, task)
+    imported.load_state_dict(sd, strict=True)
+    sample = synthetic_volume(np, VOLUMES[0], seed=41)
+    probs = {}
+    for name, model in (("direct", direct), ("imported", imported)):
+        model = model.to(dev).eval()
+        reset_counts(epi, sa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs[name], _, metrics = test3d.evaluate_volume(model, sample, args,
+                                                         task, dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = kernel_launches(epi, sa)
+        launches = (got[0], got[4], got[5])
+        model.cpu()
+    diff = _probs_diff(torch, probs["imported"], probs["direct"])
+    log(f"[import] BraTS Segtran3d 160x192x144 --wholevol --fused --fusedepi "
+        f"--bf16 on the imported weights: {secs:.3f} s per volume, launches "
+        f"(flash, private, full tier) {launches} (want (2, 1, 0)); max "
+        f"|probability diff| vs the seeded model {diff:.3e} (tol "
+        f"{IMPORT_TOL:g})")
+    if launches != (2, 1, 0):
+        fail(f"import BraTS: launches {launches}, want (2, 1, 0)")
+    if not (diff <= IMPORT_TOL and bool(torch.isfinite(probs["imported"])
+                                        .all())):
+        fail("import BraTS: the imported model disagrees with the seeded one")
+    return dict(import_s=wall, seconds_per_volume=secs,
+                launches=list(launches), max_abs_vs_direct=diff,
+                dice=[float(d) for d in metrics["dice"]])
+
+
+def import_fundus(torch, np, epi, sa, ckdir):
+    """(b)"""
+    from segtran_tpu_torch.cli import test2d, train2d
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    args = test2d.build_argparser().parse_args(
+        ["--task", "fundus", "--bb", "eff-b4", "--translayers", "3",
+         "--layercompress", "1,1,2,2", "--attractors", "256", "--bf16",
+         "--fusedepi", "--device", "cuda", "--cpdir", ckdir])
+    task = train2d.task_settings(args)
+    direct, cfg = test2d.build_model(args, task)
+    if cfg.translayer_dims != (1792, 1792, 896, 448) \
+            or cfg.num_attractors != 256:
+        fail(f"unexpected fundus flagship config {cfg}")
+    state = init_with_reference_schemes(direct, cfg, seed=42).state_dict()
+    pth_args = {"backbone_type": cfg.backbone_type,
+                "num_classes": cfg.num_classes,
+                "num_attractors": cfg.num_attractors,
+                "num_modes": cfg.num_modes, "num_translayers": 3,
+                "translayer_compress_ratios": [1.0, 1.0, 2.0, 2.0],
+                "in_fpn_layers": "34", "out_fpn_layers": "1234",
+                "qk_have_bias": cfg.qk_have_bias,
+                "tie_qk_scheme": cfg.tie_qk_scheme,
+                "patch_size": tuple(task["patch_size"])}
+    sd, wall = import_checkpoint(torch, "fundus_flagship", state,
+                                 "segtran2d", pth_args, ckdir, cfg)
+    imported, _ = test2d.build_model(args, task)
+    imported.load_state_dict(sd, strict=True)
+    x = fundus_batch(torch, 8, seed=43)["image"]
+    probs = {}
+    for name, model in (("direct", direct), ("imported", imported)):
+        model = model.cuda().eval()
+        reset_counts(epi, sa)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            probs[name] = torch.sigmoid(model(x).float())
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = (epi.fused_mid_output_pool_permode.launches,
+                    epi.fused_mid_output_pool.launches,
+                    epi.fused_private_output_pool.launches,
+                    sa.fused_cross_attention.launches)
+        model.cpu()
+    diff = _probs_diff(torch, probs["imported"], probs["direct"])
+    log(f"[import] fundus flagship batch 8 x 288^2 --fusedepi --bf16 on the "
+        f"imported weights: {ms:.2f} ms, launches (per-mode, all modes, "
+        f"private tier, flash) {launches} (want (1, 2, 0, 0)); max "
+        f"|probability diff| vs the seeded model {diff:.3e} (tol "
+        f"{IMPORT_TOL:g})")
+    if launches != (1, 2, 0, 0):
+        fail(f"import fundus: launches {launches}, want (1, 2, 0, 0)")
+    if not (diff <= IMPORT_TOL and bool(torch.isfinite(probs["imported"])
+                                        .all())):
+        fail("import fundus: the imported model disagrees with the seeded "
+             "one")
+    return dict(import_s=wall, ms_batch8=ms, launches=list(launches),
+                max_abs_vs_direct=diff)
+
+
+def import_zoo3d(torch, np, epi, sa, ckdir):
+    """(c): the importer's VNet and Modified3DUNet, fp32, on a recipe
+    crop."""
+    from segtran_tpu_torch.convert import cli
+    x = torch.from_numpy(synthetic_volume(np, (112, 112, 96), seed=45)[
+        "image"])[None].cuda()
+    rows = {}
+    for kind in ("vnet", "unet3d"):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(44)
+            direct = cli.build_model(kind, None, IMPORT_3D_ARGS)
+        state = {k: v.clone() for k, v in direct.state_dict().items()}
+        sd, wall = import_checkpoint(torch, kind, state, kind,
+                                     IMPORT_3D_ARGS, ckdir)
+        imported = cli.build_model(kind, None, IMPORT_3D_ARGS)
+        imported.load_state_dict(sd, strict=True)
+        reset_counts(epi, sa)
+        with torch.inference_mode():
+            probs = [torch.sigmoid(m.cuda().eval()(x)) for m in (direct,
+                                                                 imported)]
+        diff = _probs_diff(torch, probs[1], probs[0])
+        launches = kernel_launches(epi, sa)
+        norm = ("batch norm, dropout" if kind == "vnet"
+                else "instance norm, dropout")
+        log(f"[import] {kind} ({norm}): max |probability diff| vs the "
+            f"seeded model on a 112x112x96 crop {diff:.3e} (tol "
+            f"{IMPORT_TOL:g}); kernel launches {launches}")
+        if not diff <= IMPORT_TOL or any(launches):
+            fail(f"import {kind}: the imported model disagrees with the "
+                 f"seeded one, or launched kernels {launches}")
+        rows[kind] = dict(import_s=wall, max_abs_vs_direct=diff)
+        del direct, imported, probs
+    return rows
+
+
+def import_phase(torch, np, epi, sa, ckdir, card):
+    """Phase 13: reference checkpoints imported through convert.cli."""
+    t0 = time.perf_counter()
+    perf = {"brats_segtran3d": import_brats(torch, np, epi, sa, ckdir),
+            "fundus_flagship": import_fundus(torch, np, epi, sa, ckdir)}
+    torch.cuda.empty_cache()
+    perf.update(import_zoo3d(torch, np, epi, sa, ckdir))
+    perf["phase_s"] = time.perf_counter() - t0
+    log(f"[import] phase in {perf['phase_s']:.1f} s on {card}")
     return perf
 
 
@@ -3586,7 +3936,7 @@ def main(argv=None) -> int:
                                        "training", "mbconv",
                                        "fundus_training", "fundus_cli",
                                        "fundus_options", "volume_options",
-                                       "da", "zoo"],
+                                       "da", "zoo", "import"],
                     default=None,
                     help="build and run only this check, print no result")
     only = ap.parse_args(argv).only
@@ -3679,6 +4029,13 @@ def main(argv=None) -> int:
             shutil.rmtree(ckdir, ignore_errors=True)
         print(json.dumps({"zoo": perf, "card": card}), flush=True)
         return 0
+    if only == "import":
+        try:
+            perf = import_phase(torch, np, epi, sa, ckdir, card)
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        print(json.dumps({"import": perf, "card": card}), flush=True)
+        return 0
     if only == "training":
         try:
             train_perf, _ = training(torch, np, sa, ckdir, logger)
@@ -3736,6 +4093,11 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     log(f"[zoo] {json.dumps(zoo_perf)} on {card}")
+    try:
+        import_perf = import_phase(torch, np, epi, sa, ckdir, card)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"[import] {json.dumps(import_perf)} on {card}")
 
     replaces = {
         "fused_mid_output_pool": "segtran_tpu/kernels/expansion_epilogue.py:333",

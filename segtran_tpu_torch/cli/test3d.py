@@ -2,17 +2,22 @@
 or sliding-window inference, Dice/Jaccard (+ HD95/ASD with medpy),
 prediction export.
 
-Counterpart of ``segtran_tpu/cli/test3d.py`` for ``--net segtran`` on
-the BraTS, atria and MSD tasks. Per volume (``evaluate_volume``): the
-whole volume, zero-padded up to multiples of (16, 16, 8), in one forward
-(``--wholevol``) or overlapping windows; sigmoid; BraTS predictions made
+Counterpart of ``segtran_tpu/cli/test3d.py`` on the BraTS, atria and
+MSD tasks: ``--net segtran`` (Segtran3d, ``--segtran 25d`` Segtran25d),
+``--net vnet`` (VNet with group norm) and ``--net unet``
+(Modified3DUNet); ``--fused`` and ``--fusedepi`` reach only Segtran.
+Per volume (``evaluate_volume``): the whole volume, zero-padded up to
+multiples of (16, 16, 8), in one forward (``--wholevol``) or
+overlapping windows; sigmoid; BraTS predictions made
 class-consistent (WT >= TC >= ET); per-class metrics on the hardened map;
 with ``--outdir`` the raw-label prediction (BraTS: ET written back as 4)
 as ``.npz`` (and ``.nii.gz`` when nibabel is installed), tarred into
 ``pred.tar``. ``--testinterp`` scores the ground truth down- and
-upsampled instead of a model. The flags of a later slice of the port (the
-3-D zoo nets, multi-GPU, ``--flop``) raise NotImplementedError naming
-their ROADMAP item.
+upsampled instead of a model. The 3-D zoo nets halve every axis four
+times: a (padded) volume whose sizes are not multiples of 16 raises a
+ValueError naming its shape. The flags of a later slice of the port
+(multi-GPU, ``--flop``) raise NotImplementedError naming their ROADMAP
+item.
 
 Example (GPU; h5 files need h5py):
   python -m segtran_tpu_torch.cli.test3d --task brats --ds 2019valid \\
@@ -42,13 +47,14 @@ from ..infer.metrics import (dice_score_nd, jaccard_score, log_metric_stack,
 from ..infer.sliding import sliding_window_3d
 from ..models.segtran3d import Segtran3d, init_segtran3d
 from ..models.segtran25d import Segtran25d
+from ..models.unet3d import Modified3DUNet
+from ..models.vnet import VNet
 from ..ops.resize import resize_linear
 from ..train.checkpoint import load_checkpoint
 
 # the strides of every 3D variant: x/y by 16, depth by 8
 WHOLEVOL_MULTIPLES = (16, 16, 8)
 
-_ZOO = "ROADMAP Queue 1 item 6a-ii: the 3-D nets vnet and unet3d"
 _MULTI_GPU = "ROADMAP Queue 1 item 6b: parallel/"
 _TOOLS = "ROADMAP Queue 1 item 6c: the tools"
 
@@ -67,7 +73,8 @@ def add_model_args(p) -> None:
     p.add_argument("--xyzpermute", dest="xyz_permute", default=None,
                    help="spatial axis permutation, e.g. 1,2,0")
     p.add_argument("--dataroot", default="../data")
-    p.add_argument("--net", default="segtran")
+    p.add_argument("--net", default="segtran",
+                   choices=["segtran", "vnet", "unet"])
     p.add_argument("--segtran", dest="segtran_type", default="3d",
                    choices=["3d", "25d"])
     p.add_argument("--bb", dest="backbone_type", default=None,
@@ -157,16 +164,16 @@ def refuse_later_slices(args, extra=()) -> None:
     """NotImplementedError naming the ROADMAP item of a flag whose modules
     are not ported yet; ValueError for a backbone the model does not
     take."""
-    later = [(args.net != "segtran", f"--net {args.net}", _ZOO), *extra]
-    for bad, flag, where in later:
+    for bad, flag, where in extra:
         if bad:
             raise NotImplementedError(
                 f"{flag} is not ported yet: it belongs to a later slice of "
                 f"the PyTorch port ({where})")
     bb = args.backbone_type
-    if bb is not None and not (bb.startswith(("eff-", "resnet"))
-                               if args.segtran_type == "25d"
-                               else bb == "i3d"):
+    if args.net != "segtran" or bb is None:
+        return
+    if not (bb.startswith(("eff-", "resnet")) if args.segtran_type == "25d"
+            else bb == "i3d"):
         raise ValueError(f"--bb {bb}: the 3-D Segtran takes i3d, the 2.5D "
                          f"one an eff-* or resnet backbone")
 
@@ -276,9 +283,27 @@ def build_model(cfg, task):
     return cls(cfg, patch_size=tuple(task["input_patch_size"]))
 
 
+def build_zoo_model(args, task, seed: int = 0):
+    """``--net vnet`` (VNet over the task's modalities, group norm) or
+    ``--net unet`` (Modified3DUNet), as JAX builds them
+    (cli/train3d.py:235-245, cli/test3d.py:243-250), with PyTorch's
+    default conv inits drawn from ``seed``."""
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    c, n = task["orig_in_channels"], task["num_classes"]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        if args.net == "vnet":
+            return VNet(n_channels=c, num_classes=n,
+                        normalization="groupnorm", dtype=dtype)
+        return Modified3DUNet(in_channels=c, num_classes=n, dtype=dtype)
+
+
 def build_model_and_config(args, task):
-    """``--net segtran`` as the JAX test3d builds it, in eval form."""
+    """The --net as the JAX test3d builds it, in eval form: Segtran and
+    its config, or a 3-D zoo net and None."""
     _refuse_later_slices(args)
+    if args.net != "segtran":
+        return build_zoo_model(args, task), None
     cfg = segtran_config(args, task)
     return build_model(cfg, task), cfg
 
@@ -420,7 +445,8 @@ def main(argv=None):
     results = {}
     for it in iters:
         if it is None:
-            init_segtran3d(model, seed=0)
+            if cfg is not None:
+                init_segtran3d(model, seed=0)
         else:
             model.load_state_dict(load_checkpoint(
                 os.path.join(args.cpdir, f"iter_{it}"), cfg), strict=True)

@@ -1,7 +1,11 @@
 """3D training of Segtran3d and Segtran25d on a CUDA GPU (BraTS, atria,
 MSD).
 
-Counterpart of ``segtran_tpu/cli/train3d.py`` for ``--net segtran``. Per
+Counterpart of ``segtran_tpu/cli/train3d.py``: ``--net segtran``
+(Segtran3d or ``--segtran 25d``), ``--net vnet`` and ``--net unet`` (the
+3-D zoo, ``cli/test3d.build_zoo_model``: PyTorch's default inits drawn
+from ``--seed``; ``--attnconsist`` is ignored for them with a warning, as
+in JAX; ``--fused`` and ``--fusedepi`` do not reach them). Per
 step (``make_step``): per-sample random rot90/flips, the n-hot mask (the
 BraTS regions, else one-hot classes), the batch's random zoom
 (``--randscale``), optional noise, a resize to ``--inputsize``; then the
@@ -12,9 +16,9 @@ BertAdam with warmup-linear over the reference's parameter groups.
 ``--fused`` runs the CUDA flash attention forward and backward in the
 fusion layers when ``--dropout 0``. Checkpoints ``iter_N.pt`` (BatchNorm
 statistics included) with their sidecar every ``--saveiter`` iterations;
-``--cp`` resumes from one. The flags of a later slice of the port (the
-3-D zoo nets, multi-GPU) raise NotImplementedError naming their ROADMAP
-item.
+``--cp`` resumes from one (a zoo net's sidecar holds ``"config":
+null``). The flags of a later slice of the port (multi-GPU) raise
+NotImplementedError naming their ROADMAP item.
 
 Example (GPU; h5 files need h5py):
   python -m segtran_tpu_torch.cli.train3d --task brats --split all \\
@@ -47,8 +51,8 @@ from ..train.da import attention_consistency_loss_3d, collect_attn_scores
 from ..train.trainer import build_optimizer, make_train_step
 from ..utils.meters import AverageMeters
 from .test3d import (_MULTI_GPU, add_model_args, build_model,
-                     make_dataset, refuse_later_slices, segtran_config,
-                     task_settings)
+                     build_zoo_model, make_dataset, refuse_later_slices,
+                     segtran_config, task_settings)
 
 
 def build_argparser():
@@ -111,8 +115,16 @@ train_task_settings = task_settings
 def build_model_and_config(args, task):
     """Segtran3d / Segtran25d in training form: the test3d model flags
     plus dropout, --outdrop, --attnconsist, --remat and the 2.5D
-    backbone's per-block recompute (JAX cli/train3d.py:247-294)."""
+    backbone's per-block recompute (JAX cli/train3d.py:247-294); or a
+    3-D zoo net drawn from --seed, and None."""
     _refuse_later_slices(args)
+    if args.net != "segtran":
+        if args.use_attn_consist_loss:
+            logging.getLogger("segtran_tpu_torch.train3d").warning(
+                "--attnconsist needs transformer attention scores; "
+                "ignored for --net %s", args.net)
+            args.use_attn_consist_loss = False
+        return build_zoo_model(args, task, seed=args.seed), None
     cfg = segtran_config(
         args, task, hidden_dropout_prob=args.dropout_prob,
         attention_probs_dropout_prob=args.dropout_prob,
@@ -243,6 +255,7 @@ def _logger(log_dir):
 
 
 def job_dir(args) -> str:
+    """As JAX names it, whatever the --net."""
     return os.path.join(args.ckptdir, f"segtran{args.segtran_type}-"
                         f"{args.task_name}-{time.strftime('%m%d%H%M')}")
 
@@ -317,7 +330,8 @@ def main(argv=None):
     if task.get("orig_in_channels_probed"):
         logger.info("orig_in_channels probed: %d", task["orig_in_channels"])
     model, cfg = build_model_and_config(args, task)
-    init_with_reference_schemes(model, cfg, seed=args.seed)
+    if cfg is not None:
+        init_with_reference_schemes(model, cfg, seed=args.seed)
     if args.checkpoint_path:
         path = args.checkpoint_path
         path = path[:-3] if path.endswith(".pt") else path

@@ -12,6 +12,15 @@ The reverse of the JAX package's torch importer (rules of
   ``kernel[::-1, ::-1]`` as ``[I, O, kh, kw]``: flax applies the kernel
   unflipped, torch's transposed conv flipped
 * 3-D conv ``kernel [kd, kh, kw, I, O]``  -> ``weight [O, I, kd, kh, kw]``
+* VNet's transposed up convs (``block_{five,six,seven,eight}_up/conv_0``,
+  ``kernel [k, k, k, I, O]``) -> ``ConvTranspose3d`` weight flipped in
+  every spatial axis, as ``[I, O, k, k, k]`` (the 2-D rule in 3-D)
+* Modified3DUNet: JAX names each helper ``Sequential``'s one conv flat;
+  with ``target`` they land at the reference's index
+  (``lrelu_conv_c1`` -> ``lrelu_conv_c1.1``, ``norm_lrelu_conv_cN`` ->
+  ``norm_lrelu_conv_cN.2``, ``up_lN`` ->
+  ``norm_lrelu_upscale_conv_norm_lrelu_lN.3``, ``conv_norm_lrelu_lN`` ->
+  ``conv_norm_lrelu_lN.0``)
 * MMPrivateLinear ``kernel [M, F, F]``    -> ``weight [M, F, F]`` as is
 * ``scale`` / ``bias``                    -> ``weight`` / ``bias``
 * ``attractors``, ``pos_embed``, ``biases`` (the sliding position
@@ -71,6 +80,15 @@ def _leaves(tree: Dict[str, Any], path=()) -> Iterator[Tuple[tuple, Any]]:
 _AS_IS = ("bias", "attractors", "pos_embed", "biases", "vfeat_bias",
           "position_embeddings", "cls_token")
 _TRANSPOSED = re.compile(r"out_conv|up\d+")
+_TRANSPOSED_3D = re.compile(r"block_[a-z]+_up")
+# (JAX scope prefix, the port's) tried where the target holds no spelling
+# of the generic rules: Modified3DUNet's helper Sequentials
+_TARGET_RENAMES = [
+    (re.compile(r"^lrelu_conv_c1\."), "lrelu_conv_c1.1."),
+    (re.compile(r"^(norm_lrelu_conv_c\d)\."), r"\1.2."),
+    (re.compile(r"^up_(l\d)\."), r"norm_lrelu_upscale_conv_norm_lrelu_\1.3."),
+    (re.compile(r"^(conv_norm_lrelu_l\d)\."), r"\1.0."),
+]
 
 
 def _candidate_keys(path: tuple):
@@ -90,6 +108,9 @@ def _param(path: tuple, arr: np.ndarray, where: str) -> Tuple[str, np.ndarray]:
         if (arr.ndim == 4 and _TRANSPOSED.fullmatch(path[-2])
                 and arr.shape[:2] != (1, 1)):
             return "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
+        if (arr.ndim == 5 and path[-2] == "conv_0" and len(path) > 2
+                and _TRANSPOSED_3D.fullmatch(path[-3])):
+            return "weight", arr[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
         if arr.ndim == 3 and attn:
             if path[-2] == "out":
                 return "weight", arr.reshape(-1, arr.shape[-1]).T
@@ -125,8 +146,8 @@ def _deform_kernel(params, path, arr):
         3, 2, 0, 1)
 
 
-def _converted(params, batch_stats, target):
-    """(key, numpy value) of every leaf; ``target`` as in
+def _converted(params, batch_stats, target, unknown=None):
+    """(key, numpy value) of every leaf; ``target`` and ``unknown`` as in
     ``state_dict_from_jax``."""
     def key(path):
         keys = _candidate_keys(path)
@@ -134,6 +155,11 @@ def _converted(params, batch_stats, target):
             for k in keys:
                 if k in target:
                     return k
+            for k in keys:
+                for pat, rep in _TARGET_RENAMES:
+                    renamed = pat.sub(rep, k)
+                    if renamed in target:
+                        return renamed
         return keys[0]
 
     for path, arr in _leaves(params):
@@ -142,7 +168,13 @@ def _converted(params, batch_stats, target):
         if path[-1] == "conv_kernel":
             name, val = "conv.weight", _deform_kernel(params, path, arr)
         else:
-            name, val = _param(path, arr, where)
+            try:
+                name, val = _param(path, arr, where)
+            except ValueError:
+                if unknown is None:
+                    raise
+                unknown.append(where)
+                continue
         yield key(path[:-1] + tuple(name.split("."))), val
     for path, arr in _leaves(batch_stats or {}):
         leaf = {"mean": "running_mean", "var": "running_var"}.get(path[-1])
@@ -154,10 +186,13 @@ def _converted(params, batch_stats, target):
 
 def state_dict_from_jax(params: Dict[str, Any],
                         batch_stats: Dict[str, Any] | None = None,
-                        target=None) -> Dict[str, torch.Tensor]:
+                        target=None, unknown=None
+                        ) -> Dict[str, torch.Tensor]:
     """params / batch_stats: nested dicts of numpy arrays (e.g.
     ``jax.tree_util.tree_map(np.asarray, variables)``). ``target``: the
     names the port's model holds (its ``state_dict``), to choose among the
-    spellings of a ``name_N`` scope; without it the generic rule."""
+    spellings of a ``name_N`` scope; without it the generic rule.
+    ``unknown``: a list that takes the path of every params leaf no rule
+    covers, instead of raising."""
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in _converted(params, batch_stats, target)}
+            for k, v in _converted(params, batch_stats, target, unknown)}

@@ -94,13 +94,17 @@ class AttentionBlock(nn.Module):
 
 
 class AttUNet(nn.Module):
-    """AttU_Net; ``recurrent=True`` R2AttU_Net (JAX's attention-free
-    variants, which no CLI builds, are not ported)."""
+    """AttU_Net; ``recurrent=True`` R2AttU_Net; ``use_attention=False``
+    drops the gates (the reference's U_Net / R2U_Net, JAX's
+    ``AttUNet(use_attention=False)``; no CLI builds them): the skip goes
+    in as it is."""
 
     def __init__(self, num_classes: int = 1, recurrent: bool = False,
-                 t: int = 2, in_channels: int = 3, dtype=torch.float32):
+                 t: int = 2, in_channels: int = 3,
+                 use_attention: bool = True, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.use_attention = use_attention
         block = ((lambda i, o: RRCNNBlock(i, o, t, dtype)) if recurrent
                  else (lambda i, o: ConvBlock(i, o, dtype)))
         widths = (64, 128, 256, 512, 1024)
@@ -111,8 +115,9 @@ class AttUNet(nn.Module):
         for lvl in (5, 4, 3, 2):
             out = widths[lvl - 2]
             setattr(self, f"Up{lvl}", UpConv(widths[lvl - 1], out, dtype))
-            setattr(self, f"Att{lvl}", AttentionBlock(out, out, out // 2,
-                                                      dtype))
+            if use_attention:
+                setattr(self, f"Att{lvl}", AttentionBlock(out, out, out // 2,
+                                                          dtype))
             setattr(self, f"Up_conv{lvl}", block(2 * out, out))
         self.Conv_1x1 = Conv2d(64, num_classes, 1)
 
@@ -124,6 +129,8 @@ class AttUNet(nn.Module):
         d = xs[-1]
         for lvl in (5, 4, 3, 2):
             d = getattr(self, f"Up{lvl}")(d)
-            skip = getattr(self, f"Att{lvl}")(d, xs[lvl - 2])
+            skip = xs[lvl - 2]
+            if self.use_attention:
+                skip = getattr(self, f"Att{lvl}")(d, skip)
             d = getattr(self, f"Up_conv{lvl}")(torch.cat([skip, d], 1))
         return nhwc(self.Conv_1x1.run(d, dt).float())

@@ -3,9 +3,10 @@
 Counterpart of ``segtran_tpu/models/nested_unet.py`` (reference
 code/networks/nested_unet.py): VGG blocks (conv3x3 + BN + ReLU, twice)
 over the nested dense skip grid, 2x2 max pools down and bilinear
-``align_corners=True`` 2x upsamples, a 1x1 head (JAX's deep-supervision
-heads, which no CLI builds, are not ported). NHWC in, fp32 NHWC logits
-out; runs NCHW. Module names are the reference's (``conv1_2.bn1``).
+``align_corners=True`` 2x upsamples, a 1x1 head ``final``; with
+``deep_supervision`` (which no CLI builds) four heads ``final1..4`` on
+nodes (0, 1..4), a list of logits. NHWC in, fp32 NHWC logits out; runs
+NCHW. Module names are the reference's (``conv1_2.bn1``).
 """
 from __future__ import annotations
 
@@ -42,15 +43,20 @@ def _in_ch(i, j, input_channels):
 
 class NestedUNet(nn.Module):
     def __init__(self, num_classes: int, input_channels: int = 3,
-                 dtype=torch.float32):
+                 deep_supervision: bool = False, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.deep_supervision = deep_supervision
         for i in range(5):
             for j in range(5 - i):
                 setattr(self, f"conv{i}_{j}",
                         VGGBlock(_in_ch(i, j, input_channels), NB[i], NB[i],
                                  dtype))
-        self.final = Conv2d(NB[0], num_classes, 1)
+        if deep_supervision:
+            for i in range(1, 5):
+                setattr(self, f"final{i}", Conv2d(NB[0], num_classes, 1))
+        else:
+            self.final = Conv2d(NB[0], num_classes, 1)
 
     def forward(self, x):
         dt = self.dtype
@@ -68,4 +74,7 @@ class NestedUNet(nn.Module):
                     src = torch.cat([node[i, k] for k in range(j)]
                                     + [up(node[i + 1, j - 1])], 1)
                 node[i, j] = blk(src)
+        if self.deep_supervision:
+            return [nhwc(getattr(self, f"final{j}").run(node[0, j], dt)
+                         .float()) for j in range(1, 5)]
         return nhwc(self.final.run(node[0, 4], dt).float())

@@ -64,10 +64,10 @@ class Segtran3d(nn.Module):
         self.cfg = cfg
         self.input_scale = tuple(float(s) for s in input_scale)
         if cfg.backbone_type != "i3d":
-            raise NotImplementedError(
-                f"backbone {cfg.backbone_type} is not ported yet: it belongs "
-                f"to a later slice of the port (ROADMAP Queue 1 item 6, the "
-                f"model zoo)")
+            raise ValueError(
+                f"backbone {cfg.backbone_type}: the 3-D Segtran takes one "
+                f"backbone, i3d (as JAX's Segtran3d, which builds only "
+                f"I3DFeatures)")
         c = cfg.orig_in_channels
         if c != 3:
             scheme = cfg.inchan_to3_scheme

@@ -107,19 +107,26 @@ class SETRBackbone(nn.Module):
 
 
 class SETRUpHead(nn.Module):
-    """The decode head (num_conv 4): tokens [B, 1 + N or N, D] on a
-    (gh, gw) grid -> logits [B, num_classes, 16 gh, 16 gw]."""
+    """The decode head: tokens [B, 1 + N or N, D] on a (gh, gw) grid ->
+    logits [B, num_classes, 16 gh, 16 gw] (``num_conv`` 4, the
+    progressive upsampling) or [B, num_classes, 4 gh, 4 gw] (``num_conv``
+    2, the reference's auxiliary-head shape: one conv3x3 + BN + ReLU, a 4x
+    upsample, the 1x1 classifier)."""
 
-    def __init__(self, embed_dim, num_classes, dtype=torch.float32):
+    def __init__(self, embed_dim, num_classes, dtype=torch.float32,
+                 num_conv: int = 4):
         super().__init__()
-        self.dtype = dtype
+        if num_conv not in (2, 4):
+            raise ValueError(f"num_conv={num_conv} not in (2, 4)")
+        self.dtype, self.num_conv = dtype, num_conv
         self.norm = LayerNorm(embed_dim, 1e-6, dtype=dtype)
+        n_mid = {2: 1, 4: 4}[num_conv]        # conv3x3 + BN + ReLU stages
         cin = embed_dim
-        for i in range(4):
+        for i in range(n_mid):
             setattr(self, f"conv_{i}", Conv2d(cin, 256, 3, padding=1))
             setattr(self, f"syncbn_fc_{i}", BatchNorm(256))
             cin = 256
-        self.conv_4 = Conv2d(256, num_classes, 1)
+        setattr(self, f"conv_{n_mid}", Conv2d(256, num_classes, 1))
 
     def forward(self, tokens, grid):
         dt = self.dtype
@@ -129,6 +136,10 @@ class SETRUpHead(nn.Module):
         x = self.norm(tokens)
         b, _, c = x.shape
         x = x.transpose(1, 2).reshape(b, c, gh, gw)
+        if self.num_conv == 2:
+            x = bn_relu(self.conv_0, self.syncbn_fc_0, x, dt)
+            x = resize_nchw(x, (x.shape[2] * 4, x.shape[3] * 4))
+            return self.conv_1.run(x, dt)
         for i in range(4):
             x = bn_relu(getattr(self, f"conv_{i}"),
                         getattr(self, f"syncbn_fc_{i}"), x, dt)
@@ -140,20 +151,22 @@ class SETRUpHead(nn.Module):
 
 class SETR_PUP(nn.Module):
     """The fundus recipe's ViT-Large by default (embed 1024, depth 24,
-    heads 16, patch 16, dropout 0.1); ``img_size`` (H, W). JAX's
-    auxiliary-head shape (num_conv 2), which no CLI builds, is not
-    ported."""
+    heads 16, patch 16, dropout 0.1); ``img_size`` (H, W); ``num_conv``
+    2 takes the auxiliary-head shape as the decode head (JAX
+    ``SETR_PUP(num_conv=2)``; no CLI builds it)."""
 
     def __init__(self, num_classes: int = 3, img_size=(288, 288),
                  patch: int = 16, embed_dim: int = 1024, depth: int = 24,
                  num_heads: int = 16, mlp_ratio: float = 4.0,
-                 drop_rate: float = 0.1, dtype=torch.float32):
+                 drop_rate: float = 0.1, num_conv: int = 4,
+                 dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.backbone = SETRBackbone(img_size, patch, embed_dim, depth,
                                      num_heads, mlp_ratio, drop_rate,
                                      dtype=dtype)
-        self.decode_head = SETRUpHead(embed_dim, num_classes, dtype)
+        self.decode_head = SETRUpHead(embed_dim, num_classes, dtype,
+                                      num_conv)
 
     def forward(self, x):
         h, w = x.shape[1:3]

@@ -146,12 +146,12 @@ class _Conv(nn.Conv2d):
 
 class FoldedBatchNorm(nn.Module):
     """BatchNorm folded into one per-channel affine,
-    ``a = weight * rsqrt(var + eps)``, ``b = bias - mean * a`` in fp32,
-    applied as ``x * a + b`` in the compute dtype (eps 1e-3, momentum 0.99,
-    TF convention). In training, mean and var are the batch's: fp32
-    ``E[x]`` and the biased ``E[x^2] - E[x]^2`` with no clamp, as JAX's
-    ``FoldedBatchNorm`` takes them; the running statistics move toward
-    them."""
+    ``a = weight * rsqrt(var + eps)``, ``b = bias - mean * a`` in fp32
+    (fp64 for an fp64 ``x``), applied as ``x * a + b`` in the compute
+    dtype (eps 1e-3, momentum 0.99, TF convention). In training, mean and
+    var are the batch's, in that type: ``E[x]`` and the biased ``E[x^2] -
+    E[x]^2`` with no clamp, as JAX's ``FoldedBatchNorm`` takes them; the
+    running statistics move toward them."""
 
     def __init__(self, feats: int, eps: float = 1e-3, momentum: float = 0.99):
         super().__init__()
@@ -162,23 +162,24 @@ class FoldedBatchNorm(nn.Module):
         self.eps = eps
         self.momentum = momentum
 
-    def folded(self, mean=None, var=None):
-        """(a, b) fp32, from the running statistics unless given."""
-        return fold_bn(self.weight.float(), self.bias.float(),
-                       self.running_mean.float() if mean is None else mean,
-                       self.running_var.float() if var is None else var,
+    def folded(self, mean=None, var=None, ct=torch.float32):
+        """(a, b) in ``ct``, from the running statistics unless given."""
+        return fold_bn(self.weight.to(ct), self.bias.to(ct),
+                       self.running_mean.to(ct) if mean is None else mean,
+                       self.running_var.to(ct) if var is None else var,
                        self.eps)
 
     def run(self, x, dtype):                      # x: [B, C, *spatial]
+        ct = torch.promote_types(x.dtype, torch.float32)
         if self.training:
             dims = [0] + list(range(2, x.dim()))
-            xf = x.float()
+            xf = x.to(ct)
             mean = xf.mean(dims)
             var = xf.square().mean(dims) - mean.square()
             update_running_stats(self, mean, var, self.momentum)
-            a, b = self.folded(mean, var)
+            a, b = self.folded(mean, var, ct)
         else:
-            a, b = self.folded()
+            a, b = self.folded(ct=ct)
         shape = (-1,) + (1,) * (x.dim() - 2)
         return x * a.to(dtype).view(shape) + b.to(dtype).view(shape)
 

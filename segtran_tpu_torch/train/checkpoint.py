@@ -88,5 +88,7 @@ def load_checkpoint(path: str, cfg=None, strict_config: bool = True):
     if cfg is not None and os.path.isfile(cfg_json):
         with open(cfg_json) as f:
             saved = json.load(f)
-        check_config_consistency(saved.get("config", {}), cfg, strict_config)
+        # a model without a config, or a backbone-only payload, saves null
+        check_config_consistency(saved.get("config") or {}, cfg,
+                                 strict_config)
     return sd

@@ -25,7 +25,9 @@ for want in ("kernels.mbconv", "nn.remat", "nn.backbones.efficientnet",
              "nn.vit", "ops.deform_conv", "models.unet_smp",
              "models.deeplab", "models.pranet", "models.nested_unet",
              "models.unet_3plus", "models.att_unet", "models.generic_unet",
-             "models.dunet", "models.transunet", "models.setr"):
+             "models.dunet", "models.transunet", "models.setr",
+             "convert.torch_import", "convert.cli", "models.vnet",
+             "models.unet3d"):
     assert "segtran_tpu_torch." + want in names, want
 for n in names:
     importlib.import_module(n)
@@ -53,6 +55,8 @@ import chip_smoke
 import segtran_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
+sys.path.insert(0, "tests")
+import _torch_refsd          # the reference-format writer phase 13 imports
 bad = sorted(k for k in sys.modules if k.split(".")[0] in
              ("jax", "jaxlib", "flax", "orbax", "segtran_tpu", "PIL"))
 print(bad)
@@ -75,9 +79,11 @@ def test_no_source_imports_a_model_library():
 
 
 def test_chip_smoke_and_the_port_import_no_jax_and_no_pillow():
-    """chip_smoke.py and every module it reaches import neither JAX, nor
-    the JAX package, nor Pillow, which the GPU machine lacks: reading
-    image files imports it at use."""
+    """chip_smoke.py and every module it reaches (the port, and
+    tests/_torch_refsd.py, which its import phase writes reference
+    checkpoints with) import neither JAX, nor the JAX package, nor
+    Pillow, which the GPU machine lacks: reading image files imports it
+    at use."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", _SMOKE_PROBE], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=240)

@@ -149,13 +149,32 @@ def test_test3d_cli_end_to_end_on_the_cpu(tmp_path):
 def test_later_slice_flags_raise():
     from segtran_tpu_torch.cli.test3d import (build_model_and_config,
                                               task_settings)
-    for extra in (["--net", "vnet"], ["--net", "unet"], ["--spatialshard"],
-                  ["--flop"]):
+    for extra in (["--spatialshard"], ["--flop"]):
         args = _small_args(extra)
         with pytest.raises(NotImplementedError, match="later slice"):
             build_model_and_config(args, task_settings(args))
+    # the 3-D zoo nets are ported: they build, with no config
+    for net in ("vnet", "unet"):
+        args = _small_args(["--net", net])
+        model, cfg = build_model_and_config(args, task_settings(args))
+        assert cfg is None and type(model).__name__ == {
+            "vnet": "VNet", "unet": "Modified3DUNet"}[net]
     # a backbone the model does not take is an error, not a later slice
     for extra in (["--bb", "resnet34"], ["--segtran", "25d", "--bb", "i3d"]):
         args = _small_args(extra)
         with pytest.raises(ValueError, match="--bb"):
             build_model_and_config(args, task_settings(args))
+
+
+def test_segtran3d_takes_only_the_i3d_backbone():
+    """The model itself refuses another backbone with a ValueError naming
+    i3d (JAX's Segtran3d builds only I3DFeatures)."""
+    import dataclasses
+    from segtran_tpu_torch.cli.test3d import (build_model_and_config,
+                                              task_settings)
+    from segtran_tpu_torch.models.segtran3d import Segtran3d
+    args = _small_args([])
+    _, cfg = build_model_and_config(args, task_settings(args))
+    for bb in ("eff-b4", "resnet50"):
+        with pytest.raises(ValueError, match="i3d"):
+            Segtran3d(dataclasses.replace(cfg, backbone_type=bb))

@@ -10,6 +10,7 @@
   drop-connect off on both sides;
 * the 2-D loss, the class weights, ``resolve_remat_blocks``.
 """
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -55,6 +56,85 @@ def test_backbone_train_mode_matches_jax():
         moved += not np.allclose(want.numpy(), state_dict_from_jax(
             {}, bstats)[name].numpy())
     assert moved == len(stats) == 2 * 49          # every BatchNorm moved
+
+
+def _fp64_folded_bn_class():
+    """JAX's ``FoldedBatchNorm`` (nn/backbones/efficientnet.py) with its
+    statistics in x's type: JAX casts x to fp32 before them, which would
+    leave each package's fp32 summation order in an fp64 run."""
+    from segtran_tpu.nn.backbones.efficientnet import FoldedBatchNorm
+
+    class FoldedBatchNorm64(FoldedBatchNorm):
+        @fnn.compact
+        def __call__(self, x):
+            feats = x.shape[-1]
+            scale = self.param("scale", fnn.initializers.ones, (feats,),
+                               jnp.float32)
+            bias = self.param("bias", fnn.initializers.zeros, (feats,),
+                              jnp.float32)
+            ra_mean = self.variable("batch_stats", "mean",
+                                    lambda: jnp.zeros((feats,), jnp.float32))
+            ra_var = self.variable("batch_stats", "var",
+                                   lambda: jnp.ones((feats,), jnp.float32))
+            if self.use_running_average:
+                mean, var = ra_mean.value, ra_var.value
+            else:
+                xf = x.astype(jnp.promote_types(x.dtype, jnp.float32))
+                axes = tuple(range(x.ndim - 1))
+                mean = jnp.mean(xf, axes)
+                var = jnp.mean(jnp.square(xf), axes) - jnp.square(mean)
+                if not self.is_initializing():
+                    m = self.momentum
+                    ra_mean.value = m * ra_mean.value + (1 - m) * mean
+                    ra_var.value = m * ra_var.value + (1 - m) * var
+            a = scale * jax.lax.rsqrt(var + self.epsilon)
+            b = bias - mean * a
+            return x * a.astype(self.dtype) + b.astype(self.dtype)
+    return FoldedBatchNorm64
+
+
+def test_backbone_train_mode_matches_jax_fp64(monkeypatch):
+    """The same eff-b0 endpoints and updated running statistics with both
+    sides in fp64 (JAX under x64, its FoldedBatchNorm's statistics in
+    fp64 for this test: ``_fp64_folded_bn_class``), to 1e-6 of each
+    tensor's largest entry: what the fp32 test's 1e-4 leaves is the two
+    packages' fp32 summation orders, not the port."""
+    from segtran_tpu.nn.backbones import efficientnet as jeff
+    monkeypatch.setattr(jeff, "FoldedBatchNorm", _fp64_folded_bn_class())
+    from segtran_tpu.nn.backbones.efficientnet import (
+        EfficientNetFeatures as JNet)
+    from segtran_tpu_torch.convert import state_dict_from_jax
+    from segtran_tpu_torch.nn.backbones.efficientnet import (
+        EfficientNetFeatures)
+    x = np.random.RandomState(1).randn(2, *SHAPE, 3)
+    params, bstats = jax_variables(
+        JNet(variant="eff-b0", drop_connect_rate=0.0),
+        jnp.zeros((1, *SHAPE, 3)), seed=4)
+    with jax.enable_x64(True):
+        jnet = JNet(variant="eff-b0", drop_connect_rate=0.0,
+                    dtype=jnp.float64)
+        v = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
+                                   jvars(params, bstats))
+        ref, upd = jax.jit(lambda v, x: jnet.apply(
+            v, x, True, mutable=["batch_stats"]))(v, jnp.asarray(x))
+        ref = [np.asarray(r) for r in ref]
+        new = to_numpy(upd["batch_stats"])
+    assert ref[0].dtype == np.float64
+    net = EfficientNetFeatures("eff-b0", drop_connect_rate=0.0,
+                               dtype=torch.float64)
+    net.load_state_dict(state_dict_from_jax(params, bstats), strict=True)
+    net = net.double().train()
+    got = net(torch.from_numpy(x))
+    for g, r in zip(got, ref):
+        g = g.detach().numpy()
+        assert g.dtype == np.float64 and g.shape == r.shape
+        assert np.abs(g - r).max() <= 1e-6 * np.abs(r).max()
+    sd = net.state_dict()
+    stats = {k: v.numpy() for k, v in state_dict_from_jax({}, new).items()}
+    assert len(stats) == 2 * 49
+    for name, want in stats.items():
+        got_s = sd[name].double().numpy()
+        assert np.abs(got_s - want).max() <= 1e-6 * np.abs(want).max(), name
 
 
 def test_drop_connect_per_sample_scaled_and_repeatable():

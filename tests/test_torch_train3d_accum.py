@@ -42,4 +42,4 @@ def test_train3d_cli_and_test3d_on_its_checkpoint(tmp_path):
         "--wholevol", "--fused", "--dataroot", root, "--device", "cpu"])
     assert len(results[2]) == 3 and np.isfinite(results[2]).all()
     with pytest.raises(NotImplementedError, match="later slice"):
-        train3d.main(["--net", "vnet", "--device", "cpu"])
+        train3d.main(["--tp", "2", "--device", "cpu"])
