@@ -192,6 +192,23 @@ Phases, each of which fails the run:
    --fusedepi --bf16 (1 per-mode, 2 all-modes launches); (c) the
    importer's VNet and Modified3DUNet on a 112x112x96 crop.
 
+14. tools -- the analysis tools at the flagship's full width (eff-b4, 3
+   translayers 1792->1792->896->448, 4 modes, 256 attractors, 288^2
+   patches, weights scaled by fan-in from a seed): (a) test2d's --flop
+   unfused, with --fusedepi (equal counts) and with --fused --fusedepi
+   (equal to the same route with each kernel's plain version in its
+   place; the kernels launch in the counted forward), and test3d's on
+   the BraTS Segtran3d; (b) layer_receptive_fields with --fused in fp32
+   (TF32 off) on every kept layer: 6 flash forward launches per probe
+   (counters and profiler), each map timed, card against CPU; (c) test2d
+   --robust on 4 frames with --fusedepi and --fused --fusedepi (launches
+   per forward checked) against the unfused modules; (d)
+   evaluate_checkpoint with --savefeat 2 --removefrag, --testinterp 72
+   (with and without --removefrag: one disc per frame, unchanged) and
+   neither on 8 synthetic 576^2 frames; (e) train2d.train() --profile at
+   bs 6 (parameters, FLOPs, FPS logged) and profile_trace around one
+   forward (a trace file written).
+
 Before the last line it prints a JSON object with the fundus train step's
 and the fused backbone's numbers, one with the per-kernel numbers, and the
 card's ``name, power.limit``; the last line is
@@ -200,6 +217,7 @@ port's sources beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -3926,6 +3944,436 @@ def import_phase(torch, np, epi, sa, ckdir, card):
     return perf
 
 
+# ------------------------------------------------------------ phase 14 ----
+
+# the flagship at fp32 for the receptive-field maps (TF32 off): card
+# against CPU, each map relative to its maximum
+RF_TOL = 1e-3
+# the robustness table with kernels against the unfused modules (bf16):
+# Pearson values (features, left/right halves, output) absolutely, the
+# perturbed maps' stds relatively
+ROBUST_TOL = {"pearson": 2e-2, "std_rel": 2e-2}
+ROBUST_FRAMES = 4
+PROFILE_BS = 6
+
+
+def conditioned_init(torch, model, seed):
+    """Seeded weights scaled by fan-in (kernels N(0, 1/fan_in),
+    attractors and position tables N(0, 1), norm scales 1 + 0.1 N, biases
+    0.1 N). Under the reference init the out-squeeze attends nearly
+    uniformly and the translayers' outputs hardly vary over the grid: their
+    receptive-field gradients sit at rounding level (on the CPU two thread
+    counts give maps 100% apart), while these weights give maps that
+    agree across thread counts to ~3e-6 of their maximum."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("attractors", "pos_embed", "vfeat_bias"):
+                v = torch.randn(p.shape, generator=g)
+            elif p.dim() >= 2:
+                fan_in = p.shape[1] if p.dim() == 3 else p[0].numel()
+                v = torch.randn(p.shape, generator=g) / math.sqrt(fan_in)
+            elif leaf == "weight":
+                v = 1 + 0.1 * torch.randn(p.shape, generator=g)
+            else:
+                v = 0.1 * torch.randn(p.shape, generator=g)
+            p.copy_(v)
+    return model
+
+
+def tools_model(torch, test2d, train2d, extra, bf16=True, seed=60):
+    """The flagship through test2d's factory with ``extra`` flags,
+    conditioned_init weights, on the card in eval mode."""
+    argv = [a for a in FUNDUS_CLI_ARGV if bf16 or a != "--bf16"]
+    args = test2d.build_argparser().parse_args(
+        argv + ["--cpdir", "unused"] + extra)
+    task = train2d.task_settings(args)
+    model, cfg = test2d.build_model(args, task)
+    if cfg.translayer_dims != (1792, 1792, 896, 448) \
+            or cfg.num_attractors != 256 or cfg.num_modes != 4:
+        fail(f"unexpected flagship config {cfg}")
+    return conditioned_init(torch, model, seed).cuda().eval(), args, task, cfg
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Each kernel's plain version in its place on the model's path (aten
+    products the FLOP counter sees)."""
+    from segtran_tpu_torch.kernels import expansion_epilogue as epi
+    from segtran_tpu_torch.kernels import squeezed_attention as sa
+    from segtran_tpu_torch.nn import attention
+
+    def flash(q, k, v, attn_clip=500.0, sm_scale=None):
+        return sa.fused_cross_attention_plain(q, k, v, attn_clip, sm_scale)[0]
+    saved = [(attention, n, getattr(attention, n)) for n in (
+        "fused_cross_attention", "fused_cross_attention_trainable")]
+    saved += [(epi, n, getattr(epi, n)) for n in (
+        "fused_mid_output_pool", "fused_mid_output_pool_permode",
+        "fused_private_output_pool")]
+    try:
+        for mod, n, _ in saved:
+            setattr(mod, n, flash if mod is attention
+                    else getattr(epi, n + "_plain"))
+        yield
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+def tools_flop(torch, np, epi, sa, logger):
+    """(a) test2d's and test3d's --flop (tools/flops.log_flops) at full
+    width."""
+    from segtran_tpu_torch.cli import test2d, test3d, train2d
+    from segtran_tpu_torch.tools.flops import log_flops
+    rows = {}
+    for label, extra in (("unfused", []), ("fusedepi", ["--fusedepi"]),
+                         ("fused", ["--fused", "--fusedepi"])):
+        model = tools_model(torch, test2d, train2d, extra)[0]
+        reset_counts(epi, sa)
+        t0 = time.perf_counter()
+        fl = log_flops(model, (1, FUNDUS_SIZE, FUNDUS_SIZE, 3), logger,
+                       "GFLOPs/img")
+        secs = time.perf_counter() - t0
+        rows[label] = dict(gflops=fl["flops"] / 1e9, gbytes=fl["bytes"] / 1e9,
+                           launches=list(kernel_launches(epi, sa)),
+                           count_s=secs)
+        if label == "fused":
+            with plain_kernels():
+                plain = log_flops(model, (1, FUNDUS_SIZE, FUNDUS_SIZE, 3),
+                                  logger, "GFLOPs/img")
+            rows["fused_plain_kernels"] = dict(gflops=plain["flops"] / 1e9)
+        del model
+    un, ep, fu = (rows[k]["gflops"] for k in ("unfused", "fusedepi", "fused"))
+    fp = rows["fused_plain_kernels"]["gflops"]
+    log(f"[tools] test2d --flop at 288^2, bf16: unfused {un:.3f}, --fusedepi "
+        f"{ep:.3f}, --fused --fusedepi {fu:.3f} GFLOPs/img (the same route "
+        f"with each kernel's plain version in its place {fp:.3f}); bytes "
+        f"{rows['unfused']['gbytes']:.3f} / {rows['fusedepi']['gbytes']:.3f} "
+        f"/ {rows['fused']['gbytes']:.3f} GB; launches in the counted "
+        f"forward (flash, private, full tier) {rows['fusedepi']['launches']} "
+        f"/ {rows['fused']['launches']}; --fused / unfused = {fu / un:.4f} "
+        f"(the flash route computes the Q and K projections the unfused "
+        f"attention folds into its scores)")
+    if not (abs(ep - un) <= 0.01 * un and abs(fu - fp) <= 0.01 * fp):
+        fail("--flop: a kernel's FLOPs dropped out of the count")
+    if (rows["fusedepi"]["launches"] != [0, 0, 0, 0, 0, 3]
+            or rows["fused"]["launches"] != [6, 0, 0, 0, 3, 0]):
+        fail(f"--flop: the counted forwards launched "
+             f"{rows['fusedepi']['launches']} / {rows['fused']['launches']}")
+    args = test3d.build_argparser().parse_args(
+        WHOLEVOL_ARGV + ["--fused", "--fusedepi", "--cpdir", "unused"])
+    task = test3d.task_settings(args)
+    model, cfg = test3d.build_model_and_config(args, task)
+    shape = (1,) + tuple(task["input_patch_size"]) + (
+        task["orig_in_channels"],)
+    reset_counts(epi, sa)
+    fl = log_flops(model.cuda().eval(), shape, logger, "GFLOPs/patch")
+    launches = kernel_launches(epi, sa)
+    log(f"[tools] test3d --flop, BraTS Segtran3d at {shape[1:4]} --fused "
+        f"--fusedepi: {fl['flops'] / 1e9:.3f} GFLOPs/patch, "
+        f"{fl['bytes'] / 1e9:.3f} GB; launches {launches}")
+    if not fl["flops"] > 0 or launches[0] != 2:
+        fail(f"test3d --flop: {fl}, launches {launches}")
+    rows["test3d_brats"] = dict(gflops=fl["flops"] / 1e9,
+                                gbytes=fl["bytes"] / 1e9)
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def profiled_count(torch, fn, substr, exclude=None):
+    """(device kernels whose name holds ``substr``, wall ms) over one call
+    of fn under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and substr in e.key
+            and not (exclude and exclude in e.key))
+    return n, wall
+
+
+def tools_rf(torch, np, epi, sa):
+    """(b) layer_receptive_fields with --fused at fp32: every kept layer,
+    each map timed and its flash launches counted, against the CPU."""
+    from segtran_tpu_torch.cli import test2d, train2d
+    from segtran_tpu_torch.tools.analysis import layer_receptive_fields
+    model = tools_model(torch, test2d, train2d, ["--fused"], bf16=False)[0]
+    shape = (FUNDUS_SIZE, FUNDUS_SIZE, 3)
+    probe = torch.randn((1,) + shape,
+                        generator=torch.Generator().manual_seed(61)) * 0.5
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maps, rows = {}, {}
+    try:
+        layer_receptive_fields(model, shape, [0], probe=probe)     # warm-up
+        for i in range(4):
+            reset_counts(epi, sa)
+            box = {}
+            n_prof, wall = profiled_count(
+                torch, lambda: box.update(layer_receptive_fields(
+                    model, shape, [i], probe=probe)), "fwd_kernel", "merge")
+            counted = kernel_launches(epi, sa)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            layer_receptive_fields(model, shape, [i], probe=probe)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            (name, m), = box.items()
+            maps[name] = m
+            rows[name] = dict(ms=ms, flash_launches=counted[0],
+                              flash_kernels_profiled=n_prof,
+                              recompute_backward=counted[3])
+            if counted[0] != 6 or n_prof != 6 or counted[1] or counted[2]:
+                fail(f"rf {name}: flash forward launches {counted[0]} "
+                     f"(profiler {n_prof}), dK/dV {counted[1]}, dQ "
+                     f"{counted[2]}; want 6, 6, 0, 0 per probe")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32[0]
+        torch.backends.cudnn.allow_tf32 = tf32[1]
+    t0 = time.perf_counter()
+    cpu = layer_receptive_fields(model.cpu(), shape, probe=probe)
+    cpu_s = time.perf_counter() - t0
+    if list(cpu) != ["in_fpn", "layer_0", "layer_1", "layer_2"] \
+            or list(maps) != list(cpu):
+        fail(f"rf: layers {list(maps)} on the card, {list(cpu)} on the CPU")
+    for name, m in maps.items():
+        err = float(np.abs(m - cpu[name]).max() / cpu[name].max())
+        rows[name]["rel_err_vs_cpu"] = err
+        log(f"[tools] rf {name}: {rows[name]['ms']:.1f} ms per map (one "
+            f"forward + one backward), flash forward launches "
+            f"{rows[name]['flash_launches']} (profiler "
+            f"{rows[name]['flash_kernels_profiled']}), recompute backward "
+            f"{rows[name]['recompute_backward']}; card vs CPU fp32 max "
+            f"|diff| / max {err:.2e} (tol {RF_TOL:g}); max {m.max():.3e}")
+        if not (err <= RF_TOL and np.isfinite(m).all()):
+            fail(f"rf {name}: the card's map disagrees with the CPU's")
+    rows["cpu_all_layers_s"] = cpu_s
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tools_robustness(torch, np, epi, sa, frames, logger):
+    """(c) test2d --robust (eval_robustness) on 4 frames with --fusedepi
+    and with --fused --fusedepi against the unfused modules."""
+    from segtran_tpu_torch.cli import test2d, train2d
+    runs, rows = {}, {}
+    dev = torch.device("cuda")
+    for label, extra in (("unfused", []), ("fusedepi", ["--fusedepi"]),
+                         ("fused", ["--fused", "--fusedepi"])):
+        model, args, task, cfg = tools_model(torch, test2d, train2d, extra)
+        args.robust_sample_num = ROBUST_FRAMES
+        reset_counts(epi, sa)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[label] = test2d._robustness(model, frames, tuple(
+            task["patch_size"]), cfg, args, logger, dev)
+        torch.cuda.synchronize()
+        rows[label] = dict(s=time.perf_counter() - t0,
+                           launches=list(kernel_launches(epi, sa)))
+        del model
+    forwards = 1 + len(runs["unfused"])
+    want = {"fusedepi": [0, 0, 0, 0, 0, 3 * forwards],
+            "fused": [6 * forwards, 0, 0, 0, 3 * forwards, 0]}
+    ref = runs["unfused"]
+    for label in ("fusedepi", "fused"):
+        got = runs[label]
+        if rows[label]["launches"] != want[label]:
+            fail(f"robust {label}: launches {rows[label]['launches']}, want "
+                 f"{want[label]} ({forwards} forwards)")
+        if [list(v) for v in got.values()] != [list(v) for v in ref.values()]:
+            fail(f"robust {label}: keys differ from the unfused run's")
+        dp = max(abs(got[p][k] - ref[p][k]) for p in ref for k in ref[p]
+                 if not k.startswith("std/"))
+        ds = max(abs(got[p][k] - ref[p][k]) / max(abs(ref[p][k]), 1e-12)
+                 for p in ref for k in ref[p] if k.startswith("std/"))
+        rows[label].update(max_pearson_diff=dp, max_std_rel_diff=ds)
+        log(f"[tools] robust {label}: {forwards} forwards of {ROBUST_FRAMES} "
+            f"frames in {rows[label]['s']:.2f} s, launches (flash, dK/dV, "
+            f"dQ, recompute, private, full) {rows[label]['launches']}; vs "
+            f"unfused max |Pearson diff| {dp:.2e} (tol "
+            f"{ROBUST_TOL['pearson']:g}), max std rel diff {ds:.2e} (tol "
+            f"{ROBUST_TOL['std_rel']:g}) over {sum(map(len, ref.values()))} "
+            f"keys")
+        if not (dp <= ROBUST_TOL["pearson"] and ds <= ROBUST_TOL["std_rel"]):
+            fail(f"robust {label}: disagrees with the unfused modules")
+    rows["output_pearson_unfused"] = {p: v["output_pearson"]
+                                      for p, v in ref.items()}
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _components(np, hard):
+    """8-connected foreground components of each frame of a hardened map
+    [B, H, W, C] (what --removefrag labels)."""
+    from scipy import ndimage
+    return [int(ndimage.label(h[..., 1:].any(-1),
+                              structure=np.ones((3, 3), np.int32))[1])
+            for h in hard.cpu().numpy()]
+
+
+def tools_eval(torch, np, epi, sa, frames, ckdir, logger):
+    """(d) test2d.evaluate_checkpoint with --savefeat 2 --removefrag, with
+    --testinterp 72 (and with --removefrag: the ground truth's one disc
+    per frame must come through unchanged) and with neither (--fusedepi,
+    bf16)."""
+    from segtran_tpu_torch.cli import test2d, train2d
+    from segtran_tpu_torch.data.labelmaps import harden_segmap
+    from segtran_tpu_torch.infer.sliding import sliding_window_2d
+    dev = torch.device("cuda")
+    model, args, task, cfg = tools_model(torch, test2d, train2d,
+                                         ["--fusedepi"])
+    mean, std = train2d.load_stats(args, "train")
+    rows = {}
+    for label, extra in (("plain", []),
+                         ("savefeat_removefrag", ["--savefeat", "2",
+                                                  "--removefrag"]),
+                         ("testinterp", ["--testinterp", "72"]),
+                         ("testinterp_removefrag", ["--testinterp", "72",
+                                                    "--removefrag"])):
+        out = os.path.join(ckdir, f"tools_{label}")
+        a = test2d.build_argparser().parse_args(
+            FUNDUS_CLI_ARGV + ["--cpdir", out, "--bs", "4", "--vcdr",
+                               "--fusedepi"] + extra)
+        reset_counts(epi, sa)
+        t0 = time.perf_counter()
+        res = test2d.evaluate_checkpoint(model, frames, task, a, logger,
+                                         mean, std, dev)
+        rows[label] = dict(dice=[float(d) for d in res[:2]],
+                           vcdr_err=float(res[2]),
+                           s=time.perf_counter() - t0,
+                           launches=list(kernel_launches(epi, sa)))
+        if not np.isfinite(res).all():
+            fail(f"test2d {label}: Dice or vCDR not finite")
+    npz = os.path.join(ckdir, "tools_savefeat_removefrag",
+                       "pixel_features.npz")
+    if not os.path.isfile(npz):
+        fail("test2d --savefeat wrote no pixel_features.npz")
+    dump = np.load(npz)
+    rows["savefeat"] = dict(features=list(dump["features"].shape),
+                            labels=list(dump["labels"].shape))
+    # the components --removefrag sees: the model's predictions (seeded
+    # weights) and the --testinterp maps (one disc per frame)
+    fn = test2d.make_model_fn(model, mean, std, args.gray_alpha, dev)
+    x = torch.from_numpy(np.stack([f["image"] for f in frames])).to(dev)
+    raw = torch.from_numpy(np.stack([f["mask"] for f in frames])).to(dev)
+    with torch.inference_mode():
+        model_hard = harden_segmap(sliding_window_2d(
+            fn, x, tuple(task["orig_input_size"]), tuple(task["patch_size"]),
+            num_classes=3))
+        a.test_interp = "72"
+        interp_hard = harden_segmap(test2d._interp_probs(a, task, raw))
+    rows["components"] = {}
+    for label, hard in (("model", model_hard), ("testinterp", interp_hard)):
+        kept = test2d._remove_fragments(hard)
+        before, after = _components(np, hard), _components(np, kept)
+        single = [i for i, n in enumerate(before) if n <= 1]
+        unchanged = all(torch.equal(kept[i], hard[i]) for i in single)
+        rows["components"][label] = dict(before=before, after=after,
+                                         single_unchanged=unchanged)
+        if not unchanged or max(after) > 2:
+            fail(f"--removefrag on the {label} maps: components {before} "
+                 f"-> {after}, single-component frames unchanged "
+                 f"{unchanged}")
+    log(f"[tools] test2d evaluate_checkpoint on {len(frames)} 576^2 frames "
+        f"(--fusedepi, bf16): Dice / vCDR error plain "
+        f"{rows['plain']['dice']} / {rows['plain']['vcdr_err']:.4f}, "
+        f"--savefeat 2 --removefrag {rows['savefeat_removefrag']['dice']}, "
+        f"--testinterp 72 {rows['testinterp']['dice']}, with --removefrag "
+        f"{rows['testinterp_removefrag']['dice']} (launches "
+        f"{rows['testinterp']['launches']}); pixel_features.npz features "
+        f"{rows['savefeat']['features']}; foreground components per frame "
+        f"(before -> after --removefrag): model "
+        f"{rows['components']['model']['before']} -> "
+        f"{rows['components']['model']['after']}, --testinterp "
+        f"{rows['components']['testinterp']['before']} -> "
+        f"{rows['components']['testinterp']['after']}")
+    if rows["savefeat"]["features"][0] != 2 * (FUNDUS_SIZE // 8) ** 2:
+        fail("test2d --savefeat: unexpected dump")
+    if any(rows["testinterp"]["launches"]):
+        fail("test2d --testinterp launched kernels: it runs no model")
+    if rows["components"]["testinterp"]["before"] != [1] * len(frames) or \
+            rows["testinterp_removefrag"]["dice"] != rows["testinterp"][
+                "dice"]:
+        fail("--testinterp --removefrag changed one-disc frames")
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tools_profile(torch, np, epi, sa, ckdir, logger):
+    """(e) train2d --profile at bs 6 through train(), then profile_trace
+    around one forward."""
+    from segtran_tpu_torch.cli import train2d
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    from segtran_tpu_torch.tools.flops import profile_trace
+    dev = torch.device("cuda")
+    frames = synthetic_fundus(np, PROFILE_BS, seed=62)
+    args = train2d.build_argparser().parse_args(
+        FUNDUS_CLI_ARGV + ["--seed", "0", "--bs", str(PROFILE_BS),
+                           "--maxiter", "1", "--saveiter", "1",
+                           "--profile", "--ckptdir", ckdir])
+    task = train2d.task_settings(args)
+    model, cfg = train2d.build_model_and_config(args, task)
+    model = init_with_reference_schemes(model, cfg, seed=0).to(dev)
+    lines = _Lines()
+    logger.addHandler(lines)
+    t0 = time.perf_counter()
+    try:
+        train2d.train(model, frames, args, task, dev, cfg,
+                      os.path.join(ckdir, "tools_profile"), logger)
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(lines)
+    wall = time.perf_counter() - t0
+    got = {k: next((ln for ln in lines.lines if ln.startswith(k)), None)
+           for k in ("params:", "forward FLOPs:", "forward FPS")}
+    if None in got.values():
+        fail(f"train2d --profile logged {got}")
+    fps = float(got["forward FPS"].split(": ")[1].split()[0])
+    trace_dir = os.path.join(ckdir, "trace")
+    x = torch.zeros((1, FUNDUS_SIZE, FUNDUS_SIZE, 3), device=dev)
+    with profile_trace(trace_dir), torch.inference_mode():
+        model.eval()(x)
+        torch.cuda.synchronize()
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    size = sum(os.path.getsize(os.path.join(trace_dir, f)) for f in traces)
+    log(f"[tools] train2d --profile --bs {PROFILE_BS} (1 step, "
+        f"{wall:.2f} s): {got['params:']}; {got['forward FLOPs:']}; "
+        f"{got['forward FPS']}; profile_trace wrote {traces} "
+        f"({size / 1e6:.2f} MB)")
+    if not (fps > 0 and traces and size > 0):
+        fail("train2d --profile / profile_trace: no rate or no trace")
+    del model
+    torch.cuda.empty_cache()
+    return dict(train_s=wall, fps=fps, lines=list(got.values()),
+                trace_mb=size / 1e6)
+
+
+def tools_phase(torch, np, epi, sa, ckdir, logger, card):
+    """Phase 14: the analysis tools at the flagship's full width."""
+    t0 = time.perf_counter()
+    frames = synthetic_fundus(np, ROBUST_FRAMES * 2, seed=63)
+    perf = {"flop": tools_flop(torch, np, epi, sa, logger),
+            "rf": tools_rf(torch, np, epi, sa),
+            "robust": tools_robustness(torch, np, epi, sa,
+                                       frames[:ROBUST_FRAMES], logger),
+            "eval": tools_eval(torch, np, epi, sa, frames, ckdir, logger),
+            "profile": tools_profile(torch, np, epi, sa, ckdir, logger)}
+    perf["phase_s"] = time.perf_counter() - t0
+    log(f"[tools] phase in {perf['phase_s']:.1f} s on {card}")
+    return perf
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
@@ -3936,7 +4384,7 @@ def main(argv=None) -> int:
                                        "training", "mbconv",
                                        "fundus_training", "fundus_cli",
                                        "fundus_options", "volume_options",
-                                       "da", "zoo", "import"],
+                                       "da", "zoo", "import", "tools"],
                     default=None,
                     help="build and run only this check, print no result")
     only = ap.parse_args(argv).only
@@ -4036,6 +4484,13 @@ def main(argv=None) -> int:
             shutil.rmtree(ckdir, ignore_errors=True)
         print(json.dumps({"import": perf, "card": card}), flush=True)
         return 0
+    if only == "tools":
+        try:
+            perf = tools_phase(torch, np, epi, sa, ckdir, logger, card)
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        print(json.dumps({"tools": perf, "card": card}), flush=True)
+        return 0
     if only == "training":
         try:
             train_perf, _ = training(torch, np, sa, ckdir, logger)
@@ -4098,6 +4553,11 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     log(f"[import] {json.dumps(import_perf)} on {card}")
+    try:
+        tools_perf = tools_phase(torch, np, epi, sa, ckdir, logger, card)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"[tools] {json.dumps(tools_perf)} on {card}")
 
     replaces = {
         "fused_mid_output_pool": "segtran_tpu/kernels/expansion_epilogue.py:333",

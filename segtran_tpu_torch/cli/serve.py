@@ -25,10 +25,8 @@ from __future__ import annotations
 import argparse
 import io
 import json
-import logging
 import os
 import queue
-import sys
 import threading
 import time
 
@@ -40,6 +38,7 @@ from ..configs.presets import TASK_SETTINGS
 from ..data.stats import load_dataset_stats
 from ..infer.sliding import sliding_window_2d
 from ..train.checkpoint import load_checkpoint, net_state_dict
+from ..utils.misc import setup_logging
 from . import test2d
 
 
@@ -327,16 +326,7 @@ def make_handler(engine, args):
 
 
 def _logger(log_dir):
-    os.makedirs(log_dir, exist_ok=True)
-    logger = logging.getLogger("segtran_tpu_torch")
-    logger.setLevel(logging.INFO)
-    logger.handlers.clear()
-    fmt = logging.Formatter("[%(asctime)s] %(message)s", "%H:%M:%S")
-    for h in (logging.FileHandler(os.path.join(log_dir, "serve_log.txt")),
-              logging.StreamHandler(sys.stdout)):
-        h.setFormatter(fmt)
-        logger.addHandler(h)
-    return logger
+    return setup_logging(log_dir, "serve_log.txt", "segtran_tpu_torch")
 
 
 def make_server(args, logger=None):

@@ -16,11 +16,22 @@ per-class Dice of classes 1..C-1 (reference calc_batch_metric) and with
 masks (``--outorigsize``: resized back and pasted into the uncropped
 frame), ``--saveprobs`` and ``pred.zip``. ``--iters`` sweeps
 ``iter_N.pt`` files; a missing one fails before the model is built.
-Writing masks and reading frames need Pillow. The analysis flags
-(``--vis``, ``--robust*``, ``--savefeat``, ``--removefrag``,
-``--testinterp``, ``--flop``) and train2d's ``--tp/--ep/--ndevices`` belong
-to later slices of the port and raise NotImplementedError naming their
-ROADMAP item.
+Writing masks and reading frames need Pillow.
+
+The analysis tools (``tools/``), as JAX's test2d runs them:
+``--testinterp`` replaces the model by the ground truth shrunk (nearest)
+and grown back (the null model's floor); ``--removefrag`` keeps the two
+largest 8-connected foreground components of each prediction;
+``--savefeat N`` dumps the per-pixel DA features of the first N frames
+with their labels (``pixel_features.npz``); ``--flop`` logs the parameters
+and the forward FLOPs and bytes of one patch; ``--vis rf`` writes the
+receptive-field maps of the kept feature layers (``--vislayers``) to
+``rf_maps.npz`` and ``rf_<layer>.png`` instead of evaluating; ``--robust``
+logs the feature robustness of the first ``--robustsamples`` frames under
+``--robustaug`` perturbations (``--robustaugdeg``; ``--robustcp`` an
+``iter_N`` path for the clean features) instead of evaluating. train2d's
+``--tp/--ep/--ndevices`` belong to a later slice of the port and raise
+NotImplementedError naming its ROADMAP item.
 
 Example (GPU):
   python -m segtran_tpu_torch.cli.test2d --task fundus --ds valid \\
@@ -30,23 +41,30 @@ Example (GPU):
 from __future__ import annotations
 
 import argparse
-import logging
 import os
-import sys
 import zipfile
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import resolve_device
-from ..data.labelmaps import (fundus_inv_map_mask, harden_segmap,
-                              polyp_inv_map_mask)
+from ..data.labelmaps import (fundus_inv_map_mask, fundus_map_mask,
+                              harden_segmap, index_to_onehot,
+                              polyp_inv_map_mask, polyp_map_mask)
 from ..data.pipeline import batch_iterator
 from ..infer.metrics import batch_dice_per_class, log_metric_stack
 from ..infer.sliding import sliding_window_2d
+from ..nn.features import drop_kept_features
 from ..nn.init import init_with_reference_schemes
 from ..ops.losses import calc_vcdr_eval
+from ..ops.resize import resize_image_linear, resize_linear
+from ..tools.analysis import dump_pixel_features, layer_receptive_fields
+from ..tools.flops import log_flops
+from ..tools.postproc import remove_fragmentary_segs
+from ..tools.robustness import eval_robustness
 from ..train.checkpoint import load_checkpoint, net_state_dict
+from ..utils.misc import setup_logging
 from . import train2d
 
 _GRAY_W = (0.299, 0.587, 0.114)
@@ -157,9 +175,6 @@ def build_argparser():
     return p
 
 
-_TOOLS = "ROADMAP Queue 1 item 6c: the tools"
-
-
 def _train_args(args):
     """test2d's flags over train2d's defaults, in eval form: no dropout,
     the training-only flags at their defaults."""
@@ -170,20 +185,6 @@ def _train_args(args):
 
 def _refuse_later_slices(args) -> None:
     train2d._refuse_later_slices(_train_args(args))
-    later = [
-        (args.vis_mode is not None, "--vis", _TOOLS),
-        (args.eval_robustness or args.robust_ref_cp_path is not None,
-         "--robust*", _TOOLS),
-        (args.save_features_img_count > 0, "--savefeat", _TOOLS),
-        (args.do_remove_frag, "--removefrag", _TOOLS),
-        (args.test_interp is not None, "--testinterp", _TOOLS),
-        (args.do_flop_count, "--flop", _TOOLS),
-    ]
-    for bad, flag, where in later:
-        if bad:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: it belongs to a later slice of "
-                f"the PyTorch port ({where})")
 
 
 def build_model(args, task):
@@ -246,30 +247,90 @@ def _zip(saved, outdir, log):
     log.info("zipped %d masks -> %s", len(saved), zpath)
 
 
+def _interp_probs(args, task, raw):
+    """--testinterp: the ground truth shrunk to the given size (nearest,
+    half-pixel) and grown back by ``resize_linear`` (reference
+    test_util2d.py:60-64)."""
+    ti = tuple(int(v) for v in str(args.test_interp).split(","))
+    ti = ti * 2 if len(ti) == 1 else ti
+    if args.task_name == "fundus":
+        gt = fundus_map_mask(raw)
+    elif args.task_name == "polyp":
+        gt = polyp_map_mask(raw)
+    else:
+        gt = index_to_onehot(raw[..., 0], task["num_classes"])
+    small = F.interpolate(gt.movedim(-1, 1), size=ti,
+                          mode="nearest-exact").movedim(1, -1)
+    return resize_linear(small, gt.shape[1:3])
+
+
+def _remove_fragments(hard):
+    """--removefrag: per frame, the foreground outside the two largest
+    8-connected components cleared (reference test2d.py:654-656)."""
+    hard_np = hard.cpu().numpy().copy()
+    for i in range(hard_np.shape[0]):
+        fg = hard_np[i, :, :, 1:].any(-1).astype(np.uint8)
+        kept = remove_fragmentary_segs(fg, keep_top=2) > 0
+        hard_np[i, :, :, 1:] = hard_np[i, :, :, 1:] * kept[..., None]
+        hard_np[i, :, :, 0] = 1 - hard_np[i, :, :, 1:].max(-1)
+    return torch.from_numpy(hard_np).to(hard.device)
+
+
+def _pixel_features(model, model_fn, img, raw, args, task, patch):
+    """--savefeat: the DA feature of the frames at the patch size
+    [B, h2, w2, C] and their labels on its grid [B, h2, w2] (the
+    reference's feature_maps[-1], test_util2d.py:78-88)."""
+    model.keep_features = True
+    try:
+        model_fn(resize_linear(img, patch))
+        feats = train2d._da_feature(model).float().cpu().numpy()
+    finally:
+        model.keep_features = False
+        drop_kept_features(model)
+    gt_ex = (fundus_map_mask(raw, exclusive=True)
+             if args.task_name == "fundus" else train2d.map_mask(args, task,
+                                                                raw))
+    lab = resize_linear(gt_ex.float(), feats.shape[1:3])
+    return feats, (lab >= 0.5).int().argmax(-1).cpu().numpy()
+
+
 def evaluate_checkpoint(model, dataset, task, args, log, mean, std,
                         device=None):
     """One pass over ``dataset`` with ``model`` (weights loaded, in eval
     mode). Returns the mean per-class Dice of classes 1..C-1, with the
     mean vCDR error appended under --vcdr (the reference's metric layout),
     or zeros when the frames have no masks. The forward is built for this
-    call only."""
+    call only. --testinterp, --removefrag and --savefeat act here."""
     device = device or next(model.parameters()).device
     num_classes = task["num_classes"]
     orig, patch = tuple(task["orig_input_size"]), tuple(task["patch_size"])
     model_fn = make_model_fn(model, mean, std, args.gray_alpha, device)
     has_mask = getattr(args, "has_mask", True)
+    feat_budget = getattr(args, "save_features_img_count", 0)
     all_dice, all_vcdr_err, saved = [], [], []
+    feats_acc, labels_acc = [], []
     for batch in batch_iterator(dataset, args.batch_size, epoch=0,
                                 shuffle=False, drop_last=False,
                                 keys=("image", "mask", "index", "crop_pos",
                                       "unscaled_size", "uncropped_size")):
         img = torch.from_numpy(batch["image"]).to(device)
+        raw = torch.from_numpy(batch["mask"]).to(device)
         with torch.inference_mode():
-            probs = sliding_window_2d(model_fn, img, orig, patch,
-                                      num_classes=num_classes)
-            gt = train2d.map_mask(args, task,
-                                  torch.from_numpy(batch["mask"]).to(device))
+            if getattr(args, "test_interp", None):
+                probs = _interp_probs(args, task, raw)
+            else:
+                probs = sliding_window_2d(model_fn, img, orig, patch,
+                                          num_classes=num_classes)
+            gt = train2d.map_mask(args, task, raw)
             hard = harden_segmap(probs)
+            if getattr(args, "do_remove_frag", False):
+                hard = _remove_fragments(hard)
+            if len(feats_acc) < feat_budget:
+                feats, lab = _pixel_features(model, model_fn, img, raw, args,
+                                             task, patch)
+                take = feat_budget - len(feats_acc)
+                feats_acc.extend(feats[:take])
+                labels_acc.extend(lab[:take])
             if has_mask:
                 dice = batch_dice_per_class(hard.float(), gt, num_classes)
                 all_dice.append(dice.cpu().numpy())
@@ -285,6 +346,13 @@ def evaluate_checkpoint(model, dataset, task, args, log, mean, std,
                 all_vcdr_err.append(verr.cpu().numpy())
         if args.outdir:
             _save_masks(hard, batch, dataset, args, saved, probs)
+    if feats_acc:
+        fdir = args.outdir or args.cpdir
+        os.makedirs(fdir, exist_ok=True)
+        fpath = os.path.join(fdir, "pixel_features.npz")
+        dump_pixel_features(np.stack(feats_acc), np.stack(labels_acc), fpath)
+        log.info("saved pixel features of %d images -> %s", len(feats_acc),
+                 fpath)
     if not all_dice:
         log.info("predict-only mode: no ground truth, no Dice")
         if args.outdir and saved:
@@ -303,17 +371,56 @@ def evaluate_checkpoint(model, dataset, task, args, log, mean, std,
     return cls_dice
 
 
+def _receptive_fields(model, patch, args, log):
+    """--vis rf: the kept layers' receptive-field maps as rf_maps.npz and
+    rf_<layer>.png under --outdir (else --cpdir)."""
+    from PIL import Image
+    sel = ([int(v) for v in str(args.vis_layers).split(",")]
+           if args.vis_layers else None)
+    maps = layer_receptive_fields(model, patch + (3,), sel)
+    vis_dir = args.outdir or args.cpdir
+    os.makedirs(vis_dir, exist_ok=True)
+    np.savez_compressed(os.path.join(vis_dir, "rf_maps.npz"), **maps)
+    for name, m in maps.items():
+        mm = m / (m.max() + 1e-12)
+        Image.fromarray((mm * 255).astype(np.uint8)).save(
+            os.path.join(vis_dir, f"rf_{name}.png"))
+        centre = m[m.shape[0] // 4:-m.shape[0] // 4 or None,
+                   m.shape[1] // 4:-m.shape[1] // 4 or None]
+        log.info("rf[%s]: %s, mass within center quarter %.3f", name,
+                 m.shape, float(centre.sum() / (m.sum() + 1e-12)))
+    return maps
+
+
+def _robustness(model, dataset, patch, cfg, args, log, device):
+    """--robust: eval_robustness on the first --robustsamples frames
+    resized to the patch size (antialiased, as jax.image.resize)."""
+    n = min(args.robust_sample_num, len(dataset))
+    imgs = torch.stack([torch.as_tensor(np.asarray(dataset[i]["image"]))
+                        for i in range(n)]).float().to(device)
+    imgs = resize_image_linear(imgs, patch)
+    ref_state = None
+    if args.robust_ref_cp_path:
+        ref_state = {k: v.to(device) for k, v in net_state_dict(
+            load_checkpoint(args.robust_ref_cp_path, cfg)).items()}
+    kw = {}
+    if args.robust_aug_types:
+        kw["perturbations"] = [t for t in args.robust_aug_types.split(",")
+                               if t]
+    deg = tuple(float(v) for v in str(args.robust_aug_degrees).split(","))
+    rob = eval_robustness(model, imgs, degrees=deg * 2 if len(deg) == 1
+                          else deg, ref_state_dict=ref_state, **kw)
+    for pert, vals in rob.items():
+        log.info("robustness[%s]: output_pearson=%.4f", pert,
+                 vals["output_pearson"])
+        for k, v in sorted(vals.items()):
+            if k != "output_pearson" and not k.startswith(("lr_", "std/")):
+                log.info("  %s: %.4f", k, v)
+    return rob
+
+
 def _logger(log_dir):
-    os.makedirs(log_dir, exist_ok=True)
-    log = logging.getLogger("segtran_tpu_torch.test2d")
-    log.setLevel(logging.INFO)
-    log.handlers.clear()
-    fmt = logging.Formatter("[%(asctime)s] %(message)s", "%H:%M:%S")
-    for h in (logging.FileHandler(os.path.join(log_dir, "eval_log.txt")),
-              logging.StreamHandler(sys.stdout)):
-        h.setFormatter(fmt)
-        log.addHandler(h)
-    return log
+    return setup_logging(log_dir, "eval_log.txt", "segtran_tpu_torch.test2d")
 
 
 def main(argv=None):
@@ -346,6 +453,10 @@ def main(argv=None):
     log.info("%d eval samples on %s", len(dataset), device)
     mean, std = train2d.load_stats(args, args.ds_name)
     model, cfg = build_model(args, task)
+    patch = tuple(task["patch_size"])
+    if args.do_flop_count:
+        log_flops(model.to(device).eval(), (1,) + patch + (3,), log,
+                  "GFLOPs/img")
     results = {}
     for it in iters:
         if it is None:
@@ -355,8 +466,14 @@ def main(argv=None):
                 os.path.join(args.cpdir, f"iter_{it}"), cfg)), strict=True)
             log.info("=== iter %d ===", it)
         model = model.to(device).eval()
-        results[it] = evaluate_checkpoint(model, dataset, task, args, log,
-                                          mean, std, device)
+        if args.vis_mode == "rf":
+            results[it] = _receptive_fields(model, patch, args, log)
+        elif args.eval_robustness:
+            results[it] = _robustness(model, dataset, patch, cfg, args, log,
+                                      device)
+        else:
+            results[it] = evaluate_checkpoint(model, dataset, task, args,
+                                              log, mean, std, device)
     return results
 
 

@@ -15,9 +15,10 @@ as ``.npz`` (and ``.nii.gz`` when nibabel is installed), tarred into
 ``pred.tar``. ``--testinterp`` scores the ground truth down- and
 upsampled instead of a model. The 3-D zoo nets halve every axis four
 times: a (padded) volume whose sizes are not multiples of 16 raises a
-ValueError naming its shape. The flags of a later slice of the port
-(multi-GPU, ``--flop``) raise NotImplementedError naming their ROADMAP
-item.
+ValueError naming its shape. ``--flop`` logs the parameters and one
+forward's FLOPs and bytes at the input patch (``tools/flops.py``). The
+multi-GPU flag belongs to a later slice of the port and raises
+NotImplementedError naming its ROADMAP item.
 
 Example (GPU; h5 files need h5py):
   python -m segtran_tpu_torch.cli.test3d --task brats --ds 2019valid \\
@@ -27,9 +28,7 @@ Example (GPU; h5 files need h5py):
 from __future__ import annotations
 
 import argparse
-import logging
 import os
-import sys
 import tarfile
 
 import numpy as np
@@ -51,12 +50,13 @@ from ..models.unet3d import Modified3DUNet
 from ..models.vnet import VNet
 from ..ops.resize import resize_linear
 from ..train.checkpoint import load_checkpoint
+from ..tools.flops import log_flops
+from ..utils.misc import setup_logging
 
 # the strides of every 3D variant: x/y by 16, depth by 8
 WHOLEVOL_MULTIPLES = (16, 16, 8)
 
 _MULTI_GPU = "ROADMAP Queue 1 item 6b: parallel/"
-_TOOLS = "ROADMAP Queue 1 item 6c: the tools"
 
 
 def add_model_args(p) -> None:
@@ -180,8 +180,7 @@ def refuse_later_slices(args, extra=()) -> None:
 
 def _refuse_later_slices(args) -> None:
     refuse_later_slices(args, [
-        (args.spatial_shard, "--spatialshard", _MULTI_GPU),
-        (args.calc_flop, "--flop", _TOOLS)])
+        (args.spatial_shard, "--spatialshard", _MULTI_GPU)])
 
 
 def task_settings(args):
@@ -408,16 +407,7 @@ def _export(probs, hard, name, outdir, is_brats):
 
 
 def _logger(log_dir):
-    os.makedirs(log_dir, exist_ok=True)
-    logger = logging.getLogger("segtran_tpu_torch.test3d")
-    logger.setLevel(logging.INFO)
-    logger.handlers.clear()
-    fmt = logging.Formatter("[%(asctime)s] %(message)s", "%H:%M:%S")
-    for h in (logging.FileHandler(os.path.join(log_dir, "eval3d_log.txt")),
-              logging.StreamHandler(sys.stdout)):
-        h.setFormatter(fmt)
-        logger.addHandler(h)
-    return logger
+    return setup_logging(log_dir, "eval3d_log.txt", "segtran_tpu_torch.test3d")
 
 
 def main(argv=None):
@@ -441,6 +431,10 @@ def main(argv=None):
     if task.get("orig_in_channels_probed"):
         logger.info("orig_in_channels probed: %d", task["orig_in_channels"])
     model, cfg = build_model_and_config(args, task)
+    if args.calc_flop:
+        log_flops(model.to(device).eval(), (1,) + tuple(
+            task["input_patch_size"]) + (task["orig_in_channels"],), logger,
+            "GFLOPs/patch")
 
     results = {}
     for it in iters:

@@ -41,8 +41,10 @@ as JAX keeps them. Checkpoints ``iter_N.pt`` with their sidecar every
 ``--saveiter`` iterations and at the end (a DA run's under ``net.``,
 ``discriminator.``, ...); ``--cp`` starts from one, parameters it lacks
 keeping their fresh values as JAX's ``merge_params`` keeps them.
-``--tp/--ep/--ndevices`` and ``--profile`` belong to later slices of the
-port and raise NotImplementedError naming their ROADMAP item.
+``--profile`` logs the parameters and one eval forward's FLOPs, bytes
+and images per second at a batch of one patch before training (JAX's
+--profile; no trace). ``--tp/--ep/--ndevices`` belong to a later slice
+of the port and raise NotImplementedError naming its ROADMAP item.
 
 Example (GPU; reading the PNG frames needs Pillow):
   python -m segtran_tpu_torch.cli.train2d --task fundus --translayers 3 \\
@@ -55,7 +57,6 @@ import argparse
 import contextlib
 import logging
 import os
-import sys
 import time
 
 import numpy as np
@@ -84,6 +85,7 @@ from ..models.unet2d import VanillaUNet
 from ..models.unet_3plus import UNet3Plus
 from ..models.unet_smp import UnetSMP
 from ..nn.attention import set_dropout_generator
+from ..nn.features import drop_kept_features
 from ..nn.init import init_with_reference_schemes
 from ..ops.norm import frozen_running_stats
 from ..ops.resize import resize_linear
@@ -98,6 +100,8 @@ from ..train.trainer import (build_optimizer, clip_by_global_norm_,
                              make_loss_fn, make_train_step,
                              resolve_remat_blocks)
 from ..utils.meters import AverageMeters
+from ..tools.flops import count_params, estimate_flops, measure_fps
+from ..utils.misc import setup_logging
 
 logger = logging.getLogger("segtran_tpu_torch.train2d")
 
@@ -265,7 +269,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 _PARALLEL = "ROADMAP Queue 1 item 6b: parallel/"
-_TOOLS = "ROADMAP Queue 1 item 6c: the tools"
 ZOO = ("unet", "unet-smp", "nestedunet", "unet3plus", "attunet",
        "r2attunet", "dunet", "transunet", "setr", "deeplabv3",
        "deeplabv3plus", "deeplab-smp", "pranet", "nnunet")
@@ -277,7 +280,6 @@ def _refuse_later_slices(args) -> None:
     later = [
         (args.tensor_parallel > 1 or args.expert_parallel
          or args.ndevices > 1, "--tp/--ep/--ndevices above 1", _PARALLEL),
-        (args.profile, "--profile", _TOOLS),
     ]
     for bad, flag, where in later:
         if bad:
@@ -584,12 +586,6 @@ def _da_feature(model):
     raise ValueError("the model kept no DA feature (keep_features off)")
 
 
-def _drop_features(model):
-    for name in ("pre_outc_feat", "last_layer_feat", "in_fpn_feat"):
-        if getattr(model, name, None) is not None:
-            setattr(model, name, None)
-
-
 def _diag_metrics(model):
     """attn_max / attn_avg / attn_clamped of --attndiag (none after a
     flash forward, which keeps no diagnostics, as in JAX)."""
@@ -806,7 +802,7 @@ def _full_step(model, aux, optimizer, loss_fn, args, task, augment, gen,
             metrics["loss"] = loss
         finally:
             model.keep_features = False
-            _drop_features(model)
+            drop_kept_features(model)
         if loss.requires_grad:
             loss.backward()
         if grad_clip and grad_clip > 0:
@@ -820,15 +816,8 @@ def _full_step(model, aux, optimizer, loss_fn, args, task, augment, gen,
 
 
 def _logger(log_dir):
-    os.makedirs(log_dir, exist_ok=True)
-    logger.setLevel(logging.INFO)
-    logger.handlers.clear()
-    fmt = logging.Formatter("[%(asctime)s] %(message)s", "%H:%M:%S")
-    for h in (logging.FileHandler(os.path.join(log_dir, "train2d_log.txt")),
-              logging.StreamHandler(sys.stdout)):
-        h.setFormatter(fmt)
-        logger.addHandler(h)
-    return logger
+    return setup_logging(log_dir, "train2d_log.txt",
+                         "segtran_tpu_torch.train2d")
 
 
 def job_dir(args, task) -> str:
@@ -867,6 +856,21 @@ def _with_source(it, source, args):
         yield batch
 
 
+def log_profile(model, task, device, log):
+    """--profile (JAX train2d.py:909-921): the parameters, then one eval
+    forward's FLOPs and bytes and its images per second (10 timed calls)
+    on a zero batch of one patch."""
+    model.eval()
+    x = torch.zeros((1,) + tuple(task["patch_size"]) + (3,), device=device)
+    log.info("params: %.2fM", count_params(model) / 1e6)
+    costs = estimate_flops(model, x)
+    log.info("forward FLOPs: %.2fG, bytes: %.2fM", costs["flops"] / 1e9,
+             costs["bytes"] / 1e6)
+    fps = measure_fps(model, x, iters=10)
+    log.info("forward FPS (bs=%d): %.2f imgs/s", x.shape[0],
+             fps * x.shape[0])
+
+
 def train(model, dataset, args, task, device, cfg=None, ckpt_dir=None,
           log=None, source_dataset=None):
     """Train ``model`` (initialised, on ``device``) on any dataset of the
@@ -878,6 +882,8 @@ def train(model, dataset, args, task, device, cfg=None, ckpt_dir=None,
     modules."""
     ckpt_dir = ckpt_dir or job_dir(args, task)
     log = log or _logger(ckpt_dir)
+    if args.profile:
+        log_profile(model, task, device, log)
     if args.grad_accum > 1 and args.batch_size % args.grad_accum:
         raise ValueError(f"--gradaccum {args.grad_accum} must divide --bs "
                          f"{args.batch_size}")

@@ -30,7 +30,6 @@ from __future__ import annotations
 import argparse
 import logging
 import os
-import sys
 import time
 from typing import Callable
 
@@ -50,6 +49,7 @@ from ..train.checkpoint import load_checkpoint, save_checkpoint
 from ..train.da import attention_consistency_loss_3d, collect_attn_scores
 from ..train.trainer import build_optimizer, make_train_step
 from ..utils.meters import AverageMeters
+from ..utils.misc import setup_logging
 from .test3d import (_MULTI_GPU, add_model_args, build_model,
                      build_zoo_model, make_dataset, refuse_later_slices,
                      segtran_config, task_settings)
@@ -242,16 +242,8 @@ def make_step(model, optimizer, args, task, device):
 
 
 def _logger(log_dir):
-    os.makedirs(log_dir, exist_ok=True)
-    logger = logging.getLogger("segtran_tpu_torch.train3d")
-    logger.setLevel(logging.INFO)
-    logger.handlers.clear()
-    fmt = logging.Formatter("[%(asctime)s] %(message)s", "%H:%M:%S")
-    for h in (logging.FileHandler(os.path.join(log_dir, "train3d_log.txt")),
-              logging.StreamHandler(sys.stdout)):
-        h.setFormatter(fmt)
-        logger.addHandler(h)
-    return logger
+    return setup_logging(log_dir, "train3d_log.txt",
+                         "segtran_tpu_torch.train3d")
 
 
 def job_dir(args) -> str:

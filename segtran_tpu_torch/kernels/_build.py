@@ -104,3 +104,24 @@ def load(name: str) -> ctypes.CDLL:
 
 def all_sources() -> list:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def kernel_flops(op):
+    """Register ``formula(*arg shapes, out_shape=..., **kwargs) -> int`` as
+    the FLOP count of the custom op ``op`` (a ``torch.ops`` packet, or a
+    list of them), so
+    that ``torch.utils.flop_counter.FlopCounterMode`` counts a kernel's
+    products (which it cannot see inside a ctypes launch) as it counts the
+    aten products of the unfused modules. On the CPU the op's plain version
+    runs inside the op, hidden from the counter, so the count is the same
+    on every device."""
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+
+    ops = op if isinstance(op, (list, tuple)) else [op]
+
+    def register(formula):
+        new = [o for o in ops if o not in flop_registry]
+        if new:
+            register_flop_formula(new)(formula)
+        return formula
+    return register

@@ -9,7 +9,11 @@ arithmetic rounding point for rounding point. The wrapper takes the plain
 version only for tensors on the CPU; for CUDA tensors it launches the
 hand-written kernel in ``csrc/expansion_epilogue.cu`` (built by nvcc for
 sm_90a at first use) or raises. Each wrapper counts its kernel launches in
-its ``launches`` attribute.
+its ``launches`` attribute, and calls a custom op
+(``torch.ops.segtran_tpu_torch.epi_mid_pool``, ``epi_mid_pool_permode``,
+``epi_private_pool``) that holds the device dispatch, a FLOP formula
+(``_build.kernel_flops``) and a backward that raises ValueError: like
+JAX's Pallas epilogue, the kernels have no gradient.
 
 Per mode m (the reference's ExpandedFeatTrans tail, segtran_shared.py
 :255-275 and :311-325; the private output drops its residual):
@@ -36,6 +40,7 @@ from typing import List, NamedTuple, Tuple
 import torch
 
 from . import _build
+from ._build import kernel_flops
 from .squeezed_attention import _check_smem, _cluster_slices, _sm_count
 
 _SRC = "expansion_epilogue"
@@ -372,13 +377,8 @@ def fused_mid_output_pool(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs,
     """probs [B, M, N, A], vw1 = V W1 [B, M, A, F], b1 [F], w2 [M, F, F],
     b2 [M, F], ln_scale/ln_bias [F], ws [F, 1], bs [1] -> [B, N, F] in
     vw1.dtype. Replaces the Pallas fused_mid_output_pool."""
-    if _on_cpu(probs):
-        return fused_mid_output_pool_plain(probs, vw1, b1, w2, b2, ln_scale,
-                                           ln_bias, ws, bs, ln_eps=ln_eps)
-    out = _launch_mid_pool(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs,
-                           ln_eps)
-    fused_mid_output_pool.launches += 1
-    return out
+    return torch.ops.segtran_tpu_torch.epi_mid_pool(
+        probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs, float(ln_eps))
 
 
 def fused_mid_output_pool_permode(probs, vw1, b1, w2, b2, ln_scale, ln_bias,
@@ -386,13 +386,8 @@ def fused_mid_output_pool_permode(probs, vw1, b1, w2, b2, ln_scale, ln_bias,
     """The large-F tier, same signature and result as
     fused_mid_output_pool; on the H100 the same kernel launch. Replaces the
     Pallas fused_mid_output_pool_permode."""
-    if _on_cpu(probs):
-        return fused_mid_output_pool_permode_plain(
-            probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs, ln_eps=ln_eps)
-    out = _launch_mid_pool(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs,
-                           ln_eps)
-    fused_mid_output_pool_permode.launches += 1
-    return out
+    return torch.ops.segtran_tpu_torch.epi_mid_pool_permode(
+        probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs, float(ln_eps))
 
 
 def fused_private_output_pool(mid, w2, b2, ln_scale, ln_bias, ws, bs, *,
@@ -403,9 +398,11 @@ def fused_private_output_pool(mid, w2, b2, ln_scale, ln_bias, ws, bs, *,
     whole number of 16-byte vectors and at most 2048 (8 CTAs of 256
     columns), and mid and W2 must start 16-byte aligned; ValueError
     otherwise."""
-    if _on_cpu(mid):
-        return fused_private_output_pool_plain(mid, w2, b2, ln_scale, ln_bias,
-                                               ws, bs, ln_eps=ln_eps)
+    return torch.ops.segtran_tpu_torch.epi_private_pool(
+        mid, w2, b2, ln_scale, ln_bias, ws, bs, float(ln_eps))
+
+
+def _launch_private_pool(mid, w2, b2, ln_scale, ln_bias, ws, bs, ln_eps):
     b, m, n, f = mid.shape
     dt, dev = mid.dtype, mid.device
     _check_shapes(b, m, n, 0, f, None, None, w2, b2, ln_scale, ln_bias, ws,
@@ -423,13 +420,99 @@ def fused_private_output_pool(mid, w2, b2, ln_scale, ln_bias, ws, bs, *,
         bs_.data_ptr(), out.data_ptr(), b, m, n, f, plan.tile, ln_eps,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_if(rc, "mid_pool_kernel (private tier)")
-    fused_private_output_pool.launches += 1
     return out
 
 
 for _fn in (fused_mid_output_pool, fused_mid_output_pool_permode,
             fused_private_output_pool):
     _fn.launches = 0
+
+_MID_ARGS = ("(Tensor probs, Tensor vw1, Tensor b1, Tensor w2, Tensor b2, "
+             "Tensor ln_scale, Tensor ln_bias, Tensor ws, Tensor bs, "
+             "float ln_eps) -> Tensor")
+
+
+@torch.library.custom_op("segtran_tpu_torch::epi_mid_pool", mutates_args=(),
+                         schema=_MID_ARGS)
+def _epi_mid_pool_op(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs,
+                     ln_eps):
+    if _on_cpu(probs):
+        return fused_mid_output_pool_plain(probs, vw1, b1, w2, b2, ln_scale,
+                                           ln_bias, ws, bs, ln_eps=ln_eps)
+    out = _launch_mid_pool(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs,
+                           ln_eps)
+    fused_mid_output_pool.launches += 1
+    return out
+
+
+@torch.library.custom_op("segtran_tpu_torch::epi_mid_pool_permode",
+                         mutates_args=(), schema=_MID_ARGS)
+def _epi_mid_pool_permode_op(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws,
+                             bs, ln_eps):
+    if _on_cpu(probs):
+        return fused_mid_output_pool_permode_plain(
+            probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs, ln_eps=ln_eps)
+    out = _launch_mid_pool(probs, vw1, b1, w2, b2, ln_scale, ln_bias, ws, bs,
+                           ln_eps)
+    fused_mid_output_pool_permode.launches += 1
+    return out
+
+
+@torch.library.custom_op(
+    "segtran_tpu_torch::epi_private_pool", mutates_args=(),
+    schema="(Tensor mid, Tensor w2, Tensor b2, Tensor ln_scale, "
+           "Tensor ln_bias, Tensor ws, Tensor bs, float ln_eps) -> Tensor")
+def _epi_private_pool_op(mid, w2, b2, ln_scale, ln_bias, ws, bs, ln_eps):
+    if _on_cpu(mid):
+        return fused_private_output_pool_plain(mid, w2, b2, ln_scale, ln_bias,
+                                               ws, bs, ln_eps=ln_eps)
+    out = _launch_private_pool(mid, w2, b2, ln_scale, ln_bias, ws, bs, ln_eps)
+    fused_private_output_pool.launches += 1
+    return out
+
+
+@_epi_mid_pool_op.register_fake
+def _(probs, vw1, *args):
+    b, _, n, _ = probs.shape
+    return vw1.new_empty((b, n, vw1.shape[-1]))
+
+
+_epi_mid_pool_permode_op.register_fake(_)
+
+
+@_epi_private_pool_op.register_fake
+def _(mid, *args):
+    b, _, n, f = mid.shape
+    return mid.new_empty((b, n, f))
+
+
+def _no_backward(ctx, grad):
+    raise ValueError(
+        "the fused expansion epilogue (--fusedepi) has no backward, as the "
+        "JAX package's Pallas epilogue has none (jax.grad through it fails "
+        "to linearize): take gradients through this model without "
+        "--fusedepi")
+
+
+for _op in (_epi_mid_pool_op, _epi_mid_pool_permode_op, _epi_private_pool_op):
+    _op.register_autograd(_no_backward)
+
+
+@kernel_flops([torch.ops.segtran_tpu_torch.epi_mid_pool,
+               torch.ops.segtran_tpu_torch.epi_mid_pool_permode])
+def _(probs_shape, vw1_shape, *args, **kwargs):
+    """P VW1, the output linear and the mode score, as the unfused modules'
+    products count them."""
+    b, m, n, a = probs_shape
+    f = vw1_shape[-1]
+    return 2 * b * m * n * f * (a + f + 1)
+
+
+@kernel_flops(torch.ops.segtran_tpu_torch.epi_private_pool)
+def _(mid_shape, *args, **kwargs):
+    """The output linear and the mode score."""
+    b, m, n, f = mid_shape
+    return 2 * b * m * n * f * (f + 1)
 
 
 def reset_launches() -> None:

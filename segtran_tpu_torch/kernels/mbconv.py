@@ -7,7 +7,10 @@ Counterpart of ``segtran_tpu/kernels/mbconv.py`` (``mbconv_front``,
 tensors on the CPU it runs the plain PyTorch version
 (``mbconv_front_reference``); for CUDA tensors it launches the hand-written
 kernel in ``csrc/mbconv.cu`` (built by nvcc for sm_90a at first use) or
-raises. ``mbconv_front.launches`` counts the kernel's launches.
+raises. ``mbconv_front.launches`` counts the kernel's launches. The
+wrapper calls the custom op ``torch.ops.segtran_tpu_torch.mbconv_front``,
+which holds the device dispatch and a FLOP formula
+(``_build.kernel_flops``).
 
 Both round where the TPU kernel rounds: the expand product of x.dtype
 operands summed in fp32; BN0 and swish in fp32; the halo (the TF-SAME pad
@@ -33,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._build import kernel_flops
 from .squeezed_attention import _SMEM_MAX
 from .squeezed_attention import _sm_count as _device_sm_count
 
@@ -231,10 +235,14 @@ def mbconv_front(x: torch.Tensor, w_exp: Optional[torch.Tensor],
     eval-mode BatchNorm affines (``fold_bn``). pad: static TF-SAME pads
     ((top, bottom), (left, right)). Returns (dw_out [B, Ho, Wo, Cexp] in
     x.dtype, se_mean [B, Cexp] fp32)."""
-    if _on_cpu(x):
-        return mbconv_front_reference(
-            x, w_exp, bn0_scale, bn0_shift, w_dw, bn1_scale, bn1_shift,
-            kernel=kernel, stride=stride, pad=pad)
+    (pt, pb), (pl, pr) = pad
+    return torch.ops.segtran_tpu_torch.mbconv_front(
+        x, w_exp, bn0_scale, bn0_shift, w_dw, bn1_scale, bn1_shift,
+        int(kernel), int(stride), [int(pt), int(pb), int(pl), int(pr)])
+
+
+def _launch(x, w_exp, bn0_scale, bn0_shift, w_dw, bn1_scale, bn1_shift,
+            kernel, stride, pad):
     dt, dev = x.dtype, x.device
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"mbconv_front kernel takes float32 or bfloat16, "
@@ -293,13 +301,51 @@ def mbconv_front(x: torch.Tensor, w_exp: Optional[torch.Tensor],
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mbconv_front: CUDA error {rc} at launch")
-    mbconv_front.launches += 1
     if ragged:
         return out[..., :cexp], se[:, :cexp]
     return out, se
 
 
 mbconv_front.launches = 0
+
+
+@torch.library.custom_op(
+    "segtran_tpu_torch::mbconv_front", mutates_args=(),
+    schema="(Tensor x, Tensor? w_exp, Tensor? bn0_scale, Tensor? bn0_shift, "
+           "Tensor w_dw, Tensor bn1_scale, Tensor bn1_shift, int kernel, "
+           "int stride, int[] pad) -> (Tensor, Tensor)")
+def _mbconv_front_op(x, w_exp, bn0_scale, bn0_shift, w_dw, bn1_scale,
+                     bn1_shift, kernel, stride, pad):
+    pad = ((pad[0], pad[1]), (pad[2], pad[3]))
+    args = (x, w_exp, bn0_scale, bn0_shift, w_dw, bn1_scale, bn1_shift)
+    if _on_cpu(x):
+        return mbconv_front_reference(*args, kernel=kernel, stride=stride,
+                                      pad=pad)
+    out = _launch(*args, kernel, stride, pad)
+    mbconv_front.launches += 1
+    return out
+
+
+@_mbconv_front_op.register_fake
+def _(x, w_exp, bn0_scale, bn0_shift, w_dw, bn1_scale, bn1_shift, kernel,
+      stride, pad):
+    b, h, w, _ = x.shape
+    ho, wo = _out_size(h, w, kernel, stride, ((pad[0], pad[1]),
+                                              (pad[2], pad[3])))
+    cexp = w_dw.shape[-1]
+    return (x.new_empty((b, ho, wo, cexp)),
+            x.new_empty((b, cexp), dtype=torch.float32))
+
+
+@kernel_flops(torch.ops.segtran_tpu_torch.mbconv_front)
+def _(x_shape, w_exp_shape, *args, out_shape=None, **kwargs):
+    """The 1x1 expand and the depthwise taps, as the unfused convolutions
+    count them."""
+    b, h, w, cin = x_shape
+    _, ho, wo, cexp = out_shape[0]
+    k = args[-3]
+    expand = 2 * b * h * w * cin * cexp if w_exp_shape is not None else 0
+    return expand + 2 * b * ho * wo * cexp * k * k
 
 
 def reset_launches() -> None:

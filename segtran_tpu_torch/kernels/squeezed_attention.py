@@ -19,7 +19,10 @@ for CUDA tensors they launch the hand-written kernels in
 raise. Each wrapper counts its launches in ``<wrapper>.launches``: one
 forward call is one launch (the cluster kernel, and the merge of its key
 splits where there is more than one); ``flash_backward_dkdv`` and
-``flash_backward_dq`` count one kernel each.
+``flash_backward_dq`` count one kernel each. Each wrapper calls a custom
+op (``torch.ops.segtran_tpu_torch.flash_fwd``, ``flash_bwd_dkdv``,
+``flash_bwd_dq``) that holds the device dispatch and a FLOP formula
+(``_build.kernel_flops``).
 
 ``fused_cross_attention_trainable`` is the autograd counterpart of the JAX
 custom_vjp: at N >= ``FLASH_BWD_MIN_N`` keys its backward runs the flash
@@ -36,6 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
+from ._build import kernel_flops
 
 _SRC = "squeezed_attention"
 _vp, _i, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -251,15 +255,38 @@ def fused_cross_attention(q, k, v, attn_clip: float = 500.0,
     fused_cross_attention."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if _on_cpu(q):
-        out, lse = fused_cross_attention_plain(q, k, v, attn_clip, sm_scale)
-    else:
-        out, lse = _launch_fwd(q, k, v, attn_clip, sm_scale)
-        fused_cross_attention.launches += 1
+    out, lse = torch.ops.segtran_tpu_torch.flash_fwd(q, k, v, float(attn_clip),
+                                                     float(sm_scale))
     return (out, lse) if return_lse else out
 
 
 fused_cross_attention.launches = 0
+
+
+@torch.library.custom_op(
+    "segtran_tpu_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, float attn_clip, float sm_scale)"
+           " -> (Tensor, Tensor)")
+def _flash_fwd_op(q, k, v, attn_clip, sm_scale):
+    if _on_cpu(q):
+        return fused_cross_attention_plain(q, k, v, attn_clip, sm_scale)
+    out, lse = _launch_fwd(q, k, v, attn_clip, sm_scale)
+    fused_cross_attention.launches += 1
+    return out, lse
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, attn_clip, sm_scale):
+    g, nq = q.shape[:2]
+    return (v.new_empty((g, nq, v.shape[2])),
+            q.new_empty((g, nq, 1), dtype=torch.float32))
+
+
+@kernel_flops(torch.ops.segtran_tpu_torch.flash_fwd)
+def _(q_shape, k_shape, v_shape, *args, **kwargs):
+    """q k^T and p v: what the unfused chain's two products count."""
+    g, nq, d = q_shape
+    return 2 * g * nq * k_shape[1] * (d + v_shape[2])
 
 # Keys from which the backward takes the flash kernels (JAX
 # ``FLASH_BWD_MIN_N``, kept equal so that both packages take the same
@@ -404,12 +431,9 @@ def flash_backward_dkdv(q, k, v, do, lse, delta, attn_clip=500.0,
     delta = sum_f dO O [G, Q, 1] fp32. Replaces the Pallas _dkdv_kernel."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if _on_cpu(q):
-        return flash_backward_dkdv_plain(q, k, v, do, lse, delta, attn_clip,
-                                         sm_scale)
-    out = _launch_bwd(True, q, k, v, do, lse, delta, attn_clip, sm_scale)
-    flash_backward_dkdv.launches += 1
-    return out
+    dk, dv = torch.ops.segtran_tpu_torch.flash_bwd_dkdv(
+        q, k, v, do, lse, delta, float(attn_clip), float(sm_scale))
+    return dk, dv
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, attn_clip=500.0,
@@ -418,6 +442,31 @@ def flash_backward_dq(q, k, v, do, lse, delta, attn_clip=500.0,
     Replaces the Pallas _dq_kernel."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return torch.ops.segtran_tpu_torch.flash_bwd_dq(
+        q, k, v, do, lse, delta, float(attn_clip), float(sm_scale))
+
+
+flash_backward_dkdv.launches = 0
+flash_backward_dq.launches = 0
+
+_BWD_ARGS = ("(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
+             "Tensor delta, float attn_clip, float sm_scale)")
+
+
+@torch.library.custom_op("segtran_tpu_torch::flash_bwd_dkdv", mutates_args=(),
+                         schema=_BWD_ARGS + " -> (Tensor, Tensor)")
+def _flash_bwd_dkdv_op(q, k, v, do, lse, delta, attn_clip, sm_scale):
+    if _on_cpu(q):
+        return flash_backward_dkdv_plain(q, k, v, do, lse, delta, attn_clip,
+                                         sm_scale)
+    dk, dv = _launch_bwd(True, q, k, v, do, lse, delta, attn_clip, sm_scale)
+    flash_backward_dkdv.launches += 1
+    return dk, dv
+
+
+@torch.library.custom_op("segtran_tpu_torch::flash_bwd_dq", mutates_args=(),
+                         schema=_BWD_ARGS + " -> Tensor")
+def _flash_bwd_dq_op(q, k, v, do, lse, delta, attn_clip, sm_scale):
     if _on_cpu(q):
         return flash_backward_dq_plain(q, k, v, do, lse, delta, attn_clip,
                                        sm_scale)
@@ -426,8 +475,28 @@ def flash_backward_dq(q, k, v, do, lse, delta, attn_clip=500.0,
     return dq
 
 
-flash_backward_dkdv.launches = 0
-flash_backward_dq.launches = 0
+@_flash_bwd_dkdv_op.register_fake
+def _(q, k, v, do, lse, delta, attn_clip, sm_scale):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, do, lse, delta, attn_clip, sm_scale):
+    return torch.empty_like(q)
+
+
+@kernel_flops(torch.ops.segtran_tpu_torch.flash_bwd_dkdv)
+def _(q_shape, k_shape, v_shape, *args, **kwargs):
+    """s = q k^T and dp = dO v^T recomputed, dv = p^T dO, dk = ds^T q."""
+    g, nq, d = q_shape
+    return 4 * g * nq * k_shape[1] * (d + v_shape[2])
+
+
+@kernel_flops(torch.ops.segtran_tpu_torch.flash_bwd_dq)
+def _(q_shape, k_shape, v_shape, *args, **kwargs):
+    """s = q k^T and dp = dO v^T recomputed, dq = ds k."""
+    g, nq, d = q_shape
+    return 2 * g * nq * k_shape[1] * (2 * d + v_shape[2])
 
 
 def cross_attention_bwd_recompute(q, k, v, do, attn_clip, sm_scale):

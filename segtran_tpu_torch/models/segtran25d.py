@@ -109,6 +109,10 @@ class Segtran25d(nn.Module):
         # the token grid (H2, W2, D3) of the last forward (the raster of the
         # attention-consistency loss)
         self.last_grid = None
+        # with keep_features: the depth-pooled in-FPN volume [B, H2, W2, D3,
+        # C] of the last forward (JAX's sown in_fpn_feat, nn/features.py)
+        self.keep_features = False
+        self.in_fpn_feat = None
 
     def _pool_stride(self) -> int:
         stride = 2 ** min(self.cfg.in_fpn_layers)
@@ -178,6 +182,7 @@ class Segtran25d(nn.Module):
         n = h2 * w2 * d3
         vfeat_fpn = vol.reshape(b, n, cfg.trans_in_dim)
         self.last_grid = (h2, w2, d3)
+        self.in_fpn_feat = vol if self.keep_features else None
 
         # coordinates in (H, W, D) order; the depth scale from the depth
         # before grouping (segtran25d.py:413-436)

@@ -19,9 +19,9 @@ backbone block (``nn/remat.py``).
 Each forward records its token grid ``(h2, w2)`` in ``token_grid``. With
 ``keep_features`` it also keeps the input FPN's output ``in_fpn_feat``
 [B, h2, w2, C] and, unless ``cfg.remat`` (JAX sows the layer outputs only
-without it), the last translayer's tokens on that grid in
-``last_layer_feat``: the features the DA losses read (JAX train2d's
-``_da_feature``).
+without it), each translayer's output tokens (``nn/features.py``);
+``last_layer_feat`` is the last of them on the token grid: the features
+the DA losses read (JAX train2d's ``_da_feature``).
 
 Counterpart of ``segtran_tpu/models/segtran2d.py`` (reference
 code/networks/segtran2d.py: forward :314-438, in_fpn_forward :235-271,
@@ -149,7 +149,17 @@ class Segtran2d(nn.Module):
                                                cfg.num_classes, 2, stride=2)
         self.out_fpn_dropout = Dropout(cfg.hidden_dropout_prob)
         self.keep_features = False
-        self.token_grid = self.in_fpn_feat = self.last_layer_feat = None
+        self.token_grid = self.in_fpn_feat = None
+
+    @property
+    def last_layer_feat(self):
+        """The last translayer's kept tokens on the token grid
+        [B, h2, w2, C] (a view), or None."""
+        outs = getattr(getattr(self, "voxel_fusion", None), "layer_outputs",
+                       None)
+        if not outs:
+            return None
+        return outs[-1].reshape(outs[-1].shape[0], *self.token_grid, -1)
 
     def _norm_name(self, prefix: str, layer: int) -> str:
         use_bn = (self.cfg.in_fpn_use_bn if prefix == "in"
@@ -210,7 +220,6 @@ class Segtran2d(nn.Module):
         h2, w2 = curr.shape[1], curr.shape[2]
         self.token_grid = (h2, w2)
         self.in_fpn_feat = curr if self.keep_features else None
-        self.last_layer_feat = None
         vfeat_fpn = curr.reshape(b, h2 * w2, cfg.trans_in_dim)
         vmask = nonzero_mask.reshape(b, h2 * w2)
         if mod:
@@ -231,13 +240,13 @@ class Segtran2d(nn.Module):
             vfeat_fused = self.vfeat_bias_norm_layer(self.vfeat_bias).to(
                 dt).expand(b0, h2 * w2, -1)
         else:
+            self.voxel_fusion.keep_layer_outputs = (self.keep_features
+                                                    and not cfg.remat)
             enc_args = (vfeat_fpn, voxels_pos, vmask[..., None].to(dt),
                         (h2, w2))
             vfeat_fused = (remat(self.voxel_fusion, *enc_args) if rematted
                            else self.voxel_fusion(*enc_args))
         vfeat_fused = vfeat_fused.reshape(b0, h2, w2, cfg.trans_out_dim)
-        if self.keep_features and not cfg.use_global_bias and not cfg.remat:
-            self.last_layer_feat = vfeat_fused
 
         if mod:
             # the pyramid max-fused over the modalities too (JAX

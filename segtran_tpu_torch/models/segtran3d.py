@@ -122,6 +122,10 @@ class Segtran3d(nn.Module):
         # the token grid (D2, H2, W2) of the last forward: the raster the
         # attention-consistency loss resizes the mask to
         self.last_grid = None
+        # with keep_features: the depth-pooled in-FPN volume [B, D2, H2, W2,
+        # C] of the last forward (JAX's sown in_fpn_feat, nn/features.py)
+        self.keep_features = False
+        self.in_fpn_feat = None
 
     def _pool_window(self):
         """The nonzero mask's pool window (D, H, W): the stride of the
@@ -188,6 +192,7 @@ class Segtran3d(nn.Module):
         n = d2 * h2 * w2
         vfeat_fpn = curr.reshape(b, n, cfg.trans_in_dim)
         self.last_grid = (d2, h2, w2)
+        self.in_fpn_feat = curr if self.keep_features else None
 
         # positional coordinates in (D, H, W) order (:442-470)
         scale_d, scale_h, scale_w = d // d2, h // h2, w // w2

@@ -526,9 +526,12 @@ class CrossAttFeatTrans(nn.Module):
         """The fused branch (nn/attention.py:597-624 of the JAX package):
         the kernel contracts softmax(q k^T) with V, or with V W1 on the
         attractor-out side, whose mid then finishes after the kernel. In
-        training the differentiable wrapper runs (flash backward)."""
+        training, and in any forward that autograd records (an eval
+        gradient such as the receptive-field probe; JAX always takes its
+        custom_vjp), the differentiable wrapper runs."""
         s = self.spec
-        attend = (fused_cross_attention_trainable if self.training
+        attend = (fused_cross_attention_trainable
+                  if self.training or torch.is_grad_enabled()
                   else fused_cross_attention)
         out_trans = self.out_trans
         b, m, u1, amd = q.shape

@@ -11,7 +11,9 @@ not added to the features but passed to every layer, whose scores it
 biases (non-squeezed layers only, as in the reference; mince layers take
 one bias per scale from the per-scale encoders ``pos_code_layers``). With
 ``use_attn_consist_loss`` every attention keeps its scores of the last
-forward on its module (``attention_scores``).
+forward on its module (``attention_scores``); with ``keep_layer_outputs``
+the encoder keeps each layer's output tokens in ``layer_outputs`` (JAX's
+sown ``layer_{i}_vfeat``, ``nn/features.py``).
 """
 from __future__ import annotations
 
@@ -112,6 +114,8 @@ class SegtranFusionEncoder(nn.Module):
                                   keep_attn_scores=keep)
                 for i in range(n))
         self.dropout = Dropout(cfg.hidden_dropout_prob)
+        self.keep_layer_outputs = False
+        self.layer_outputs = None
 
     def forward(self, vfeat: torch.Tensor, voxels_pos: torch.Tensor,
                 vmask: torch.Tensor, spatial_shape: Sequence[int]) -> torch.Tensor:
@@ -130,6 +134,7 @@ class SegtranFusionEncoder(nn.Module):
                 mince_pos = [enc(scaled_shape(spatial_shape, sc), voxels_pos)
                              for enc, sc in zip(self.pos_code_layers,
                                                 cfg.mince_scales)]
+        outs = [] if self.keep_layer_outputs else None
         for i, layer in enumerate(self.translayers):
             dim_i = cfg.translayer_dims[i]
             feat_normed = self.vfeat_norm_layers[i](vfeat)
@@ -143,4 +148,7 @@ class SegtranFusionEncoder(nn.Module):
                               pos_biases=mince_pos)
             else:
                 vfeat = layer(feat_normed * vmask, pos_biases=pos_biases)
+            if outs is not None:
+                outs.append(vfeat)
+        self.layer_outputs = outs
         return vfeat

@@ -4,6 +4,10 @@
 align_corners=False, antialias=False)``: half-pixel centres, no
 antialiasing filter -- the sampling the JAX package's
 ``jax.image.resize(method='linear', antialias=False)`` implements.
+``resize_image_linear`` is ``jax.image.resize(method='linear')`` with its
+default ``antialias=True``: a shrink filters with the triangle kernel
+widened by the scale (``F.interpolate(..., antialias=True)``), a growth
+samples as ``resize_linear`` does (the analysis tools' resizes).
 ``resize_linear_align_corners`` is the same with ``align_corners=True``
 (the vanilla U-Net's upsampling); ``max_pool_nhwc`` is a max pool with
 VALID or explicit padding, ``max_pool_same`` one with TF-SAME padding: the
@@ -37,6 +41,18 @@ def resize_linear(x: torch.Tensor, spatial_size: Sequence[int]) -> torch.Tensor:
     y = F.interpolate(_channels_first(x), size=spatial_size,
                       mode=_MODES[len(spatial_size)], align_corners=False,
                       antialias=False)
+    return _channels_last(y)
+
+
+def resize_image_linear(x: torch.Tensor,
+                        spatial_size: Sequence[int]) -> torch.Tensor:
+    """x: [B, H, W, C] -> [B, *spatial_size, C], antialiased where it
+    shrinks (``jax.image.resize(x, shape, 'linear')``)."""
+    spatial_size = tuple(int(s) for s in spatial_size)
+    if tuple(x.shape[1:-1]) == spatial_size:
+        return x
+    y = F.interpolate(_channels_first(x), size=spatial_size, mode="bilinear",
+                      align_corners=False, antialias=True)
     return _channels_last(y)
 
 

@@ -1,0 +1,2 @@
+from .meters import AverageMeters
+from .misc import get_seg_colormap, setup_logging

@@ -1,6 +1,8 @@
 """Shared helpers of the tests that hold segtran_tpu_torch against the JAX
 package: seeded JAX variables, converted into the port's state_dict, and
 the fixture that runs a test module on one intra-op PyTorch thread."""
+import hashlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,14 +54,41 @@ def perturb(tree, seed):
     return walk(tree)
 
 
+# jax_variables' results in this process, by (module, seed, example
+# inputs, keyword arguments): flax modules compare and hash by their
+# fields, so a test file that builds the same module again (a parametrised
+# test, a helper called per case) compiles its init once
+_VARIABLES = {}
+
+
+def _variables_key(module, args, seed, kwargs):
+    try:
+        arrays = tuple((np.shape(a), str(np.asarray(a).dtype),
+                        hashlib.sha1(np.asarray(a).tobytes()).hexdigest())
+                       for a in args)
+        key = (module, seed, arrays, repr(sorted(kwargs.items())))
+        hash(key)
+        return key
+    except TypeError:                  # a module with an unhashable field
+        return None
+
+
 def jax_variables(module, *args, seed=0, **kwargs):
     """Init a flax module with the reference init schemes; returns numpy
-    (params, batch_stats) with perturbed norms and statistics."""
+    (params, batch_stats) with perturbed norms and statistics (a fresh
+    copy on every call; the init runs once per module, inputs and seed in
+    a process)."""
     from segtran_tpu.nn.init import init_with_reference_schemes
-    params, rest = init_with_reference_schemes(
-        module, {"params": jax.random.PRNGKey(seed)}, *args, **kwargs)
-    return (perturb(to_numpy(params), seed + 1),
-            perturb(to_numpy(rest.get("batch_stats", {})), seed + 2))
+    key = _variables_key(module, args, seed, kwargs)
+    if key is None or key not in _VARIABLES:
+        params, rest = init_with_reference_schemes(
+            module, {"params": jax.random.PRNGKey(seed)}, *args, **kwargs)
+        out = (perturb(to_numpy(params), seed + 1),
+               perturb(to_numpy(rest.get("batch_stats", {})), seed + 2))
+        if key is None:
+            return out
+        _VARIABLES[key] = out
+    return jax.tree_util.tree_map(np.copy, _VARIABLES[key])
 
 
 def jvars(params, batch_stats):

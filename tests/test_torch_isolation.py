@@ -27,7 +27,8 @@ for want in ("kernels.mbconv", "nn.remat", "nn.backbones.efficientnet",
              "models.unet_3plus", "models.att_unet", "models.generic_unet",
              "models.dunet", "models.transunet", "models.setr",
              "convert.torch_import", "convert.cli", "models.vnet",
-             "models.unet3d"):
+             "models.unet3d", "nn.features", "tools.flops", "tools.postproc",
+             "tools.robustness", "tools.analysis", "utils.misc"):
     assert "segtran_tpu_torch." + want in names, want
 for n in names:
     importlib.import_module(n)

@@ -149,10 +149,12 @@ def test_test3d_cli_end_to_end_on_the_cpu(tmp_path):
 def test_later_slice_flags_raise():
     from segtran_tpu_torch.cli.test3d import (build_model_and_config,
                                               task_settings)
-    for extra in (["--spatialshard"], ["--flop"]):
-        args = _small_args(extra)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build_model_and_config(args, task_settings(args))
+    args = _small_args(["--spatialshard"])
+    with pytest.raises(NotImplementedError, match="later slice"):
+        build_model_and_config(args, task_settings(args))
+    # --flop is ported (tests/test_torch_tools_cli.py runs it)
+    args = _small_args(["--flop"])
+    assert build_model_and_config(args, task_settings(args))[1] is not None
     # the 3-D zoo nets are ported: they build, with no config
     for net in ("vnet", "unet"):
         args = _small_args(["--net", net])

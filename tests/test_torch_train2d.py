@@ -17,9 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import jax_variables, jvars, to_numpy
+from _torch_parity import jvars, to_numpy
 from _torch_train3d import (GRAD_TOL, LOSS_RTOL, STATS_TOL, UPDATE_TOL,
                             _fro_rel, _max_rel)
+from _torch_volume import fast_variables
 
 SHAPE = (64, 64)
 
@@ -37,7 +38,7 @@ def test_backbone_train_mode_matches_jax():
         EfficientNetFeatures)
     x = np.random.RandomState(1).randn(2, *SHAPE, 3).astype(np.float32)
     jnet = JNet(variant="eff-b0", drop_connect_rate=0.0)
-    params, bstats = jax_variables(jnet, jnp.zeros((1, *SHAPE, 3)), seed=4)
+    params, bstats = fast_variables(jnet, jnp.zeros((1, *SHAPE, 3)), seed=4)
     ref, upd = jax.jit(lambda v, x: jnet.apply(v, x, True,
                                                mutable=["batch_stats"]))(
         jvars(params, bstats), jnp.asarray(x))
@@ -107,7 +108,7 @@ def test_backbone_train_mode_matches_jax_fp64(monkeypatch):
     from segtran_tpu_torch.nn.backbones.efficientnet import (
         EfficientNetFeatures)
     x = np.random.RandomState(1).randn(2, *SHAPE, 3)
-    params, bstats = jax_variables(
+    params, bstats = fast_variables(
         JNet(variant="eff-b0", drop_connect_rate=0.0),
         jnp.zeros((1, *SHAPE, 3)), seed=4)
     with jax.enable_x64(True):
@@ -241,7 +242,7 @@ def jax_steps():
     try:
         jcfg, _ = _configs()
         jm = JModel(jcfg)
-        params, bstats = jax_variables(jm, jnp.zeros((1, *SHAPE, 3)), seed=3)
+        params, bstats = fast_variables(jm, jnp.zeros((1, *SHAPE, 3)), seed=3)
         rng = np.random.RandomState(5)
         image = rng.randn(2, *SHAPE, 3).astype(np.float32)
         cls = rng.randint(0, 3, (2, *SHAPE))

@@ -296,12 +296,20 @@ def test_item5_flags_build(tmp_path, flags, check):
     (["--tp", "4"], "item 6"), (["--ndevices", "4"], "item 6"),
     (["--net", "unet", "--ep"], "item 6"), (["--tp", "2"], "item 6"),
     (["--ep"], "item 6"), (["--ndevices", "2"], "item 6"),
-    (["--net", "setr", "--profile"], "item 6"), (["--profile"], "item 6"),
+    (["--net", "setr", "--profile"], None), (["--profile"], None),
     (["--scanblocks"], "Leave out")])
 def test_later_slice_flags_raise(tmp_path, flags, item):
+    """What a later slice still owns raises NotImplementedError naming it;
+    --profile (ROADMAP item 6c) is ported and passes the refusals
+    (tests/test_torch_tools_cli.py runs it)."""
     from segtran_tpu_torch.cli import train2d
+    argv = ["--device", "cpu", "--ckptdir", str(tmp_path)] + flags
+    if item is None:
+        train2d._refuse_later_slices(train2d.build_argparser().parse_args(
+            argv))
+        return
     with pytest.raises(NotImplementedError, match=item):
-        train2d.main(["--device", "cpu", "--ckptdir", str(tmp_path)] + flags)
+        train2d.main(argv)
 
 
 @pytest.mark.parametrize("flags,field,value", [
