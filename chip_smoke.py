@@ -209,6 +209,27 @@ Phases, each of which fails the run:
    bs 6 (parameters, FLOPs, FPS logged) and profile_trace around one
    forward (a trace file written).
 
+15. parallel -- parallel/ on an NCCL group of world size 1, joined by
+   ``parallel/multihost.init_multihost`` from the env a ``torchrun
+   --nproc_per_node 1`` launch sets (no fallback to gloo or no group) and
+   destroyed at the end: (a) train3d's train() at BraTS full width (I3D,
+   1 translayer 1024->1024, 1024 attractors, 4 modes, bf16, --fused
+   --dropout 0, --ndevices 1) on in-memory volumes at the 160x192x144
+   crop, bs 1, 3 steps of 2 flash forwards, 1 dK/dV + dQ pair and 1
+   recompute backward each; the step with and without the group timed in
+   turns on the same draws (ms per step, peak memory); one fp32 step with
+   the group against one without (the loss, and the whole gradient by
+   relative Frobenius error <= 1e-5, or <= 3x a repeated run's own where
+   the step's atomics make that larger); (b) train2d's train() at the flagship's full width with
+   --fused --dropout 0, bs 6, 3 steps of 6 flash forwards each, the step
+   with and without the group in turns on the same draws; (c) sharded_whole_volume_apply
+   on a 160x192x144 volume with --fused --fusedepi (2 flash forwards + 1
+   private tier), probabilities against the model's own forward and
+   evaluate_volume through it; (d) sharded_cross_attention at the BraTS
+   in-squeeze and token_sharded_expand_attention at its out-squeeze, bf16
+   and fp32 (TF32 off), each against the plain flash version and timed
+   beside a bare fused_cross_attention call.
+
 Before the last line it prints a JSON object with the fundus train step's
 and the fused backbone's numbers, one with the per-kernel numbers, and the
 card's ``name, power.limit``; the last line is
@@ -4374,6 +4395,405 @@ def tools_phase(torch, np, epi, sa, ckdir, logger, card):
     return perf
 
 
+# ----------------------------------------------------------- phase 15 ----
+
+# (a): train3d at BraTS full width on the 160x192x144 crop (phase 6 (b)),
+# bs 1, --fused --dropout 0 under the group; flash launches per step
+PAR_TRAIN3D_ARGV = TRAIN_ARGV + ["--bs", "1", "--patchsize", "160,192,144",
+                                 "--inputsize", "160,192,144"]
+PAR_STEPS = 3
+PAR_TRAIN3D_PER_STEP = (2, 1, 1, 1)     # forward, dK/dV, dQ, recompute
+# (b): train2d at the flagship's full width, --fused with attention
+# dropout off (phase 11's flags); 6 flash forwards per step, no backward
+PAR_TRAIN2D_ARGV = FUNDUS_CLI_ARGV + ["--fused", "--dropout", "0"]
+PAR_TRAIN2D_PER_STEP = (6, 0, 0)
+# (d): the BraTS squeezes: in (Q = 1024 attractors <- N = 8640 tokens,
+# D = F = 1024) and out (4 modes, Q = 8640 tokens <- 1024 attractors,
+# D = 256, F = 1024), as FLASH_CASES' first two
+PAR_CP_CASES = [("in-squeeze", "sharded_cross_attention", 1, 1024, 8640,
+                 1024, 1024),
+                ("out-squeeze", "token_sharded_expand_attention", 4, 8640,
+                 1024, 256, 1024)]
+# a step under the group against the same step without one (fp32, TF32
+# off): at world size 1 every collective is skipped, so they must agree
+# to 1e-5 (the whole gradient by relative Frobenius error)
+PAR_FP32_TOL = 1e-5
+# ... or within this many times a repeated run's own difference, where
+# that is larger (par_fp32_check)
+PAR_REPEAT_FACTOR = 3.0
+# the sharded whole-volume forward against the model's own (bf16
+# probabilities; the same kernels on the same input, cuDNN free to pick
+# another convolution algorithm per call)
+PAR_PROB_TOL = 1e-3
+
+
+def free_port():
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def nccl_group(torch):
+    """The env a ``torchrun --nproc_per_node 1`` launch sets, then
+    ``init_multihost``: an NCCL group of world size 1 or a failure (no
+    fallback to gloo or to no group)."""
+    import torch.distributed as dist
+    from segtran_tpu_torch.parallel.multihost import init_multihost
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+                      RANK="0", LOCAL_RANK="0", WORLD_SIZE="1")
+    topo = init_multihost("cuda", verbose=True)
+    backend = dist.get_backend() if dist.is_initialized() else None
+    log(f"[parallel] init_multihost: {topo}, backend {backend}")
+    if backend != "nccl" or topo["process_count"] != 1:
+        fail(f"no NCCL group of world size 1: backend {backend}, {topo}")
+    return topo
+
+
+def par_step_ms(torch, steps, batch, draws):
+    """{label: [(ms per step, peak GB)]} of each step on ``batch`` with the
+    same augmentation ``draws`` (the work of some transforms depends on
+    them), in two rounds of turns (plain, group, group, plain): host clock
+    around 3 steps after a warm one, ending in a synchronise."""
+    out = {label: [] for label in steps}
+    order = (list(steps) + list(steps)[::-1]) * 2
+    for label in order:
+        fn = steps[label]
+        fn(batch, draws)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(batch, draws)
+        torch.cuda.synchronize()
+        out[label].append(((time.perf_counter() - t0) / 3 * 1e3,
+                           torch.cuda.max_memory_allocated() / 1e9))
+    return out
+
+
+def par_train3d(torch, np, epi, sa, ckdir, logger, card):
+    """(a): train3d.train() under the group, 3 steps at 160x192x144 bs 1
+    (launches per step checked); the step with and without the group
+    timed in turns; one fp32 step with the group against one without."""
+    from segtran_tpu_torch.cli import train3d
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    from segtran_tpu_torch.parallel.mesh import TrainMesh
+    from segtran_tpu_torch.train.trainer import build_optimizer
+    dev = torch.device("cuda")
+    make_ds = synthetic_dataset(np, 2, (240, 240, 155))
+    args = train3d.build_argparser().parse_args(
+        PAR_TRAIN3D_ARGV + ["--bf16", "--ndevices", "1", "--maxiter",
+                            str(PAR_STEPS), "--saveiter", str(PAR_STEPS),
+                            "--ckptdir", ckdir])
+    task = train3d.train_task_settings(args)
+    model, cfg = train3d.build_model_and_config(args, task)
+    if (cfg.translayer_dims != (1024, 1024) or cfg.num_attractors != 1024
+            or cfg.num_modes != 4 or cfg.dtype != torch.bfloat16):
+        fail(f"unexpected BraTS training config {cfg}")
+    init_with_reference_schemes(model, cfg, seed=0)
+    model = model.to(dev)
+    ds = make_ds(tuple(task["orig_patch_size"]))
+    reset_counts(epi, sa)
+    t0 = time.perf_counter()
+    ckpt = train3d.train(model, ds, args, task, dev, cfg,
+                         os.path.join(ckdir, "par3d"), logger)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = kernel_launches(epi, sa)[:4]
+    want = tuple(n * PAR_STEPS for n in PAR_TRAIN3D_PER_STEP)
+    wrote = os.path.isfile(os.path.join(ckpt, f"iter_{PAR_STEPS}.pt"))
+    log(f"[parallel] (a) train3d.train() under NCCL: {PAR_STEPS} steps in "
+        f"{wall:.2f} s; launches (flash forward, dK/dV, dQ, recompute) "
+        f"{got}, want {want}; wrote iter_{PAR_STEPS}.pt {wrote}")
+    if got != want or not wrote:
+        fail("train3d under the group did not launch the flash forward and "
+             "backward pair as the path gives them, or wrote no checkpoint")
+    batch = {k: torch.from_numpy(np.stack([ds[0][k]])).to(dev)
+             for k in ("image", "label")}
+    opt = build_optimizer(model, lr=args.lr, decay=args.decay,
+                          t_total=args.maxiter, warmup_ratio=0.5)
+    plain = train3d.make_step(model, opt, args, task, dev)
+    par = TrainMesh(model, opt, 1, 1)
+    grouped = par.wrap(train3d.make_step(model, par.optimizer, args, task,
+                                         dev))
+    draws = {"rot_flip": (torch.tensor([1]), torch.tensor([False]),
+                          torch.tensor([True])), "zoom": 1.05}
+    times = par_step_ms(torch, {"no group": plain, "NCCL group": grouped},
+                        batch, draws)
+    for label, rows in times.items():
+        log(f"[parallel] (a) train3d step 160x192x144 bs1 bf16, {label}: "
+            f"ms per step {[round(r[0], 2) for r in rows]}, peak GB "
+            f"{[round(r[1], 2) for r in rows]} on {card}")
+    state = {k: v.float() if v.is_floating_point() else v
+             for k, v in model.state_dict().items()}
+    del model, opt, plain, grouped, par
+    torch.cuda.empty_cache()
+    fp32 = par_fp32_check(torch, train3d, state, batch, dev)
+    return dict(train_wall_s=wall, launches=list(got),
+                ms_per_step={k: [r[0] for r in v] for k, v in times.items()},
+                peak_mem_gb={k: [r[1] for r in v] for k, v in times.items()},
+                **fp32)
+
+
+def par_fp32_check(torch, train3d, state, batch, dev):
+    """One fp32 forward + backward (TF32 off, no update, fixed draws) of
+    the (a) batch without the group, with it, and without it again: the
+    loss, and the whole gradient (every tensor in one vector) by relative
+    Frobenius error against the first run. At world size 1 the group adds
+    no arithmetic, but two runs of one step differ too (the trilinear
+    resizes' backward sums with atomics, and the I3D backbone's train-mode
+    BatchNorm amplifies the reordering), so the group's error is held to
+    the larger of PAR_FP32_TOL and PAR_REPEAT_FACTOR times the repeated
+    run's; the worst single tensors are logged."""
+    from segtran_tpu_torch.parallel.mesh import TrainMesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = train3d.build_argparser().parse_args(PAR_TRAIN3D_ARGV + [
+        "--maxiter", "4"])
+    task = train3d.train_task_settings(args)
+    model, _ = train3d.build_model_and_config(args, task)
+    model.load_state_dict(state, strict=True)
+    model = model.to(dev)
+    draws = {"rot_flip": (torch.tensor([1]), torch.tensor([False]),
+                          torch.tensor([True])), "zoom": 1.05}
+    runs = {}
+    for label in ("no group", "group", "no group again"):
+        step = train3d.make_step(model, None, args, task, dev)
+        if label == "group":
+            step = TrainMesh(model, None, 1, 1).wrap(step)
+        metrics = step(batch, draws)
+        runs[label] = (float(metrics["loss"]),
+                       {n: p.grad.detach().clone()
+                        for n, p in model.named_parameters()
+                        if p.grad is not None})
+    torch.backends.cudnn.allow_tf32 = True
+    lb, gb = runs["no group"]
+    names = sorted(gb)
+    ref = torch.cat([gb[n].reshape(-1) for n in names])
+
+    def against(label):
+        la, ga = runs[label]
+        if set(ga) != set(gb):
+            fail(f"the fp32 step ({label}) has other gradients")
+        got = torch.cat([ga[n].reshape(-1) for n in names])
+        worst = sorted(((float((ga[n] - gb[n]).norm()
+                                / max(float(gb[n].norm()), 1e-30)), n)
+                        for n in names), reverse=True)[:3]
+        return (abs(la - lb) / abs(lb), float((got - ref).norm()
+                                             / ref.norm()), worst)
+    loss_rel, rel, worst = against("group")
+    loss_rep, rep, worst_rep = against("no group again")
+    bound = max(PAR_FP32_TOL, PAR_REPEAT_FACTOR * rep)
+    log(f"[parallel] (a) fp32 step with the group vs without: loss rel "
+        f"{loss_rel:.2e} (repeat {loss_rep:.2e}); whole gradient relative "
+        f"Frobenius error {rel:.2e}, the repeated run's {rep:.2e} (bound "
+        f"{bound:.2e}) over {len(names)} tensors; worst tensors "
+        f"{[(round(e, 6), n) for e, n in worst]}, repeated "
+        f"{[(round(e, 6), n) for e, n in worst_rep]}")
+    if loss_rel > max(PAR_FP32_TOL, PAR_REPEAT_FACTOR * loss_rep) \
+            or rel > bound:
+        fail("the fp32 step under the group disagrees with the one without")
+    del model
+    torch.cuda.empty_cache()
+    return dict(fp32_loss_rel=loss_rel, fp32_grad_fro=rel,
+                fp32_repeat_grad_fro=rep)
+
+
+def par_train2d(torch, np, epi, sa, ckdir, logger, card, cli_ms=None):
+    """(b): train2d.train() at the flagship's full width, --fused
+    --dropout 0, bs 6, 3 steps under the group (6 flash forwards each);
+    the CLI step with and without the group timed in turns."""
+    from segtran_tpu_torch.cli import train2d
+    from segtran_tpu_torch.data.augment import draw_2d
+    from segtran_tpu_torch.nn.init import init_with_reference_schemes
+    from segtran_tpu_torch.parallel.mesh import TrainMesh
+    from segtran_tpu_torch.train.trainer import build_optimizer
+    dev = torch.device("cuda")
+    frames = synthetic_fundus(np, 2 * CLI_BS, seed=31)
+    args = train2d.build_argparser().parse_args(
+        PAR_TRAIN2D_ARGV + ["--seed", "0", "--bs", str(CLI_BS), "--ndevices",
+                            "1", "--maxiter", str(PAR_STEPS), "--saveiter",
+                            str(PAR_STEPS), "--logiter", "1", "--ckptdir",
+                            ckdir])
+    task = train2d.task_settings(args)
+    model, cfg = train2d.build_model_and_config(args, task)
+    if (cfg.translayer_dims != (1792, 1792, 896, 448) or cfg.num_modes != 4
+            or cfg.num_attractors != 256 or cfg.dtype != torch.bfloat16
+            or cfg.attention_probs_dropout_prob != 0):
+        fail(f"unexpected train2d flagship config {cfg}")
+    init_with_reference_schemes(model, cfg, seed=0)
+    model = model.to(dev)
+    reset_counts(epi, sa)
+    t0 = time.perf_counter()
+    ckpt = train2d.train(model, frames, args, task, dev, cfg,
+                         os.path.join(ckdir, "par2d"), logger)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = kernel_launches(epi, sa)[:3]
+    want = tuple(n * PAR_STEPS for n in PAR_TRAIN2D_PER_STEP)
+    wrote = os.path.isfile(os.path.join(ckpt, f"iter_{PAR_STEPS}.pt"))
+    log(f"[parallel] (b) train2d.train() --fused under NCCL: {PAR_STEPS} "
+        f"steps at bs {CLI_BS} in {wall:.2f} s; launches (flash forward, "
+        f"dK/dV, dQ) {got}, want {want}; wrote iter_{PAR_STEPS}.pt {wrote}")
+    if got != want or not wrote:
+        fail("train2d --fused under the group did not launch the flash "
+             "forward 6 times per step, or wrote no checkpoint")
+    batch = {k: torch.from_numpy(np.stack([f[k] for f in frames[:CLI_BS]]))
+             .to(dev) for k in ("image", "mask")}
+    opt = build_optimizer(model, lr=2e-4, decay=1e-4, t_total=100,
+                          warmup_ratio=0.05)
+    plain = train2d.make_step(model, opt, args, task, dev)
+    par = TrainMesh(model, opt, 1, 1)
+    grouped = par.wrap(train2d.make_step(model, par.optimizer, args, task,
+                                         dev))
+    aug_cfg = train2d.aug_config(args, *train2d.load_stats(
+        args, train2d.dataset_names(args, task)[0]))
+    draws = draw_2d(CLI_BS, aug_cfg,
+                    torch.Generator(device=dev).manual_seed(7))
+    times = par_step_ms(torch, {"no group": plain, "NCCL group": grouped},
+                        batch, draws)
+    for label, rows in times.items():
+        log(f"[parallel] (b) train2d --fused step bs{CLI_BS} bf16, {label}: "
+            f"ms per step {[round(r[0], 2) for r in rows]}, peak GB "
+            f"{[round(r[1], 2) for r in rows]} on {card}")
+    log(f"[parallel] (b) phase 8's CLI step (no --fused) in this call: "
+        + (f"{cli_ms:.2f} ms" if cli_ms else "not run in this call"))
+    del model, opt, plain, grouped, par
+    torch.cuda.empty_cache()
+    return dict(train_wall_s=wall, launches=list(got),
+                ms_per_step={k: [r[0] for r in v] for k, v in times.items()},
+                peak_mem_gb={k: [r[1] for r in v] for k, v in times.items()},
+                phase8_cli_ms=cli_ms)
+
+
+def par_spatial(torch, np, epi, sa, ckdir, card):
+    """(c): sharded_whole_volume_apply on a (data 1, model 1) mesh for a
+    160x192x144 volume with --fused --fusedepi: 2 flash forwards and 1
+    private-tier launch, probabilities equal to evaluate_volume's forward;
+    evaluate_volume through the sharded function."""
+    from segtran_tpu_torch.cli.test3d import (WHOLEVOL_MULTIPLES,
+                                              build_argparser,
+                                              build_model_and_config,
+                                              evaluate_volume, task_settings)
+    from segtran_tpu_torch.models.segtran3d import init_segtran3d
+    from segtran_tpu_torch.parallel.mesh import make_mesh
+    from segtran_tpu_torch.parallel.spatial import (sharded_whole_volume_apply,
+                                                    volume_slab)
+    dev = torch.device("cuda")
+    args = build_argparser().parse_args(
+        WHOLEVOL_ARGV + ["--fused", "--fusedepi", "--spatialshard",
+                         "--cpdir", ckdir])
+    task = task_settings(args)
+    model, _ = build_model_and_config(args, task)
+    model = init_segtran3d(model, seed=0).to(dev).eval()
+    mesh = make_mesh(1, axes=("data", "model"), shape=(1, 1))
+    fn = sharded_whole_volume_apply(model, mesh)
+    sample = synthetic_volume(np, (160, 192, 144), seed=5)
+    vol = torch.from_numpy(sample["image"])[None].to(dev)
+    pads = [(-s) % m for s, m in zip(vol.shape[1:4], WHOLEVOL_MULTIPLES)]
+    volp = torch.nn.functional.pad(vol, (0, 0, 0, pads[2], 0, pads[1], 0,
+                                         pads[0]))
+    fn(volume_slab(volp, mesh))                              # warm
+    torch.cuda.synchronize()
+    reset_counts(epi, sa)
+    t0 = time.perf_counter()
+    logits = fn(volume_slab(volp, mesh))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = kernel_launches(epi, sa)
+    launches = (got[0], got[4])
+    with torch.inference_mode():
+        ref = model(volp)
+    diff = float((torch.sigmoid(logits.float())
+                  - torch.sigmoid(ref.float())).abs().max())
+    probs, _, metrics = evaluate_volume(fn, sample, args, task, dev)
+    probs_ref, _, metrics_ref = evaluate_volume(model, sample, args, task,
+                                                dev)
+    pdiff = float((probs - probs_ref).abs().max())
+    log(f"[parallel] (c) sharded_whole_volume_apply 160x192x144 --fused "
+        f"--fusedepi bf16: {secs:.3f} s, launches (flash forward, private "
+        f"tier) {launches}, want (2, 1); max |probability diff| against the "
+        f"model's forward {diff:.2e}, through evaluate_volume {pdiff:.2e}; "
+        f"dice {[round(d, 4) for d in metrics['dice']]} vs "
+        f"{[round(d, 4) for d in metrics_ref['dice']]} on {card}")
+    dice_gap = max(abs(a - b) for a, b in zip(metrics["dice"],
+                                              metrics_ref["dice"]))
+    if launches != (2, 1) or max(diff, pdiff) > PAR_PROB_TOL \
+            or dice_gap > DICE_TOL:
+        fail("the sharded whole-volume forward disagrees with the model's "
+             "or did not launch 2 flash forwards and 1 private tier")
+    del model, logits, ref
+    torch.cuda.empty_cache()
+    return dict(seconds=secs, launches=list(launches), prob_diff=diff)
+
+
+def par_context(torch, sa, card):
+    """(d): the context-parallel squeeze and expand at the BraTS shapes,
+    bf16 and fp32 (TF32 off), each against the plain flash version and
+    timed beside a bare fused_cross_attention call of the same shape."""
+    import torch.distributed as dist
+    from segtran_tpu_torch.parallel import context_parallel as cp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    group = dist.group.WORLD
+    rows = []
+    for dname, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        for i, (label, name, g, nq, n, d, f) in enumerate(PAR_CP_CASES):
+            gen = torch.Generator(device="cuda").manual_seed(500 + i)
+
+            def rn(*shape):
+                return torch.randn(*shape, generator=gen,
+                                   device="cuda").to(dt)
+            q, k, v = rn(g, nq, d), rn(g, n, d), rn(g, n, f)
+            fn = getattr(cp, name)
+            sa.reset_launches()
+            out = fn(q, k, v, group)
+            torch.cuda.synchronize()
+            launches = sa.fused_cross_attention.launches
+            ref, _ = sa.fused_cross_attention_plain(q, k, v, 500.0,
+                                                    1.0 / math.sqrt(d))
+            err = (out.float() - ref.float()).abs()
+            rel = float((err / (1 + ref.float().abs())).max())
+            mean = float(err.mean())
+            ms = cuda_ms(torch, lambda: fn(q, k, v, group), iters=5)
+            bare = cuda_ms(torch, lambda: sa.fused_cross_attention(q, k, v),
+                           iters=5)
+            tol_max, tol_mean = KERNEL_TOL[dname]
+            log(f"[parallel] (d) {name} {label} {dname} G={g} Q={nq} N={n} "
+                f"D={d} F={f}: {launches} launch(es), max rel err {rel:.2e} "
+                f"mean {mean:.2e} (tol {tol_max:g} / {tol_mean:g}); "
+                f"{ms:.3f} ms beside a bare fused_cross_attention "
+                f"{bare:.3f} ms on {card}")
+            if launches != 1 or rel > tol_max or mean > tol_mean:
+                fail(f"{name} {label} {dname} disagrees with the plain "
+                     f"flash version or did not launch the kernel once")
+            rows.append(dict(name=name, shape=[g, nq, n, d, f], dtype=dname,
+                             launches=launches, max_rel_err=rel, ms=ms,
+                             bare_ms=bare))
+    return rows
+
+
+def parallel_phase(torch, np, epi, sa, ckdir, logger, card, cli_ms=None):
+    """Phase 15: parallel/ on an NCCL group of world size 1."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    nccl_group(torch)
+    try:
+        perf = {"train3d": par_train3d(torch, np, epi, sa, ckdir, logger,
+                                       card),
+                "train2d": par_train2d(torch, np, epi, sa, ckdir, logger,
+                                       card, cli_ms),
+                "spatial": par_spatial(torch, np, epi, sa, ckdir, card),
+                "context": par_context(torch, sa, card)}
+    finally:
+        dist.destroy_process_group()
+        for key in ("MASTER_ADDR", "MASTER_PORT", "RANK", "LOCAL_RANK",
+                    "WORLD_SIZE"):
+            os.environ.pop(key, None)
+    perf["phase_s"] = time.perf_counter() - t0
+    log(f"[parallel] phase in {perf['phase_s']:.1f} s on {card}")
+    return perf
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="smoke run of the port on one "
@@ -4384,7 +4804,8 @@ def main(argv=None) -> int:
                                        "training", "mbconv",
                                        "fundus_training", "fundus_cli",
                                        "fundus_options", "volume_options",
-                                       "da", "zoo", "import", "tools"],
+                                       "da", "zoo", "import", "tools",
+                                       "parallel"],
                     default=None,
                     help="build and run only this check, print no result")
     only = ap.parse_args(argv).only
@@ -4491,6 +4912,13 @@ def main(argv=None) -> int:
             shutil.rmtree(ckdir, ignore_errors=True)
         print(json.dumps({"tools": perf, "card": card}), flush=True)
         return 0
+    if only == "parallel":
+        try:
+            perf = parallel_phase(torch, np, epi, sa, ckdir, logger, card)
+        finally:
+            shutil.rmtree(ckdir, ignore_errors=True)
+        print(json.dumps({"parallel": perf, "card": card}), flush=True)
+        return 0
     if only == "training":
         try:
             train_perf, _ = training(torch, np, sa, ckdir, logger)
@@ -4558,6 +4986,12 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
     log(f"[tools] {json.dumps(tools_perf)} on {card}")
+    try:
+        par_perf = parallel_phase(torch, np, epi, sa, ckdir, logger, card,
+                                  cli_perf.get("ms_per_step"))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"[parallel] {json.dumps(par_perf)} on {card}")
 
     replaces = {
         "fused_mid_output_pool": "segtran_tpu/kernels/expansion_epilogue.py:333",

@@ -29,9 +29,9 @@ receptive-field maps of the kept feature layers (``--vislayers``) to
 ``rf_maps.npz`` and ``rf_<layer>.png`` instead of evaluating; ``--robust``
 logs the feature robustness of the first ``--robustsamples`` frames under
 ``--robustaug`` perturbations (``--robustaugdeg``; ``--robustcp`` an
-``iter_N`` path for the clean features) instead of evaluating. train2d's
-``--tp/--ep/--ndevices`` belong to a later slice of the port and raise
-NotImplementedError naming its ROADMAP item.
+``iter_N`` path for the clean features) instead of evaluating. A
+checkpoint of a multi-GPU train2d run (``--ndevices``, ``--tp``, ``--ep``)
+holds the full state_dict and loads as any other.
 
 Example (GPU):
   python -m segtran_tpu_torch.cli.test2d --task fundus --ds valid \\

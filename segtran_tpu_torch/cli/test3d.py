@@ -16,9 +16,15 @@ as ``.npz`` (and ``.nii.gz`` when nibabel is installed), tarred into
 upsampled instead of a model. The 3-D zoo nets halve every axis four
 times: a (padded) volume whose sizes are not multiples of 16 raises a
 ValueError naming its shape. ``--flop`` logs the parameters and one
-forward's FLOPs and bytes at the input patch (``tools/flops.py``). The
-multi-GPU flag belongs to a later slice of the port and raises
-NotImplementedError naming its ROADMAP item.
+forward's FLOPs and bytes at the input patch (``tools/flops.py``).
+``--spatialshard`` under ``torchrun --nproc_per_node N`` (world size > 1,
+with ``--wholevol``): each rank holds an H slab of the padded volume, the
+slabs are all-gathered, every rank runs the whole forward and keeps its H
+slab of the logits (``parallel/spatial.py``), and the per-class Dice and
+Jaccard come from intersections and sums all-reduced over the ranks; the
+hardened map is gathered for the surface metrics and, with ``--outdir``,
+rank 0 writes the predictions. At world size 1 the flag changes nothing,
+as in JAX. It shards the output, not the work.
 
 Example (GPU; h5 files need h5py):
   python -m segtran_tpu_torch.cli.test3d --task brats --ds 2019valid \\
@@ -49,14 +55,15 @@ from ..models.segtran25d import Segtran25d
 from ..models.unet3d import Modified3DUNet
 from ..models.vnet import VNet
 from ..ops.resize import resize_linear
+from ..parallel.mesh import make_mesh, world_size
+from ..parallel.multihost import init_multihost, is_master, master_logging
+from ..parallel.spatial import (gather_slabs, sharded_whole_volume_apply,
+                                slab_bounds, slab_overlap)
 from ..train.checkpoint import load_checkpoint
 from ..tools.flops import log_flops
-from ..utils.misc import setup_logging
 
 # the strides of every 3D variant: x/y by 16, depth by 8
 WHOLEVOL_MULTIPLES = (16, 16, 8)
-
-_MULTI_GPU = "ROADMAP Queue 1 item 6b: parallel/"
 
 
 def add_model_args(p) -> None:
@@ -133,7 +140,10 @@ def build_argparser():
         description="segtran_tpu_torch 3D evaluation (Segtran3d/25d)")
     add_model_args(p)
     p.add_argument("--spatialshard", dest="spatial_shard",
-                   action="store_true")
+                   action="store_true",
+                   help="with --wholevol under torchrun: shard each "
+                        "volume's H axis over the ranks (parallel/"
+                        "spatial.py)")
     p.add_argument("--wholevol", action="store_true",
                    help="one whole-volume forward instead of sliding "
                         "windows")
@@ -160,15 +170,8 @@ def build_argparser():
     return p
 
 
-def refuse_later_slices(args, extra=()) -> None:
-    """NotImplementedError naming the ROADMAP item of a flag whose modules
-    are not ported yet; ValueError for a backbone the model does not
-    take."""
-    for bad, flag, where in extra:
-        if bad:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: it belongs to a later slice of "
-                f"the PyTorch port ({where})")
+def refuse_later_slices(args) -> None:
+    """ValueError for a backbone the model does not take."""
     bb = args.backbone_type
     if args.net != "segtran" or bb is None:
         return
@@ -179,8 +182,7 @@ def refuse_later_slices(args, extra=()) -> None:
 
 
 def _refuse_later_slices(args) -> None:
-    refuse_later_slices(args, [
-        (args.spatial_shard, "--spatialshard", _MULTI_GPU)])
+    refuse_later_slices(args)
 
 
 def task_settings(args):
@@ -348,12 +350,19 @@ def ground_truth(label: np.ndarray, task_name: str, num_classes: int):
 def evaluate_volume(model_fn, sample, args, task, device):
     """One volume: sample {'image' [H, W, D, C], 'label' [H, W, D]} ->
     (probs [H, W, D, classes] on ``device``, hard n-hot numpy,
-    {metric: [per class 1..C-1]})."""
+    {metric: [per class 1..C-1]}). A ``model_fn`` of
+    ``parallel/spatial.sharded_whole_volume_apply`` over more than one
+    rank (whole volumes) takes this rank's H slab and returns its slab of
+    the logits; the Dice and Jaccard come from the ranks' all-reduced
+    sums, the hard map is gathered, and ``probs`` is the rank's H slab
+    (the whole volume's with --outdir)."""
     num_classes = task["num_classes"]
     is_brats = args.task_name == "brats"
     gt = ground_truth(sample["label"], args.task_name, num_classes)
     vol = torch.from_numpy(np.ascontiguousarray(sample["image"]))[None]
     vol = vol.to(device)
+    group = (model_fn.group if args.wholevol and not args.test_interp
+             and getattr(model_fn, "count", 1) > 1 else None)
     with torch.inference_mode():
         if args.test_interp:
             probs = interp_probs(gt.to(device),
@@ -362,9 +371,16 @@ def evaluate_volume(model_fn, sample, args, task, device):
             sp = vol.shape[1:4]
             pads = [(-s) % m for s, m in zip(sp, WHOLEVOL_MULTIPLES)]
             volp = F.pad(vol, (0, 0, 0, pads[2], 0, pads[1], 0, pads[0]))
+            lo, hi = 0, sp[0]
+            if group is not None:
+                lo, hi = slab_bounds(volp.shape[1], model_fn.index,
+                                     model_fn.count)
+                volp = volp[:, lo:hi]
+                hi = max(min(hi, sp[0]), lo)
+                gt = gt[lo:hi]
             logits = model_fn(volp)
             probs = torch.sigmoid(
-                logits[:, :sp[0], :sp[1], :sp[2]].float())[0]
+                logits[:, :hi - lo, :sp[1], :sp[2]].float())[0]
         else:
             probs = sliding_window_3d(
                 model_fn, vol, tuple(task["orig_patch_size"]),
@@ -372,12 +388,28 @@ def evaluate_volume(model_fn, sample, args, task, device):
                 window_batch=args.window_batch)[0]
         if is_brats:
             probs = make_brats_pred_consistent(probs)
-        hard = harden_segmap(probs).cpu().numpy()
+        hard = harden_segmap(probs)
+        if group is not None:
+            overlap = slab_overlap(hard, gt.to(device), group)
+            hard = gather_slabs(hard, group, axis=0)
+            gt = gather_slabs(gt.to(device), group, axis=0).cpu()
+            if args.outdir:
+                probs = gather_slabs(probs, group, axis=0)
+        hard = hard.cpu().numpy()
     gt = gt.numpy()
     metrics = {"dice": [], "jaccard": [], "hd95": [], "asd": []}
     for cls in range(1, num_classes):
-        metrics["dice"].append(dice_score_nd(hard[..., cls], gt[..., cls]))
-        metrics["jaccard"].append(jaccard_score(hard[..., cls], gt[..., cls]))
+        if group is None:
+            metrics["dice"].append(dice_score_nd(hard[..., cls],
+                                                 gt[..., cls]))
+            metrics["jaccard"].append(jaccard_score(hard[..., cls],
+                                                    gt[..., cls]))
+        else:
+            inter, n_pred, n_gt = (float(v) for v in overlap[:, cls])
+            metrics["dice"].append((2 * inter + 1e-5)
+                                   / (n_pred + n_gt + 1e-5))
+            metrics["jaccard"].append((inter + 1e-5)
+                                      / (n_pred + n_gt - inter + 1e-5))
         hd, asd = surface_metrics(hard[..., cls], gt[..., cls])
         metrics["hd95"].append(hd)
         metrics["asd"].append(asd)
@@ -407,13 +439,15 @@ def _export(probs, hard, name, outdir, is_brats):
 
 
 def _logger(log_dir):
-    return setup_logging(log_dir, "eval3d_log.txt", "segtran_tpu_torch.test3d")
+    return master_logging(log_dir, "eval3d_log.txt",
+                          "segtran_tpu_torch.test3d")
 
 
 def main(argv=None):
     """Returns {iteration: [mean Dice of classes 1..C-1]}."""
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
+    init_multihost(device, verbose=True)
     _refuse_later_slices(args)
     task = task_settings(args)
     logger = _logger(args.cpdir)
@@ -446,12 +480,17 @@ def main(argv=None):
                 os.path.join(args.cpdir, f"iter_{it}"), cfg), strict=True)
             logger.info("=== iter %s ===", it)
         model = model.to(device).eval()
+        model_fn = model
+        if args.spatial_shard and world_size() > 1:
+            n = world_size()
+            model_fn = sharded_whole_volume_apply(
+                model, make_mesh(n, axes=("data", "model"), shape=(1, n)))
         sums = {}
         saved = []
         for vi in range(len(dataset)):
             sample = dataset[vi]
-            probs, hard, metrics = evaluate_volume(model, sample, args, task,
-                                                   device)
+            probs, hard, metrics = evaluate_volume(model_fn, sample, args,
+                                                   task, device)
             for key, vals in metrics.items():
                 for cls, v in enumerate(vals, start=1):
                     if np.isfinite(v):
@@ -459,7 +498,7 @@ def main(argv=None):
             if args.verbose_output:
                 logger.info("%s: dice %s", sample["name"],
                             np.round(metrics["dice"], 4))
-            if args.outdir:
+            if args.outdir and is_master():
                 os.makedirs(args.outdir, exist_ok=True)
                 saved.append(_export(probs, hard, sample["name"],
                                      args.outdir, args.task_name == "brats"))

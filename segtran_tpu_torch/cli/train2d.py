@@ -43,13 +43,23 @@ as JAX keeps them. Checkpoints ``iter_N.pt`` with their sidecar every
 keeping their fresh values as JAX's ``merge_params`` keeps them.
 ``--profile`` logs the parameters and one eval forward's FLOPs, bytes
 and images per second at a batch of one patch before training (JAX's
---profile; no trace). ``--tp/--ep/--ndevices`` belong to a later slice
-of the port and raise NotImplementedError naming its ROADMAP item.
+--profile; no trace). Multi-GPU (``parallel/``): launched by ``torchrun
+--nproc_per_node N`` with ``--ndevices N`` (-1: the world size), each
+process trains its rows of the global batch ``--bs`` with the global
+batch's BatchNorm statistics, batch-joint losses (``--attnconsist``, the
+contrast losses), augmentation draws and averaged gradients; ``--tp T``
+keeps 1/T of the large parameters' master weights and optimizer moments
+per rank, ``--ep`` those of the per-mode private weights by whole modes
+(compute stays replicated). Rank 0 writes the logs, TensorBoard and the
+checkpoints, which hold the full state_dict.
 
 Example (GPU; reading the PNG frames needs Pillow):
   python -m segtran_tpu_torch.cli.train2d --task fundus --translayers 3 \\
       --layercompress 1,1,2,2 --net segtran --bb eff-b4 --maxiter 10000 \\
       --bs 6 --noqkbias --bf16 --dataroot <dataroot>
+  torchrun --standalone --nproc_per_node 2 -m \\
+      segtran_tpu_torch.cli.train2d \\
+      --ndevices 2 --bs 6 ...        # two GPUs, three rows each
 """
 from __future__ import annotations
 
@@ -87,8 +97,12 @@ from ..models.unet_smp import UnetSMP
 from ..nn.attention import set_dropout_generator
 from ..nn.features import drop_kept_features
 from ..nn.init import init_with_reference_schemes
-from ..ops.norm import frozen_running_stats
+from ..ops.norm import (average_gradients, frozen_running_stats,
+                        global_rows)
 from ..ops.resize import resize_linear
+from ..parallel.mesh import TrainMesh, check_microbatches, resolve_ndevices
+from ..parallel.multihost import (from_master, init_multihost, is_master,
+                                  master_logging)
 from ..train.bertadam import BertAdam
 from ..train.checkpoint import (load_checkpoint, net_state_dict,
                                 save_checkpoint)
@@ -97,11 +111,10 @@ from ..train.da import (attention_consistency_loss, collect_attn_diag,
                         collect_attn_scores, domain_adversarial_loss,
                         recon_loss, vcdr_estimation_losses)
 from ..train.trainer import (build_optimizer, clip_by_global_norm_,
-                             make_loss_fn, make_train_step,
+                             global_metrics, make_loss_fn, make_train_step,
                              resolve_remat_blocks)
 from ..utils.meters import AverageMeters
 from ..tools.flops import count_params, estimate_flops, measure_fps
-from ..utils.misc import setup_logging
 
 logger = logging.getLogger("segtran_tpu_torch.train2d")
 
@@ -268,7 +281,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-_PARALLEL = "ROADMAP Queue 1 item 6b: parallel/"
 ZOO = ("unet", "unet-smp", "nestedunet", "unet3plus", "attunet",
        "r2attunet", "dunet", "transunet", "setr", "deeplabv3",
        "deeplabv3plus", "deeplab-smp", "pranet", "nnunet")
@@ -277,15 +289,6 @@ VCDR_NAMES = {"single": ("vcdr_estim",), "sep": ("vc_estim", "vd_estim")}
 
 
 def _refuse_later_slices(args) -> None:
-    later = [
-        (args.tensor_parallel > 1 or args.expert_parallel
-         or args.ndevices > 1, "--tp/--ep/--ndevices above 1", _PARALLEL),
-    ]
-    for bad, flag, where in later:
-        if bad:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: it belongs to a later slice of "
-                f"the PyTorch port ({where})")
     if args.net not in NETS:
         raise ValueError(f"unknown --net {args.net}")
     if args.scan_blocks:
@@ -342,7 +345,9 @@ def build_model_and_config(args, task):
                     "trained parameters")
     if args.remat_blocks is None:
         args.remat_blocks, mb = resolve_remat_blocks(
-            args.batch_size, args.grad_accum, 1, 1)
+            args.batch_size, args.grad_accum,
+            resolve_ndevices(args.ndevices, args.tensor_parallel),
+            args.tensor_parallel)
         logger.info("remat_blocks auto -> %s (microbatch %d; force with "
                     "--rematblocks/--norematblocks)", args.remat_blocks, mb)
     net_set = NET_SETTINGS["segtran"]
@@ -627,7 +632,9 @@ def make_step(model, optimizer, args, task, device, ds_stats=None,
     def augment(batch, draws=None):
         image = batch["image"]
         mask = map_mask(args, task, batch["mask"])
-        draws = draw_2d(image.shape[0], cfg, gen) if draws is None else draws
+        if draws is None:
+            # a data-parallel rank keeps its rows of the global draws
+            draws = global_rows(draw_2d, image.shape[0], cfg, gen)
         mu = sd = None
         if ds_stats is not None and "ds_idx" in batch:
             idx = batch["ds_idx"].long()
@@ -746,7 +753,7 @@ def _full_step(model, aux, optimizer, loss_fn, args, task, augment, gen,
                 metrics["recon_loss"] = rl
             if disc is not None:
                 src = batch["source_image"]
-                src_draws = (draw_2d(src.shape[0], aug_cfg, gen)
+                src_draws = (global_rows(draw_2d, src.shape[0], aug_cfg, gen)
                              if src_draws is None else src_draws)
                 src, _ = augment_batch_2d(
                     src, torch.zeros(src.shape[:3] + (1,), device=src.device),
@@ -805,19 +812,20 @@ def _full_step(model, aux, optimizer, loss_fn, args, task, augment, gen,
             drop_kept_features(model)
         if loss.requires_grad:
             loss.backward()
+        average_gradients(params)
         if grad_clip and grad_clip > 0:
             clip_by_global_norm_(params, grad_clip)
         if optimizer is not None:
             optimizer.step()
         count[0] += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return global_metrics({k: v.detach() for k, v in metrics.items()})
 
     return step
 
 
 def _logger(log_dir):
-    return setup_logging(log_dir, "train2d_log.txt",
-                         "segtran_tpu_torch.train2d")
+    return master_logging(log_dir, "train2d_log.txt",
+                          "segtran_tpu_torch.train2d")
 
 
 def job_dir(args, task) -> str:
@@ -827,7 +835,10 @@ def job_dir(args, task) -> str:
 
 
 def _summary_writer(log_dir):
-    """TensorBoard's writer where the package imports, else None."""
+    """TensorBoard's writer where the package imports (rank 0 only), else
+    None."""
+    if not is_master():
+        return None
     try:
         from torch.utils.tensorboard import SummaryWriter
     except ImportError:
@@ -835,22 +846,23 @@ def _summary_writer(log_dir):
     return SummaryWriter(log_dir)
 
 
-def _with_source(it, source, args):
+def _with_source(it, source, args, shard=(0, 1)):
     """Each batch of ``it`` with a 'source_image' batch of --sourcebs from
     the source dataset, whose epochs restart with each pass over the
-    target's (seed --seed + 5; JAX train2d.py:654-676)."""
+    target's (seed --seed + 5; JAX train2d.py:654-676); a data-parallel
+    rank's rows of it under ``shard``."""
     bs = args.source_batch_size if args.source_batch_size > 0 \
         else args.batch_size
     epoch = 0
     src_it = batch_iterator(source, bs, epoch, seed=args.seed + 5,
-                            keys=("image",))
+                            keys=("image",), shard=shard)
     for batch in it:
         try:
             src = next(src_it)
         except StopIteration:
             epoch += 1
             src_it = batch_iterator(source, bs, epoch, seed=args.seed + 5,
-                                    keys=("image",))
+                                    keys=("image",), shard=shard)
             src = next(src_it)
         batch["source_image"] = src["image"]
         yield batch
@@ -910,8 +922,12 @@ def train(model, dataset, args, task, device, cfg=None, ckpt_dir=None,
                  len(source_dataset))
         log.info("source-domain stats (%s): mean=%s std=%s",
                  args.source_ds_name, *load_stats(args, args.source_ds_name))
-    step = make_step(model, optimizer, args, task, device, ds_stats, aux,
-                     clip, contrast_bank)
+    par = TrainMesh(wrapped, optimizer, args.ndevices, args.tensor_parallel,
+                    expert_dim_size=(cfg.num_modes if args.expert_parallel
+                                     and cfg is not None else None),
+                    grad_accum=args.grad_accum)
+    step = par.wrap(make_step(model, par.optimizer, args, task, device,
+                              ds_stats, aux, clip, contrast_bank))
     keys = ("image", "mask") + (("ds_idx",) if ds_stats else ())
     writer = _summary_writer(os.path.join(ckpt_dir, "log"))
     meters = AverageMeters()
@@ -920,9 +936,10 @@ def train(model, dataset, args, task, device, cfg=None, ckpt_dir=None,
     try:
         while iter_num < args.maxiter:
             it = batch_iterator(dataset, args.batch_size, epoch,
-                                seed=args.seed, keys=keys)
+                                seed=args.seed, keys=keys, shard=par.shard,
+                                microbatches=par.micro)
             if "discriminator" in aux:
-                it = _with_source(it, source_dataset, args)
+                it = _with_source(it, source_dataset, args, par.shard)
             loader = DevicePrefetcher(it, device)
             try:
                 for batch in loader:
@@ -955,8 +972,9 @@ def train(model, dataset, args, task, device, cfg=None, ckpt_dir=None,
                         meters.reset_disp()
                     if (iter_num % args.saveiter == 0
                             or iter_num >= args.maxiter):
-                        save_checkpoint(ckpt_dir, iter_num,
-                                        wrapped.state_dict(), cfg)
+                        sd = par.state_dict()
+                        if is_master():
+                            save_checkpoint(ckpt_dir, iter_num, sd, cfg)
                         log.info("saved iter_%d", iter_num)
                     if iter_num >= args.maxiter:
                         break
@@ -966,6 +984,7 @@ def train(model, dataset, args, task, device, cfg=None, ckpt_dir=None,
     finally:
         if writer is not None:
             writer.close()
+    par.finish()
     log.info("done: %d iters in %.1fs", iter_num, time.time() - t0)
     return ckpt_dir
 
@@ -1024,6 +1043,8 @@ def main(argv=None):
     """Returns the checkpoint directory."""
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
+    init_multihost(device, verbose=True)
+    n_dev = resolve_ndevices(args.ndevices, args.tensor_parallel)
     _refuse_later_slices(args)
     if args.grad_accum > 1 and args.batch_size % args.grad_accum:
         raise ValueError(f"--gradaccum {args.grad_accum} must divide --bs "
@@ -1033,10 +1054,12 @@ def main(argv=None):
                          "--attnconsist: the 2D attention-consistency loss "
                          "is batch-joint (shared inconsistent-count "
                          "denominator), so microbatching changes its value")
+    check_microbatches(args.batch_size, args.grad_accum, n_dev,
+                       args.tensor_parallel)
     if args.tune_bn_only and not args.checkpoint_path:
         raise SystemExit("--tunebn requires --cp <checkpoint to adapt>")
     task = task_settings(args)
-    ckpt_dir = job_dir(args, task)
+    ckpt_dir = from_master(job_dir(args, task))
     log = _logger(ckpt_dir)
     log.info("args: %s", vars(args))
     model, cfg = build_model_and_config(args, task)

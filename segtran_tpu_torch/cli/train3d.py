@@ -17,13 +17,21 @@ BertAdam with warmup-linear over the reference's parameter groups.
 fusion layers when ``--dropout 0``. Checkpoints ``iter_N.pt`` (BatchNorm
 statistics included) with their sidecar every ``--saveiter`` iterations;
 ``--cp`` resumes from one (a zoo net's sidecar holds ``"config":
-null``). The flags of a later slice of the port (multi-GPU) raise
-NotImplementedError naming their ROADMAP item.
+null``). Multi-GPU (``parallel/``): launched by ``torchrun
+--nproc_per_node N`` with ``--ndevices N`` (-1: the world size), each
+process trains its rows of the global batch ``--bs`` with the global
+batch's BatchNorm statistics, losses, augmentation draws and averaged
+gradients; ``--tp T`` keeps 1/T of the large parameters' master weights
+and optimizer moments per rank (compute stays replicated). Rank 0 writes
+the logs and checkpoints, which load as any other.
 
 Example (GPU; h5 files need h5py):
   python -m segtran_tpu_torch.cli.train3d --task brats --split all \\
       --maxiter 10000 --translayers 1 --bs 4 --randscale 0.1 \\
       --attractors 1024 --fused --dropout 0 --bf16 --dataroot <h5 root>
+  torchrun --standalone --nproc_per_node 2 -m \\
+      segtran_tpu_torch.cli.train3d \\
+      --ndevices 2 --bs 4 ...        # two GPUs, two rows each
 """
 from __future__ import annotations
 
@@ -44,13 +52,16 @@ from ..data.pipeline import DevicePrefetcher, batch_iterator
 from ..nn.attention import set_dropout_generator
 from ..nn.init import init_with_reference_schemes
 from ..ops.losses import dice_loss_indiv, weighted_bce_with_logits
+from ..ops.norm import global_rows
 from ..ops.resize import resize_linear
+from ..parallel.mesh import TrainMesh, check_microbatches, resolve_ndevices
+from ..parallel.multihost import (from_master, init_multihost, is_master,
+                                  master_logging)
 from ..train.checkpoint import load_checkpoint, save_checkpoint
 from ..train.da import attention_consistency_loss_3d, collect_attn_scores
 from ..train.trainer import build_optimizer, make_train_step
 from ..utils.meters import AverageMeters
-from ..utils.misc import setup_logging
-from .test3d import (_MULTI_GPU, add_model_args, build_model,
+from .test3d import (add_model_args, build_model,
                      build_zoo_model, make_dataset, refuse_later_slices,
                      segtran_config, task_settings)
 
@@ -103,9 +114,7 @@ def build_argparser():
 
 
 def _refuse_later_slices(args) -> None:
-    refuse_later_slices(args, [
-        (args.tensor_parallel > 1 or args.ndevices > 1,
-         "--tp/--ndevices above 1", _MULTI_GPU)])
+    refuse_later_slices(args)
 
 
 # the JAX CLIs share task_settings; the name stays for train3d's callers
@@ -206,12 +215,16 @@ def make_step(model, optimizer, args, task, device):
     set_dropout_generator(model, dev_gen)
 
     def draw(image):
-        d = {"rot_flip": rot_flip_draws(image.shape[0], host_gen)}
+        # a data-parallel rank keeps its rows of the global batch's draws
+        n = image.shape[0]
+        d = {"rot_flip": global_rows(rot_flip_draws, n, host_gen)}
         if args.randscale > 0:
             d["zoom"] = resized_crop_draw(args.randscale, host_gen)
         if args.noise_sigma > 0:
-            d["noise"] = noise_draw(image.shape, args.noise_sigma,
-                                    generator=dev_gen, device=image.device)
+            d["noise"] = global_rows(
+                lambda b: noise_draw((b,) + tuple(image.shape[1:]),
+                                     args.noise_sigma, generator=dev_gen,
+                                     device=image.device), n)
         return d
 
     def augment(batch, draws=None):
@@ -242,8 +255,8 @@ def make_step(model, optimizer, args, task, device):
 
 
 def _logger(log_dir):
-    return setup_logging(log_dir, "train3d_log.txt",
-                         "segtran_tpu_torch.train3d")
+    return master_logging(log_dir, "train3d_log.txt",
+                          "segtran_tpu_torch.train3d")
 
 
 def job_dir(args) -> str:
@@ -256,7 +269,8 @@ def train(model, dataset, args, task, device, cfg=None, ckpt_dir=None,
           logger=None):
     """Train ``model`` (already initialised, on ``device``) on any dataset
     of {'image', 'label'} samples for --maxiter steps; returns the
-    checkpoint directory."""
+    checkpoint directory. Under a process group each rank loads and trains
+    its rows of every global batch (``parallel/mesh.TrainMesh``)."""
     ckpt_dir = ckpt_dir or job_dir(args)
     logger = logger or _logger(ckpt_dir)
     if args.grad_accum > 1 and args.batch_size % args.grad_accum:
@@ -270,12 +284,15 @@ def train(model, dataset, args, task, device, cfg=None, ckpt_dir=None,
     optimizer = build_optimizer(model, lr=args.lr, decay=args.decay,
                                 t_total=args.maxiter,
                                 warmup_ratio=warmup_ratio)
-    step = make_step(model, optimizer, args, task, device)
+    par = TrainMesh(model, optimizer, args.ndevices, args.tensor_parallel,
+                    grad_accum=args.grad_accum)
+    step = par.wrap(make_step(model, par.optimizer, args, task, device))
     meters = AverageMeters()
     iter_num, epoch, t0 = 0, 0, time.time()
     while iter_num < args.maxiter:
         it = batch_iterator(dataset, args.batch_size, epoch, seed=args.seed,
-                            keys=("image", "label"))
+                            keys=("image", "label"), shard=par.shard,
+                            microbatches=par.micro)
         loader = DevicePrefetcher(it, device)
         try:
             for batch in loader:
@@ -293,14 +310,16 @@ def train(model, dataset, args, task, device, cfg=None, ckpt_dir=None,
                                                  "dice_loss")))
                     meters.reset_disp()
                 if iter_num % args.saveiter == 0 or iter_num >= args.maxiter:
-                    save_checkpoint(ckpt_dir, iter_num, model.state_dict(),
-                                    cfg)
+                    sd = par.state_dict()
+                    if is_master():
+                        save_checkpoint(ckpt_dir, iter_num, sd, cfg)
                     logger.info("saved iter_%d", iter_num)
                 if iter_num >= args.maxiter:
                     break
         finally:
             loader.close()
         epoch += 1
+    par.finish()
     logger.info("done: %d iters in %.1fs", iter_num, time.time() - t0)
     return ckpt_dir
 
@@ -309,9 +328,13 @@ def main(argv=None):
     """Returns the checkpoint directory."""
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
+    init_multihost(device, verbose=True)
+    check_microbatches(args.batch_size, args.grad_accum,
+                       resolve_ndevices(args.ndevices, args.tensor_parallel),
+                       args.tensor_parallel)
     _refuse_later_slices(args)
     task = task_settings(args)
-    ckpt_dir = job_dir(args)
+    ckpt_dir = from_master(job_dir(args))
     logger = _logger(ckpt_dir)
     logger.info("args: %s", vars(args))
     dataset = make_dataset(args, task, "train", "2019train"

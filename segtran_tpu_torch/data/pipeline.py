@@ -13,10 +13,12 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..ops.norm import shard_rows
 
 
 def epoch_indices(n: int, epoch: int, seed: int = 0,
@@ -39,12 +41,17 @@ def _stack(samples: Sequence[dict], keys: Optional[Sequence[str]] = None
 
 def batch_iterator(dataset, batch_size: int, epoch: int, seed: int = 0,
                    shuffle: bool = True, drop_last: bool = True,
-                   keys: Optional[Sequence[str]] = None
+                   keys: Optional[Sequence[str]] = None,
+                   shard: Tuple[int, int] = (0, 1), microbatches: int = 1
                    ) -> Iterator[Dict[str, np.ndarray]]:
     """Stacked numpy batches of one epoch in epoch_indices order (the
     dataset's own order without ``shuffle``); the last partial batch is
     dropped with ``drop_last``, else yielded short. Samples load on 4
-    threads."""
+    threads. ``shard`` (index, count): a data-parallel rank's share --
+    every rank walks the same global batches of ``batch_size`` and loads
+    only its rows, contiguous in each of the step's ``microbatches``
+    (``ops.norm.shard_rows``; JAX's ``P("data")`` layout)."""
+    rows = shard_rows(batch_size, *shard, microbatches)
     if hasattr(dataset, "set_epoch"):
         dataset.set_epoch(epoch)
     idx = epoch_indices(len(dataset), epoch, seed, shuffle)
@@ -57,8 +64,10 @@ def batch_iterator(dataset, batch_size: int, epoch: int, seed: int = 0,
                 f"{batch_size}: lower --bs or add data")
     with ThreadPoolExecutor(max_workers=4) as pool:
         for s in range(0, n, batch_size):
-            yield _stack(list(pool.map(dataset.__getitem__,
-                                       idx[s:s + batch_size])), keys)
+            part = idx[s:s + batch_size]
+            if len(part) == batch_size:
+                part = part[rows]
+            yield _stack(list(pool.map(dataset.__getitem__, part)), keys)
 
 
 class DevicePrefetcher:

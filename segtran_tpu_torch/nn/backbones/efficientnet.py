@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...kernels.mbconv import fold_bn, mbconv_front
-from ...ops.norm import update_running_stats
+from ...ops.norm import batch_moments, global_rows, update_running_stats
 from ..remat import remat
 
 # name: (width_coefficient, depth_coefficient, nominal_resolution, dropout)
@@ -150,8 +150,9 @@ class FoldedBatchNorm(nn.Module):
     (fp64 for an fp64 ``x``), applied as ``x * a + b`` in the compute
     dtype (eps 1e-3, momentum 0.99, TF convention). In training, mean and
     var are the batch's, in that type: ``E[x]`` and the biased ``E[x^2] -
-    E[x]^2`` with no clamp, as JAX's ``FoldedBatchNorm`` takes them; the
-    running statistics move toward them."""
+    E[x]^2`` with no clamp, as JAX's ``FoldedBatchNorm`` takes them (the
+    global batch's within ``ops.norm.global_batch``); the running
+    statistics move toward them."""
 
     def __init__(self, feats: int, eps: float = 1e-3, momentum: float = 0.99):
         super().__init__()
@@ -174,8 +175,8 @@ class FoldedBatchNorm(nn.Module):
         if self.training:
             dims = [0] + list(range(2, x.dim()))
             xf = x.to(ct)
-            mean = xf.mean(dims)
-            var = xf.square().mean(dims) - mean.square()
+            mean, mean_sq = batch_moments(xf, dims)
+            var = mean_sq - mean.square()
             update_running_stats(self, mean, var, self.momentum)
             a, b = self.folded(mean, var, ct)
         else:
@@ -189,8 +190,10 @@ def _drop_connect(x, rate: float, generator=None):
     sample's branch with probability 1 - rate, scaled by 1 / (1 - rate)
     (the scale rounded to x.dtype, as in JAX)."""
     keep = 1.0 - rate
-    u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
-                   device=x.device)
+    # a data-parallel rank takes its rows of the global batch's draws
+    u = global_rows(lambda b: torch.rand((b,) + (1,) * (x.dim() - 1),
+                                         generator=generator,
+                                         device=x.device), x.shape[0])
     mask = (u < keep).to(x.dtype)
     return x / torch.tensor(keep, dtype=x.dtype, device=x.device) * mask
 

@@ -7,6 +7,8 @@ from typing import Optional
 
 import torch
 
+from .norm import global_sum
+
 _SMOOTH = 1e-5
 
 
@@ -65,10 +67,11 @@ def smooth_dice_loss(score: torch.Tensor, gt_mask: torch.Tensor,
 
 def dice_loss_mix(score: torch.Tensor, gt_mask: torch.Tensor) -> torch.Tensor:
     """Whole-batch Dice loss with plain (unsquared) sums in the denominator
-    (reference utils/losses.py:63-71)."""
+    (reference utils/losses.py:63-71); its sums span the global batch
+    within ``ops.norm.global_batch``."""
     score, gt = score.float(), gt_mask.float()
-    dice = ((2.0 * (score * gt).sum() + _SMOOTH)
-            / (score.sum() + gt.sum() + _SMOOTH))
+    sums = global_sum(torch.stack([(score * gt).sum(), score.sum() + gt.sum()]))
+    dice = (2.0 * sums[0] + _SMOOTH) / (sums[1] + _SMOOTH)
     return 1.0 - dice
 
 

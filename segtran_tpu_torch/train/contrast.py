@@ -18,6 +18,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.norm import global_sum
 from ..ops.resize import resize_linear
 
 
@@ -129,7 +130,8 @@ def calc_contrast_losses(
     distances to bank[c]. neg (``do_neg_contrast``): the same statistic
     against the bank of class (c + neg_offsets[c]) % K, at half weight;
     ``neg_offsets`` [K] in [1, K) (JAX draws them from its key each
-    step; the caller draws them from a generator)."""
+    step; the caller draws them from a generator). The class means span
+    the global batch within ``ops.norm.global_batch``."""
     k = bank.shape[0]
     b, h, w, c = features.shape
     m_small = resize_linear(mask.float(), (h, w))
@@ -143,9 +145,11 @@ def calc_contrast_losses(
     cls_has_bank = bank_valid.any(-1)                         # [K]
     dpix = torch.where(cls_has_bank[:, None], dpix, torch.zeros_like(dpix))
     wpix = onehot.T.float()                                   # [K, P]
-    npix = wpix.sum(-1)
+    # the pixel counts and distance sums of the global batch
+    sums = global_sum(torch.cat([wpix @ dpix.T, wpix.sum(-1)[:, None]], 1))
+    npix = sums[:, -1]
     # row: the pixels' class, column: the bank's class
-    mean_d = (wpix @ dpix.T) / npix.clamp(min=1.0)[:, None]
+    mean_d = sums[:, :-1] / npix.clamp(min=1.0)[:, None]
     fg = torch.arange(k, device=features.device) >= 1
     gate = (npix > 0) & cls_has_bank & fg
     cw = class_weights.float()

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.losses import calc_vcdr_batch, weighted_bce_with_logits
+from ..ops.norm import global_sum
 from ..ops.resize import resize_linear
 
 
@@ -66,7 +67,9 @@ def attention_consistency_loss(layers_attn_scores: Sequence,
     inconsistent pixel pairs (below the mean where the masks overlap,
     above the mean minus 0.1 where they do not), with one count over the
     batch; averaged over the layers and capped at 1 by a detached
-    denominator. mask [B, H, W, C] n-hot; ``feat_shape`` (h2, w2)."""
+    denominator. mask [B, H, W, C] n-hot; ``feat_shape`` (h2, w2). The
+    count and the sums span the global batch within
+    ``ops.norm.global_batch``."""
     resized = resize_linear(mask.float(), feat_shape)
     b, c = resized.shape[0], resized.shape[-1]
     flat = resized.reshape(b, -1, c)                          # [B, N, C]
@@ -84,8 +87,9 @@ def attention_consistency_loss(layers_attn_scores: Sequence,
         above = scores > (mean_score - 0.1)
         inconsistent = (below & consistency) | (above & ~consistency)
         dev = (scores - mean_score).abs()
-        cnt = inconsistent.sum() + 1e-6
-        total = total + (dev * inconsistent).sum() / cnt
+        sums = global_sum(torch.stack([(dev * inconsistent).sum(),
+                                       inconsistent.sum().to(dev.dtype)]))
+        total = total + sums[0] / (sums[1] + 1e-6)
     loss = total / n_layers
     return torch.where(loss > 1.0, loss / loss.detach().clamp(min=1.0), loss)
 

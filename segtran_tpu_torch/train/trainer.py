@@ -10,6 +10,9 @@ reference train2d.py:1134-1337):
 * gradient accumulation over microbatches: gradients summed and divided by
   their count before the one update, BatchNorm statistics per microbatch
   and the running statistics updated microbatch after microbatch;
+* within ``ops.norm.global_batch`` (a data-parallel step,
+  ``parallel/mesh.shard_train_step``): the gradients averaged over the
+  data group before the clip, and the metrics the global batch's;
 * the 2-D loss (reference train2d.py:1228-1318): (1 - dice_w) BCE with
   pos-weights + dice_w times the class-weighted Dice of classes 1..C-1.
 """
@@ -21,6 +24,8 @@ import torch
 from torch import nn
 
 from ..ops.losses import dice_loss_indiv, weighted_bce_with_logits
+from ..ops.norm import (average_gradients, batch_group, global_batch,
+                        global_mean)
 from ..ops.resize import resize_linear
 from .bertadam import BertAdam
 
@@ -138,23 +143,39 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         sums: Dict[str, torch.Tensor] = {}
         for image, mask in zip(batch["image"].chunk(grad_accum),
                                batch["mask"].chunk(grad_accum)):
-            loss, metrics = loss_fn(model(image), mask)
-            if aux_loss_fn is not None:
-                extra, extra_metrics = aux_loss_fn(model, mask)
-                loss = loss + extra
-                metrics = dict(metrics, **extra_metrics, loss=loss)
-            if loss.requires_grad:
-                loss.backward()
+            # a microbatch's draws (drop-connect, in the forward and a
+            # recompute) are those of one global microbatch
+            with global_batch(batch_group()):
+                loss, metrics = loss_fn(model(image), mask)
+                if aux_loss_fn is not None:
+                    extra, extra_metrics = aux_loss_fn(model, mask)
+                    loss = loss + extra
+                    metrics = dict(metrics, **extra_metrics, loss=loss)
+                if loss.requires_grad:
+                    loss.backward()
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0) + v.detach()
         if grad_accum > 1:
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(grad_accum)
+        average_gradients(params)
         if grad_clip and grad_clip > 0:
             clip_by_global_norm_(params, grad_clip)
         if optimizer is not None:
             optimizer.step()
-        return {k: v / grad_accum for k, v in sums.items()}
+        return global_metrics({k: v / grad_accum for k, v in sums.items()})
 
     return train_step
+
+
+def global_metrics(metrics: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """The step's metrics averaged over the data group (one all-reduce):
+    the global batch's, as JAX's sharded step returns them."""
+    if batch_group() is None or not metrics:
+        return metrics
+    with torch.no_grad():
+        vals = global_mean(torch.stack([torch.as_tensor(v).float()
+                                        for v in metrics.values()]))
+    return dict(zip(metrics, vals.unbind()))

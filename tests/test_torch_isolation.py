@@ -28,7 +28,10 @@ for want in ("kernels.mbconv", "nn.remat", "nn.backbones.efficientnet",
              "models.dunet", "models.transunet", "models.setr",
              "convert.torch_import", "convert.cli", "models.vnet",
              "models.unet3d", "nn.features", "tools.flops", "tools.postproc",
-             "tools.robustness", "tools.analysis", "utils.misc"):
+             "tools.robustness", "tools.analysis", "utils.misc",
+             "parallel.mesh", "parallel.multihost", "parallel.tensor_parallel",
+             "parallel.expert", "parallel.context_parallel",
+             "parallel.pipeline", "parallel.spatial", "convert.sharded"):
     assert "segtran_tpu_torch." + want in names, want
 for n in names:
     importlib.import_module(n)
@@ -63,6 +66,30 @@ bad = sorted(k for k in sys.modules if k.split(".")[0] in
 print(bad)
 assert not bad, bad
 """
+
+
+_RANKS_PROBE = r"""
+import sys
+sys.path.insert(0, "tests")
+import _torch_dist, _torch_parallel_ranks
+import segtran_tpu_torch.parallel.pipeline, segtran_tpu_torch.parallel.spatial
+import segtran_tpu_torch.parallel.tensor_parallel
+bad = sorted(k for k in sys.modules if k.split(".")[0] in
+             ("jax", "jaxlib", "flax", "orbax", "segtran_tpu"))
+print(bad)
+assert not bad, bad
+"""
+
+
+def test_parallel_ranks_import_no_jax():
+    """The rank side of the parallel tests (tests/_torch_dist.py, whose
+    spawned ranks import tests/_torch_parallel_ranks.py) and the port's
+    parallel/ package import neither JAX nor the JAX package: the ranks
+    run the port alone, the oracle runs in the parent test process."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", _RANKS_PROBE], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_no_source_imports_a_model_library():

@@ -99,8 +99,9 @@ def test_3d_clis_refuse_the_2d_options(cli, flags):
     """The 3-D CLIs take --pos and --nosqueeze since Segtran3d is held to
     JAX under them (tests/test_torch_segtran3d_attention_options.py):
     the flags reach the config, and --pos bias with the squeezed encoder
-    meets JAX's ValueError. What they still refuse (multi-GPU) names its
-    ROADMAP item."""
+    meets JAX's ValueError. Multi-GPU is ported: test3d's --spatialshard
+    passes (at world size 1 it changes nothing, as in JAX) and train3d's
+    --tp 2 without a process group meets JAX's ValueError."""
     import importlib
     mod = importlib.import_module(f"segtran_tpu_torch.cli.{cli}")
     common = (["--attractors", "8", "--device", "cpu"]
@@ -115,8 +116,12 @@ def test_3d_clis_refuse_the_2d_options(cli, flags):
         _, cfg = mod.build_model_and_config(args, task)
         assert (cfg.pos_code_type, cfg.use_squeezed_transformer) == (
             args.pos_code_type, args.use_squeezed_transformer)
-    # --net vnet is ported; multi-GPU is still a later slice
+    # multi-GPU is ported: nothing is refused for it
+    from segtran_tpu_torch.parallel.mesh import resolve_ndevices
     later = ["--spatialshard"] if cli == "test3d" else ["--tp", "2"]
     args = mod.build_argparser().parse_args(common + later)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        mod._refuse_later_slices(args)
+    mod._refuse_later_slices(args)
+    if cli == "train3d":
+        with pytest.raises(ValueError, match="--tp 2 must divide device "
+                                             "count 1"):
+            resolve_ndevices(args.ndevices, args.tensor_parallel)

@@ -11,9 +11,11 @@
 * a two-dataset batch through the [D, C] normalisation tables;
 * ``main`` on a PNG tree writes ``iter_2.pt`` and its sidecar, and
   ``--cp`` starts from it;
-* every flag of a later slice raises NotImplementedError naming its
-  ROADMAP item; the model-option flags and item 5's (DA, Polyformer,
-  mince) build what they name.
+* without a process group ``--tp`` / ``--ndevices`` above the world size
+  of 1 raise JAX's ValueErrors (``--ep`` alone passes, as JAX ignores it
+  without ``--tp``), ``--scanblocks`` names ROADMAP's leave-out list; the
+  model-option flags and item 5's (DA, Polyformer, mince) build what they
+  name.
 """
 import os
 
@@ -293,22 +295,29 @@ def test_item5_flags_build(tmp_path, flags, check):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "4"], "item 6"), (["--ndevices", "4"], "item 6"),
-    (["--net", "unet", "--ep"], "item 6"), (["--tp", "2"], "item 6"),
-    (["--ep"], "item 6"), (["--ndevices", "2"], "item 6"),
+    (["--tp", "4"], "--tp 4 must divide device count 1"),
+    (["--ndevices", "4"], "--ndevices 4 does not equal the world size 1"),
+    (["--net", "unet", "--ep"], None), (["--tp", "2"], "--tp 2 must divide"),
+    (["--ep"], None), (["--ndevices", "2"], "the world size 1"),
     (["--net", "setr", "--profile"], None), (["--profile"], None),
     (["--scanblocks"], "Leave out")])
 def test_later_slice_flags_raise(tmp_path, flags, item):
-    """What a later slice still owns raises NotImplementedError naming it;
-    --profile (ROADMAP item 6c) is ported and passes the refusals
-    (tests/test_torch_tools_cli.py runs it)."""
+    """Multi-GPU is ported (tests/test_torch_parallel_*.py): without a
+    process group the world size is 1, so --tp and --ndevices above it
+    raise JAX's ValueErrors before the model is built; --ep alone passes
+    (JAX ignores it without --tp); --profile (ROADMAP item 6c) passes the
+    refusals (tests/test_torch_tools_cli.py runs it); --scanblocks is on
+    ROADMAP's leave-out list and raises NotImplementedError naming it."""
     from segtran_tpu_torch.cli import train2d
+    from segtran_tpu_torch.parallel.mesh import resolve_ndevices
     argv = ["--device", "cpu", "--ckptdir", str(tmp_path)] + flags
     if item is None:
-        train2d._refuse_later_slices(train2d.build_argparser().parse_args(
-            argv))
+        args = train2d.build_argparser().parse_args(argv)
+        train2d._refuse_later_slices(args)
+        assert resolve_ndevices(args.ndevices, args.tensor_parallel) == 1
         return
-    with pytest.raises(NotImplementedError, match=item):
+    err = NotImplementedError if item == "Leave out" else ValueError
+    with pytest.raises(err, match=item):
         train2d.main(argv)
 
 

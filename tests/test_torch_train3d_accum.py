@@ -41,5 +41,7 @@ def test_train3d_cli_and_test3d_on_its_checkpoint(tmp_path):
         "--attractors", "8", "--cpdir", ckpt_dir, "--iters", "2",
         "--wholevol", "--fused", "--dataroot", root, "--device", "cpu"])
     assert len(results[2]) == 3 and np.isfinite(results[2]).all()
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # multi-GPU is ported: without a process group --tp 2 meets JAX's
+    # ValueError (tests/test_torch_parallel_cli3d.py runs it under one)
+    with pytest.raises(ValueError, match="--tp 2 must divide device count 1"):
         train3d.main(["--tp", "2", "--device", "cpu"])
