@@ -9,17 +9,21 @@ MSD tasks: ``--net segtran`` (Segtran3d, ``--segtran 25d`` Segtran25d),
 Per volume (``evaluate_volume``): the whole volume, zero-padded up to
 multiples of (16, 16, 8), in one forward (``--wholevol``) or
 overlapping windows; sigmoid; BraTS predictions made
-class-consistent (WT >= TC >= ET); per-class metrics on the hardened map;
+class-consistent (WT >= TC >= ET); per-class metrics on the hardened map
+(Dice and Jaccard from voxel counts taken on the device, where the ground
+truth is built; the hard map comes back as uint8);
 with ``--outdir`` the raw-label prediction (BraTS: ET written back as 4)
 as ``.npz`` (and ``.nii.gz`` when nibabel is installed), tarred into
 ``pred.tar``. ``--testinterp`` scores the ground truth down- and
 upsampled instead of a model. The 3-D zoo nets halve every axis four
 times: a (padded) volume whose sizes are not multiples of 16 raises a
 ValueError naming its shape. Each volume records its stages as spans
-(``utils/tracing.py``): ``test3d.ground_truth``, ``test3d.upload``,
-``test3d.forward`` (pad, model, sigmoid), ``test3d.harden`` (the BraTS
-consistency fix and the hard map), ``test3d.fetch`` (the hard map to the
-host) and ``test3d.score`` (the metrics); the log's last line gives each
+(``utils/tracing.py``): ``test3d.ground_truth`` (the label up, the n-hot
+map built on the device), ``test3d.upload``, ``test3d.forward`` (pad,
+model, sigmoid), ``test3d.harden`` (the BraTS consistency fix, the hard
+map and its overlap counts), ``test3d.fetch`` (the hard map to the host)
+and ``test3d.score`` (the counts read back, the metrics; with medpy the
+ground truth fetched for the surface metrics); the log's last line gives each
 one's mean ms over the run (none with SEGTRAN_TRACE=0). ``--flop`` logs
 the parameters and one forward's FLOPs and bytes at the input patch
 (``tools/flops.py``).
@@ -55,8 +59,7 @@ from ..configs.presets import TASK_SETTINGS
 from ..data.labelmaps import harden_segmap, index_to_onehot
 from ..data.labelmaps3d import (brats_inv_map_label, brats_map_label,
                                 make_brats_pred_consistent)
-from ..infer.metrics import (dice_score_nd, jaccard_score, log_metric_stack,
-                             surface_metrics)
+from ..infer.metrics import have_medpy, log_metric_stack, surface_metrics
 from ..infer.sliding import sliding_window_3d
 from ..models.segtran3d import Segtran3d, init_segtran3d
 from ..models.segtran25d import Segtran25d
@@ -348,9 +351,12 @@ def interp_probs(gt: torch.Tensor, factors) -> torch.Tensor:
     return resize_linear(nearest_downsample(gt, factors), gt.shape[:3])[0]
 
 
-def ground_truth(label: np.ndarray, task_name: str, num_classes: int):
-    """n-hot [H, W, D, C]: the BraTS region map, else one-hot."""
-    lab = torch.from_numpy(np.ascontiguousarray(label))
+def ground_truth(label: np.ndarray, task_name: str, num_classes: int,
+                 device=None):
+    """n-hot [H, W, D, C] on ``device``: the BraTS region map, else
+    one-hot. The label goes up as it is (uint8 on BraTS, a sixteenth of
+    the fp32 map) and the map is built there."""
+    lab = torch.from_numpy(np.ascontiguousarray(label)).to(device)
     if task_name == "brats":
         return brats_map_label(lab)
     return index_to_onehot(lab, num_classes)
@@ -364,18 +370,18 @@ STAGES = ("test3d.ground_truth", "test3d.upload", "test3d.forward",
 
 def evaluate_volume(model_fn, sample, args, task, device):
     """One volume: sample {'image' [H, W, D, C], 'label' [H, W, D]} ->
-    (probs [H, W, D, classes] on ``device``, hard n-hot numpy,
-    {metric: [per class 1..C-1]}). A ``model_fn`` of
+    (probs [H, W, D, classes] on ``device``, hard n-hot uint8 numpy over
+    memory of its own, {metric: [per class 1..C-1]}). A ``model_fn`` of
     ``parallel/spatial.sharded_whole_volume_apply`` over more than one
     rank (whole volumes) takes this rank's H slab and returns its slab of
     the logits; the Dice and Jaccard come from the ranks' all-reduced
-    sums, the hard map is gathered, and ``probs`` is the rank's H slab
+    voxel counts, the hard map is gathered, and ``probs`` is the rank's H slab
     (the whole volume's with --outdir)."""
     num_classes = task["num_classes"]
     is_brats = args.task_name == "brats"
     n = next(_VOLUMES)
     t = time.time_ns()
-    gt = ground_truth(sample["label"], args.task_name, num_classes)
+    gt = ground_truth(sample["label"], args.task_name, num_classes, device)
     t = tracing.record("test3d.ground_truth", t, item=n)
     vol = torch.from_numpy(np.ascontiguousarray(sample["image"]))[None]
     vol = vol.to(device)
@@ -384,8 +390,7 @@ def evaluate_volume(model_fn, sample, args, task, device):
              and getattr(model_fn, "count", 1) > 1 else None)
     with torch.inference_mode():
         if args.test_interp:
-            probs = interp_probs(gt.to(device),
-                                 str(args.test_interp).split(","))
+            probs = interp_probs(gt, str(args.test_interp).split(","))
         elif args.wholevol:
             sp = vol.shape[1:4]
             pads = [(-s) % m for s, m in zip(sp, WHOLEVOL_MULTIPLES)]
@@ -409,34 +414,46 @@ def evaluate_volume(model_fn, sample, args, task, device):
         if is_brats:
             probs = make_brats_pred_consistent(probs)
         hard = harden_segmap(probs)
+        overlap = slab_overlap(hard, gt, group)
         if group is not None:
-            overlap = slab_overlap(hard, gt.to(device), group)
             hard = gather_slabs(hard, group, axis=0)
-            gt = gather_slabs(gt.to(device), group, axis=0).cpu()
+            gt = gather_slabs(gt, group, axis=0)
             if args.outdir:
                 probs = gather_slabs(probs, group, axis=0)
         t = tracing.record("test3d.harden", t, item=n)
-        hard = hard.cpu().numpy()
-    gt = gt.numpy()
+        hard = to_host(hard.to(torch.uint8))
     t = tracing.record("test3d.fetch", t, item=n)
     metrics = {"dice": [], "jaccard": [], "hd95": [], "asd": []}
+    counts = overlap.tolist()
+    # the surface metrics need both maps on the host; without medpy they
+    # are NaN and the ground truth stays where it was built
+    gt = to_host(gt.to(torch.uint8)) if have_medpy() else None
     for cls in range(1, num_classes):
-        if group is None:
-            metrics["dice"].append(dice_score_nd(hard[..., cls],
-                                                 gt[..., cls]))
-            metrics["jaccard"].append(jaccard_score(hard[..., cls],
-                                                    gt[..., cls]))
-        else:
-            inter, n_pred, n_gt = (float(v) for v in overlap[:, cls])
-            metrics["dice"].append((2 * inter + 1e-5)
-                                   / (n_pred + n_gt + 1e-5))
-            metrics["jaccard"].append((inter + 1e-5)
-                                      / (n_pred + n_gt - inter + 1e-5))
-        hd, asd = surface_metrics(hard[..., cls], gt[..., cls])
+        # the counts are exact integers, so these float64 formulas give the
+        # bits that float64 sums over the maps would
+        inter, n_pred, n_gt = (float(counts[i][cls]) for i in range(3))
+        metrics["dice"].append((2 * inter + 1e-5) / (n_pred + n_gt + 1e-5))
+        metrics["jaccard"].append((inter + 1e-5)
+                                  / (n_pred + n_gt - inter + 1e-5))
+        hd, asd = ((float("nan"), float("nan")) if gt is None else
+                   surface_metrics(hard[..., cls], gt[..., cls]))
         metrics["hd95"].append(hd)
         metrics["asd"].append(asd)
     tracing.record("test3d.score", t, item=n)
     return probs, hard, metrics
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array over memory of its own, which no later call
+    reuses while the array lives (a caller may keep it across volumes): on
+    CUDA copied into fresh page-locked memory, the stream then
+    synchronised."""
+    if t.device.type != "cuda":
+        return t.cpu().numpy()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return out.numpy()
 
 
 def _export(probs, hard, name, outdir, is_brats):

@@ -1,6 +1,7 @@
 """Evaluation metrics: per-image 2-D Dice on tensors, and for volumes
-Dice and Jaccard over all voxels, and Hausdorff95 / average surface
-distance through medpy where it is installed (counterpart of
+Hausdorff95 / average surface distance through medpy where it is
+installed (a volume's Dice and Jaccard come from voxel counts on the
+device, ``parallel/spatial.slab_overlap``; counterpart of
 ``segtran_tpu/infer/metrics.py``; reference test_util2d.py:229-265,
 test_util3d.py:186-215)."""
 from __future__ import annotations
@@ -52,24 +53,6 @@ def batch_dice_per_class(pred_hard: torch.Tensor, gt: torch.Tensor,
     inter = (p * g).sum(1)
     denom = (p * p).sum(1) + (g * g).sum(1)
     return (2 * inter + 1e-5) / (denom + 1e-5)
-
-
-def dice_score_nd(pred: np.ndarray, gt: np.ndarray,
-                  smooth: float = 1e-5) -> float:
-    """Dice over all dims (medpy dc with smoothing)."""
-    pred = pred.astype(np.float64)
-    gt = gt.astype(np.float64)
-    inter = float((pred * gt).sum())
-    return (2 * inter + smooth) / (float(pred.sum() + gt.sum()) + smooth)
-
-
-def jaccard_score(pred: np.ndarray, gt: np.ndarray,
-                  smooth: float = 1e-5) -> float:
-    pred = pred.astype(np.float64)
-    gt = gt.astype(np.float64)
-    inter = float((pred * gt).sum())
-    union = float(pred.sum() + gt.sum()) - inter
-    return (inter + smooth) / (union + smooth)
 
 
 def surface_metrics(pred: np.ndarray, gt: np.ndarray,

@@ -83,10 +83,11 @@ def sharded_whole_volume_apply(model, mesh, spatial_axis: str = "model",
 
 def slab_overlap(pred: torch.Tensor, gt: torch.Tensor, group):
     """Per class (last axis) [intersection, |pred|, |gt|] of two n-hot
-    slabs, summed over the group's slabs: the full volume's (fp64)."""
-    p, g = pred.double(), gt.double()
+    slabs, summed over the group's slabs: the full volume's (int64 counts
+    of the voxels set, exact; ``group`` None counts the slab alone)."""
+    p, g = pred.bool(), gt.bool()
     dims = tuple(range(p.dim() - 1))
-    sums = torch.stack([(p * g).sum(dims), p.sum(dims), g.sum(dims)])
+    sums = torch.stack([(p & g).sum(dims), p.sum(dims), g.sum(dims)])
     if group is not None and dist.get_world_size(group) > 1:
         dist.all_reduce(sums, group=group)
     return sums
