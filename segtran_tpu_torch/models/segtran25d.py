@@ -22,9 +22,16 @@ and a hidden dropout above 0 the tail runs unfactored with dropout before
 recomputes the backbone and the encoder, ``cfg.remat_blocks`` each
 EfficientNet block, in the backward (``nn/remat.py``). Volumes are
 [B, H, W, D, C] channels-last. Module names follow the JAX package.
+
+Each forward records two spans (``utils/tracing.py``): ``segtran25d.backbone``
+(the depth fold, the per-slice backbone and the 2-D input FPN, up to the
+depth-pooled volume) and ``segtran25d.out_fpn`` (from the fused tokens to
+the logits), and adds the slices its backbone took to the counter
+``segtran25d.slices``.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -38,6 +45,7 @@ from ..nn.heads import (Conv1x1Params, apply_pointwise, compose_1x1,
 from ..nn.poscode import gen_all_indices
 from ..nn.remat import remat
 from ..ops.resize import avg_pool_nhwc, resize_linear
+from ..utils import tracing
 from .segtran2d import _conv1x1, _GroupNorm, make_backbone
 
 
@@ -145,6 +153,7 @@ class Segtran25d(nn.Module):
         """batch [B, H, W, D, C] -> logits [B, H, W, D, num_classes] fp32."""
         cfg = self.cfg
         dt = cfg.dtype
+        t = time.time_ns()
         b, h, w, d, c = batch.shape
         d_orig = d
         g = cfg.D_groupsize
@@ -179,6 +188,8 @@ class Segtran25d(nn.Module):
         maskv = nonzero_mask.reshape(b, d, h2, w2).permute(0, 2, 3, 1)
         maskv = resize_linear(maskv[..., None], (h2, w2, d3))[..., 0]
         vmask = (maskv >= 0.5).to(dt)
+        tracing.record("segtran25d.backbone", t)
+        tracing.count("segtran25d.slices", b * d)
         n = h2 * w2 * d3
         vfeat_fpn = vol.reshape(b, n, cfg.trans_in_dim)
         self.last_grid = (h2, w2, d3)
@@ -202,10 +213,18 @@ class Segtran25d(nn.Module):
         vfeat_fused = (remat(self.voxel_fusion, *enc_args) if rematted
                        else self.voxel_fusion(*enc_args))
         vfeat_fused = vfeat_fused.reshape(b, h2, w2, d3, cfg.trans_out_dim)
+        t = time.time_ns()
+        scores = self._out_fpn(feats, vfeat_fused, b, d)
+        scores = resize_linear(scores.float(), (h, w, d_orig))
+        tracing.record("segtran25d.out_fpn", t)
+        return scores
 
+    def _out_fpn(self, feats, vfeat_fused, b, d):
+        """The fused tokens [B, H2, W2, D3, F] and the per-slice pyramid
+        to the class scores, depth last, before the resize to the input."""
+        cfg, dt = self.cfg, self.cfg.dtype
         if not self.do_out_fpn:
-            scores = apply_pointwise(vfeat_fused, *self.out_conv3d.matrix())
-            return resize_linear(scores.float(), (h, w, d_orig))
+            return apply_pointwise(vfeat_fused, *self.out_conv3d.matrix())
 
         def to_vol(f2d):
             hh, ww = f2d.shape[1:3]
@@ -224,10 +243,8 @@ class Segtran25d(nn.Module):
                     else norm.run(upconv, dt) + higher)
         if (cfg.out_fpn_do_dropout and self.training
                 and cfg.hidden_dropout_prob > 0):
-            scores = self._unfactored_tail(curr, vfeat_fused)
-        else:
-            scores = self._factored_tail(curr, vfeat_fused)
-        return resize_linear(scores.float(), (h, w, d_orig))
+            return self._unfactored_tail(curr, vfeat_fused)
+        return self._factored_tail(curr, vfeat_fused)
 
     def _factored_tail(self, curr, vfeat_fused):
         """The linear tail reassociated (nn/heads.py), depth last."""

@@ -23,6 +23,13 @@ gradients, and the step averages its gradients over the group
 (``average_gradients``). Rows are split evenly, so the mean of the ranks'
 means is the global mean. Without a group, or with one rank, every helper
 is the identity.
+
+Every all-reduce of these helpers is counted (``utils/tracing.py``
+counters ``dp.allreduce_calls`` and ``dp.allreduce_bytes``: a statistics
+all-reduce in the forward, its gradient's in the backward, each gradient
+all-reduce), and ``average_gradients`` records its all-reduces as the span
+``dp.grad_allreduce``: the host's enqueue of them (NCCL runs them on the
+device after it returns).
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from ..utils import tracing
 
 _HALF = (torch.bfloat16, torch.float16)
 
@@ -185,6 +194,13 @@ def global_rows(draw, batch: int, *args, **kwargs):
     return take(out)
 
 
+def _all_reduce(x: torch.Tensor, group) -> None:
+    """``dist.all_reduce`` (sum) in place, counted."""
+    tracing.count("dp.allreduce_calls")
+    tracing.count("dp.allreduce_bytes", x.numel() * x.element_size())
+    dist.all_reduce(x, group=group)
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the group's ranks; the gradient of each rank's input is the
     sum of the ranks' gradients of the output."""
@@ -193,13 +209,13 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
+        _all_reduce(y, group)
         return y
 
     @staticmethod
     def backward(ctx, grad):
         g = grad.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        _all_reduce(g, ctx.group)
         return g, None
 
 
@@ -241,14 +257,15 @@ def average_gradients(params) -> None:
     for p in params:
         if p.grad is not None:
             by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-    for grads in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in grads])
-        dist.all_reduce(flat, group=g)
-        flat.div_(n)
-        off = 0
-        for t in grads:
-            t.copy_(flat[off:off + t.numel()].view_as(t))
-            off += t.numel()
+    with tracing.span("dp.grad_allreduce"):
+        for grads in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in grads])
+            _all_reduce(flat, g)
+            flat.div_(n)
+            off = 0
+            for t in grads:
+                t.copy_(flat[off:off + t.numel()].view_as(t))
+                off += t.numel()
 
 
 def batch_norm_train(x: torch.Tensor, bn: nn.Module, momentum: float,

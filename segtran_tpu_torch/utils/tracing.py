@@ -21,8 +21,14 @@ stage that waits for the device (a copy to the host) holds the wait.
 Spans sit at stage boundaries only, never per layer or per tensor; one
 costs a few microseconds of host time.
 
+Counters sit beside them: ``count(name, n)`` adds ``n`` to a running
+total (the slices a forward folded into its batch, the all-reduces of a
+data-parallel step and their bytes), ``counters()`` reads a copy of
+every total; a reader takes the difference of two copies over the items
+between them.
+
 Recording is on unless ``SEGTRAN_TRACE=0`` is in the environment at
-import, which makes ``span`` and ``record`` record nothing
+import, which makes ``span``, ``record`` and ``count`` record nothing
 (``ENABLED``). Every thread records into one ``Recorder``: the newest
 ``CAPACITY`` spans in a ring, and per name a whole-run histogram of
 durations in ``BUCKETS_PER_OCTAVE`` log-spaced buckets, whose memory
@@ -120,6 +126,7 @@ class Recorder:
     def __init__(self, capacity: int = CAPACITY):
         self._ring: "collections.deque" = collections.deque(maxlen=capacity)
         self._hist: Dict[str, Histogram] = {}
+        self._counts: Dict[str, int] = {}
         self._lock = threading.Lock()
         self._local = threading.local()
 
@@ -167,6 +174,16 @@ class Recorder:
             ring = list(self._ring)
         return [s for s in ring if s.name == name and s.t1 >= lo
                 and s.t0 <= hi]
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the counter ``name``."""
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + n
+
+    def counters(self) -> Dict[str, int]:
+        """A copy of every counter's total."""
+        with self._lock:
+            return dict(self._counts)
 
     def histogram(self, name: str) -> Histogram:
         """A copy of the whole run's histogram of ``name``."""
@@ -250,7 +267,14 @@ def record(name: str, t0_ns: int, t1_ns: Optional[int] = None,
     return RECORDER.record(name, t0_ns, t1_ns, item) if ENABLED else 0
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` (nothing with recording off)."""
+    if ENABLED:
+        RECORDER.count(name, n)
+
+
 spans = RECORDER.spans
+counters = RECORDER.counters
 histogram = RECORDER.histogram
 snapshot = RECORDER.snapshot
 means_ms = RECORDER.means_ms
